@@ -1,33 +1,52 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``diffassemble_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py              # the smoke run
-    python3 chip_smoke.py --profile    # one serving request under torch.profiler
+    python3 chip_smoke.py                  # the smoke run
+    python3 chip_smoke.py --profile        # one serving request under torch.profiler
+    python3 chip_smoke.py --profile train  # one full-width train step under torch.profiler
 
 Phases, each ending in a line with the elapsed seconds:
 
 1. environment: the card's name and power limit (nvidia-smi), device count;
-2. build: the masked-attention kernel from ``csrc/`` with nvcc (-Xptxas -v);
-3. kernel against its plain PyTorch version on the card: expander + virtual
-   nodes, fully connected, padded empty rows, and N = 200, at head widths 32
-   and 144, in bf16 and f32; then the kernel, plain and
-   ``scaled_dot_product_attention`` times at the serving shapes;
-4. the slice: the flagship 30×30 rotation config from
+2. build: the three masked-attention kernels from ``csrc/`` with nvcc (one
+   nvcc per source, in parallel; -Xptxas -v);
+3. the forward kernel against its plain PyTorch version on the card:
+   the 10% expander + 8 virtual nodes at the main paths' batches (B = 1 for a
+   request, B = 8 for a train step), the same with padded nodes and empty
+   rows, fully connected, and N = 200, at head widths 32 and 144, in bf16 and
+   f32; then the two backward kernels (dQ, and dK/dV) against theirs over the
+   same masks, with exact zeros on empty query rows and unattended keys;
+4. timing of the three kernels, their plain versions and the PyTorch calls
+   (``scaled_dot_product_attention`` forward, and one backward of it, which
+   computes dQ, dK and dV together) at the serving shapes (B = 1) and the
+   training shapes (B = 8), H = 8, N = 908;
+5. serving, the first main path: the flagship 30×30 rotation config from
    ``weights/diffusion2d_rot30/config.json`` (JSON only) with seeded weights;
    one denoiser call with the kernel against the same call with plain
-   attention; a 6×6 sample on the card against the same model on the CPU;
-   then ``PuzzleSolver.predict_array`` on 3 seeded 960×960 images, counting
-   the kernel's launches (4 layers × 30 steps per request).
+   attention; a 6×6 sample on the card against the CPU; then
+   ``PuzzleSolver.predict_array`` on 3 seeded 960×960 images, with exactly
+   120 forward launches (4 layers × 30 steps) and no backward launch each;
+6. training: a full-width f32 step's gradients with the kernels against the
+   same step with plain attention (every query/key/value weight gets a
+   finite, nonzero gradient); a 6×6 f32 train step on the card against the
+   CPU; then the second main path, ``run_2d`` of the rotation CLI with the
+   flagship's flags at batch 8 on 30×30 puzzles: a sanity eval, 3 steps
+   with exactly 4 + 4 + 4 kernel launches each, a checkpoint, and a resume
+   that continues from it for 2 more steps.
 
 The last three lines are the nvidia-smi line, a JSON object describing the
-kernel, and ``{"ok": true, "device": {...}}``. Any failure raises, and the
+kernels, and ``{"ok": true, "device": {...}}``. Any failure raises, and the
 script exits non-zero without printing the last line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import subprocess
+import sys
+import tempfile
 import time
 from pathlib import Path
 from unittest import mock
@@ -37,10 +56,26 @@ CONFIG = ROOT / "weights" / "diffusion2d_rot30" / "config.json"
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, NVIDIA H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # non-tensor-core f32 peak
 H100_BYTES_PER_S = 3.35e12
-SERVE_N = 908  # 900 pieces + 8 virtual nodes
-SERVE_HEADS = 8
-SERVE_STEP_LAUNCHES = ((32, 3), (144, 1))  # (head width, launches) per denoiser step
+N_NODES = 908  # 900 pieces + 8 virtual nodes
+HEADS = 8
+STEP_LAUNCHES = ((32, 3), (144, 1))  # (head width, launches) per denoiser step or train step
 REQUESTS = 3
+TRAIN_BATCH = 8
+TRAIN_STEPS, RESUME_STEPS = 3, 2
+# the flagship's training recipe on the rotation CLI (weights/diffusion2d_rot30/config.json
+# and data.json; batch 8 as the 900-piece recipe); encoder_init is left out: the
+# pretrained npz is not in the chip copy, and the weights are seeded
+TRAIN_FLAGS = [
+    "--backbone", "efficientnet_b0", "-dataset", "synthetic", "-puzzle_sizes", "30",
+    "--degree", "10%", "--unique_graph", "true", "-batch_size", str(TRAIN_BATCH),
+    "--aux_loss_weight", "0.1", "--warmup_steps", "500", "--compute_dtype", "bfloat16",
+    "--device", "cuda",
+]
+KERNEL_SOURCES = {
+    "masked_attention_fwd": "diffassemble_tpu_torch/csrc/masked_attention_fwd.cu",
+    "masked_attention_bwd_dq": "diffassemble_tpu_torch/csrc/masked_attention_bwd.cu",
+    "masked_attention_bwd_dkv": "diffassemble_tpu_torch/csrc/masked_attention_bwd.cu",
+}
 
 _T0 = time.perf_counter()
 
@@ -70,13 +105,24 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(b: int, n: int, h: int, dh: int, elem_bytes: int) -> tuple[float, str]:
-    """Least time on an H100 for one forward: the larger of operations over
-    the peak rate for the type and bytes (q, k, v, O, L once, mask once) over
-    the memory rate."""
-    flops = 4.0 * b * h * n * n * dh
-    nbytes = 4.0 * b * n * h * dh * elem_bytes + b * n * n + 4.0 * b * h * n
-    t_ops = flops / (H100_BF16_FLOPS if elem_bytes == 2 else H100_F32_FLOPS)
+def bound_ms(kernel: str, b: int, n: int, h: int, dh: int, elem_bytes: int) -> tuple[float, str]:
+    """Least time on an H100 for one launch: the larger of its operations over
+    the peak rate for the type and the bytes it must move (each input read
+    once, each output written once) over the memory rate.
+
+    forward: S and O·V, 4·B·H·N²·Dh; reads q, k, v and the mask, writes O, L.
+    dQ: S, dP and dQ, 6·B·H·N²·Dh; reads q, k, v, dO, L, Δ and the mask, writes dQ.
+    dK/dV: S, dP, dV and dK, 8·B·H·N²·Dh; reads q, k, v, dO, L, Δ and the mask,
+    writes dK and dV."""
+    tensor = b * n * h * dh * elem_bytes  # one (B, N, H, Dh) tensor
+    row = 4.0 * b * h * n  # one (B, H, N) f32 tensor
+    mask = b * n * n
+    flops, nbytes = {
+        "masked_attention_fwd": (4, 4 * tensor + row + mask),
+        "masked_attention_bwd_dq": (6, 5 * tensor + 2 * row + mask),
+        "masked_attention_bwd_dkv": (8, 6 * tensor + 2 * row + mask),
+    }[kernel]
+    t_ops = flops * b * h * n * n * dh / (H100_BF16_FLOPS if elem_bytes == 2 else H100_F32_FLOPS)
     t_bytes = nbytes / H100_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -90,6 +136,7 @@ def environment() -> tuple[str, str, int]:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
+    # f32 comparisons on the card run in full f32: no TF32 in matmuls or cuDNN convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -103,13 +150,29 @@ def build() -> None:
 
     lib = cuda_attention.load_library()
     for line in lib.compiler_log.splitlines():
-        if "ptxas" in line or "spill" in line:
+        if line.startswith("==") or "registers" in line or "spill" in line:
             print("  " + line.strip(), flush=True)
-    phase(f"build: {lib.path.name} in {lib.build_seconds:.2f} s")
+    phase(f"build: {', '.join(p.name for p in lib.paths.values())} in {lib.build_seconds:.2f} s")
+
+
+def reset_counts() -> None:
+    from diffassemble_tpu_torch.ops import cuda_attention
+
+    for kern in cuda_attention.KERNELS:
+        kern.launches = 0
+
+
+def read_counts() -> dict[str, int]:
+    from diffassemble_tpu_torch.ops import cuda_attention
+
+    return {kern.__name__: kern.launches for kern in cuda_attention.KERNELS}
 
 
 def _masks(torch, np):
-    """(label, mask (B, N, N) bool on the card) for each checked topology."""
+    """(label, mask (B, N, N) bool on the card) for each checked topology: the
+    main paths' own (the 10% expander plus 8 virtual nodes, at B = 1 as a
+    request runs it and shared across B = 8 as a train step runs it), then
+    padded nodes and empty rows, fully connected, and a ragged N = 200."""
     from diffassemble_tpu_torch.data.expander import expander_mask
     from diffassemble_tpu_torch.ops.attention import (
         build_adjacency_mask,
@@ -118,16 +181,18 @@ def _masks(torch, np):
 
     rng = np.random.default_rng(0)
     topo = torch.as_tensor(expander_mask(900, "10%", rng))
-    all_valid = torch.ones((2, 900), dtype=torch.bool)
-    padded = all_valid.clone()
+    padded = torch.ones((2, 900), dtype=torch.bool)
     padded[1, 850:] = False  # 50 padded pieces: their rows and columns are empty
     out = []
-    for label, node_mask in (("expander10%+8virt", all_valid), ("expander10%+8virt, 50 padded", padded)):
+    for label, node_mask in (("expander10%+8virt, B=1 (serving)", torch.ones((1, 900), dtype=torch.bool)),
+                             (f"expander10%+8virt, B={TRAIN_BATCH} (training)",
+                              torch.ones((TRAIN_BATCH, 900), dtype=torch.bool)),
+                             ("expander10%+8virt, 50 padded", padded)):
         adj, _ = extend_mask_with_virtual_nodes(build_adjacency_mask(topo, node_mask), node_mask, 8)
         if label.endswith("padded"):
             adj[0, 700:720] = False  # plus rows with no edges at all in the first graph
         out.append((label, adj))
-    out.append(("fully connected", torch.ones((2, SERVE_N, SERVE_N), dtype=torch.bool)))
+    out.append(("fully connected", torch.ones((2, N_NODES, N_NODES), dtype=torch.bool)))
     small_valid = torch.ones((2, 200), dtype=torch.bool)
     small_valid[1, 150:] = False
     small = build_adjacency_mask(torch.as_tensor(rng.random((2, 200, 200)) < 0.3), small_valid)
@@ -135,28 +200,27 @@ def _masks(torch, np):
     return [(label, m.cuda().contiguous()) for label, m in out]
 
 
-def kernel_vs_plain() -> dict:
+def kernels_vs_plain() -> dict[str, float]:
+    """Each kernel against its plain version on the same inputs; returns the
+    largest |kernel − plain| of each kernel."""
     import numpy as np
     import torch
 
-    from diffassemble_tpu_torch.ops.cuda_attention import (
-        masked_attention_fwd,
-        masked_attention_fwd_plain,
-    )
+    from diffassemble_tpu_torch.ops import cuda_attention as ca
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    max_err = 0.0
+    max_err = dict.fromkeys(KERNEL_SOURCES, 0.0)
     for label, mask in _masks(torch, np):
         b, n, _ = mask.shape
-        empty = ~mask.any(-1)  # (B, N)
+        empty = ~mask.any(-1)  # (B, N) query rows with no edges
+        unattended = ~mask.any(-2)  # (B, N) keys no query attends
         for dh in (32, 144):
             for dtype in (torch.bfloat16, torch.float32):
-                q, k, v = (torch.randn((b, n, SERVE_HEADS, dh), generator=gen, device="cuda").to(dtype)
-                           for _ in range(3))
-                o, lse = masked_attention_fwd(q, k, v, mask)
+                q, k, v, dout = (torch.randn((b, n, HEADS, dh), generator=gen, device="cuda").to(dtype)
+                                 for _ in range(4))
+                o, lse = ca.masked_attention_fwd(q, k, v, mask)
                 torch.cuda.synchronize()
-                o_p, lse_p = masked_attention_fwd_plain(q, k, v, mask)
-                torch.cuda.synchronize()
+                o_p, lse_p = ca.masked_attention_fwd_plain(q, k, v, mask)
                 of, opf = o.float(), o_p.float()
                 vmax = v.float().abs().max().item()
                 if dtype == torch.float32:
@@ -167,7 +231,7 @@ def kernel_vs_plain() -> dict:
                     # version's rounding of each probability to bf16 (2^-9 of max|v|)
                     tol = 2.0**-7 * opf.abs() + 2.0**-9 * vmax
                 err = (of - opf).abs()
-                nonempty = ~empty[:, None, :].expand(b, SERVE_HEADS, n)
+                nonempty = ~empty[:, None, :].expand(b, HEADS, n)
                 lse_err = (lse - lse_p).abs()[nonempty]
                 ok = (
                     bool(torch.isfinite(of).all()) and bool(torch.isfinite(lse).all())
@@ -176,58 +240,146 @@ def kernel_vs_plain() -> dict:
                     and bool((of[empty] == 0).all())
                     and torch.equal(lse[~nonempty], lse_p[~nonempty])
                 )
-                max_err = max(max_err, err.max().item())
-                phase(f"kernel vs plain: {label:32s} N={n} Dh={dh:3d} {str(dtype)[6:]:8s} "
+                max_err["masked_attention_fwd"] = max(max_err["masked_attention_fwd"], err.max().item())
+                phase(f"fwd vs plain: {label:34s} B={b} N={n} Dh={dh:3d} {str(dtype)[6:]:8s} "
                       f"max|dO|={err.max().item():.3e} max|dL|={lse_err.max().item():.3e} "
                       f"empty rows={int(empty.sum())} {'ok' if ok else 'FAIL'}")
                 if not ok:
-                    raise AssertionError(f"kernel disagrees with its plain version: {label} Dh={dh} {dtype}")
+                    raise AssertionError(f"forward kernel disagrees with its plain version: {label} Dh={dh} {dtype}")
 
-    # times at the serving shapes: one puzzle, fully connected, bf16
-    per_shape = []
-    mask = torch.ones((1, SERVE_N, SERVE_N), dtype=torch.bool, device="cuda")
-    for dh, count in SERVE_STEP_LAUNCHES:
-        q, k, v = (torch.randn((1, SERVE_N, SERVE_HEADS, dh), generator=gen, device="cuda")
-                   .to(torch.bfloat16) for _ in range(3))
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        sdpa_mask = mask[:, None]
-        ms = cuda_ms(lambda: masked_attention_fwd(q, k, v, mask))
-        plain_ms = cuda_ms(lambda: masked_attention_fwd_plain(q, k, v, mask))
-        library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=sdpa_mask))
-        bound, bound_by = attention_bound_ms(1, SERVE_N, SERVE_HEADS, dh, 2)
-        per_shape.append({"dh": dh, "launches_per_step": count, "ms": ms, "plain_ms": plain_ms,
-                          "library_ms": library_ms, "bound_ms": bound, "bound_by": bound_by})
-        phase(f"timing B=1 N={SERVE_N} H={SERVE_HEADS} Dh={dh} bf16: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound:.5f} ms ({bound_by})")
-    return {"max_abs_err": max_err, "per_shape": per_shape}
+                # the backward kernels, from this forward's O and L
+                delta = ca.attention_delta(dout, o)
+                dq = ca.masked_attention_bwd_dq(q, k, v, mask, dout, lse, delta)
+                dk, dv = ca.masked_attention_bwd_dkv(q, k, v, mask, dout, lse, delta)
+                torch.cuda.synchronize()
+                dq_p = ca.masked_attention_bwd_dq_plain(q, k, v, mask, dout, lse, delta)
+                dk_p, dv_p = ca.masked_attention_bwd_dkv_plain(q, k, v, mask, dout, lse, delta)
+                # f32: 1e-5 relative plus 1e-5 of max|ref| (sums of ~N products in
+                # another order); bf16: one bf16 ulp (2^-7 relative) plus 1e-4 of
+                # max|ref| (the same f32 sums, then rounded once to bf16)
+                rel, floor = (1e-5, 1e-5) if dtype == torch.float32 else (2.0**-7, 1e-4)
+                errs, ok = {}, True
+                for key, got, ref in (("dQ", dq, dq_p), ("dK", dk, dk_p), ("dV", dv, dv_p)):
+                    gf, rf = got.float(), ref.float()
+                    e = (gf - rf).abs()
+                    errs[key] = e.max().item()
+                    ok &= bool(torch.isfinite(gf).all()) and got.dtype == dtype
+                    ok &= bool((e <= rel * rf.abs() + floor * rf.abs().max()).all())
+                zeros = (bool((dq[empty] == 0).all()) and bool((dk[unattended] == 0).all())
+                         and bool((dv[unattended] == 0).all()))
+                max_err["masked_attention_bwd_dq"] = max(max_err["masked_attention_bwd_dq"], errs["dQ"])
+                max_err["masked_attention_bwd_dkv"] = max(max_err["masked_attention_bwd_dkv"], errs["dK"],
+                                                          errs["dV"])
+                phase(f"bwd vs plain: {label:34s} B={b} N={n} Dh={dh:3d} {str(dtype)[6:]:8s} "
+                      f"max|ddQ|={errs['dQ']:.3e} max|ddK|={errs['dK']:.3e} max|ddV|={errs['dV']:.3e} "
+                      f"unattended keys={int(unattended.sum())} exact zeros {zeros} {'ok' if ok and zeros else 'FAIL'}")
+                if not (ok and zeros):
+                    raise AssertionError(f"backward kernels disagree with their plain versions: {label} Dh={dh} {dtype}")
+    return max_err
 
 
-def the_slice() -> tuple[int, list[float]]:
+def timing() -> list[dict]:
+    """Kernel, plain and library times at the serving (B = 1, forward) and
+    training (B = 8, all three) shapes, bf16, fully connected mask. The
+    library's backward is one SDPA backward, which computes dQ, dK and dV
+    together: both backward rows carry that one time, to be set against the
+    sum of the two kernels' times."""
+    import torch
+
+    from diffassemble_tpu_torch.ops import cuda_attention as ca
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for b in (1, TRAIN_BATCH):
+        mask = torch.ones((b, N_NODES, N_NODES), dtype=torch.bool, device="cuda")
+        for dh, count in STEP_LAUNCHES:
+            q, k, v, dout = (torch.randn((b, N_NODES, HEADS, dh), generator=gen, device="cuda")
+                             .to(torch.bfloat16) for _ in range(4))
+            o, lse = ca.masked_attention_fwd(q, k, v, mask)
+            delta = ca.attention_delta(dout, o)
+            # the library call: SDPA with the boolean mask, in its (B, H, N, Dh) layout
+            qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+            dout_t = dout.transpose(1, 2).contiguous()
+            sdpa_mask = mask[:, None]
+            with torch.no_grad():
+                lib_fwd = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=sdpa_mask))
+            out_t = sdpa(qt, kt, vt, attn_mask=sdpa_mask)
+            lib_bwd = cuda_ms(lambda: torch.autograd.grad(out_t, (qt, kt, vt), dout_t, retain_graph=True))
+            args = (q, k, v, mask, dout, lse, delta)
+            cases = [("masked_attention_fwd", lambda: ca.masked_attention_fwd(q, k, v, mask),
+                      lambda: ca.masked_attention_fwd_plain(q, k, v, mask), lib_fwd)]
+            if b == TRAIN_BATCH:
+                cases += [
+                    ("masked_attention_bwd_dq", lambda: ca.masked_attention_bwd_dq(*args),
+                     lambda: ca.masked_attention_bwd_dq_plain(*args), lib_bwd),
+                    ("masked_attention_bwd_dkv", lambda: ca.masked_attention_bwd_dkv(*args),
+                     lambda: ca.masked_attention_bwd_dkv_plain(*args), lib_bwd),
+                ]
+            for kernel, fn, plain, library_ms in cases:
+                ms, plain_ms = cuda_ms(fn), cuda_ms(plain)
+                bound, bound_by = bound_ms(kernel, b, N_NODES, HEADS, dh, 2)
+                rows.append({"kernel": kernel, "b": b, "dh": dh, "launches_per_step": count, "ms": ms,
+                             "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound,
+                             "bound_by": bound_by})
+                phase(f"timing {kernel:25s} B={b} N={N_NODES} H={HEADS} Dh={dh:3d} bf16: kernel {ms:.4f} ms, "
+                      f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {bound:.5f} ms ({bound_by})")
+            if b == TRAIN_BATCH:
+                pair = rows[-2]["ms"] + rows[-1]["ms"]
+                phase(f"timing backward pair          B={b} N={N_NODES} H={HEADS} Dh={dh:3d} bf16: dQ + dK/dV kernels "
+                      f"{pair:.4f} ms against one SDPA backward (dQ, dK, dV) {lib_bwd:.4f} ms: {pair / lib_bwd:.2f}x")
+            del out_t, qt, kt, vt
+    return rows
+
+
+class PlainAttention:
+    """Stands in for ``MaskedAttention``: the plain PyTorch attention, which
+    autograd differentiates (the CPU path)."""
+
+    @staticmethod
+    def apply(q, k, v, adj):
+        from diffassemble_tpu_torch.ops.attention import _plain_masked_attention
+
+        return _plain_masked_attention(q, k, v, adj, False)
+
+
+def flagship_config():
+    from diffassemble_tpu_torch.models import Diffusion2DConfig
+
+    return Diffusion2DConfig(**json.loads(CONFIG.read_text()))
+
+
+def seeded_puzzles(n: int, count: int, rotation: bool, rng, degree=None):
+    """``count`` n×n puzzles of seeded random images, collated; with a
+    ``degree`` the piece graph is that expander, else fully connected."""
+    import numpy as np
+
+    from diffassemble_tpu_torch.data import collate_puzzles, expander_mask, make_puzzle
+
+    samples = []
+    for _ in range(count):
+        s = make_puzzle(rng.random((n * 32, n * 32, 3)).astype(np.float32), n, n, 32, rotation=rotation, rng=rng)
+        if degree is not None:
+            s["adj"] = expander_mask(n * n, degree, rng)
+        samples.append(s)
+    return collate_puzzles(samples, n * n)
+
+
+def serving() -> tuple[dict[str, int], list[float]]:
     import dataclasses
 
     import numpy as np
     import torch
 
     from diffassemble_tpu_torch.cli.serve import PuzzleSolver
-    from diffassemble_tpu_torch.data import collate_puzzles, make_puzzle
-    from diffassemble_tpu_torch.models import Diffusion2D, Diffusion2DConfig
+    from diffassemble_tpu_torch.models import Diffusion2D
     from diffassemble_tpu_torch.ops import attention
-    from diffassemble_tpu_torch.ops.cuda_attention import (
-        masked_attention_fwd,
-        masked_attention_fwd_plain,
-    )
 
-    cfg = Diffusion2DConfig(**json.loads(CONFIG.read_text()))
+    cfg = flagship_config()
     rng = np.random.default_rng(0)
 
-    def puzzle(n: int, device: str):
-        s = make_puzzle(rng.random((n * 32, n * 32, 3)).astype(np.float32), n, n, 32,
-                        rotation=cfg.rotation, rng=rng)
-        return collate_puzzles([s], n * n).to(device)
-
     # one denoiser call: kernel attention against plain attention, bf16 and f32
-    batch = puzzle(30, "cuda")
+    batch = seeded_puzzles(30, 1, cfg.rotation, rng).to("cuda")
     for dtype_name, rel_tol in (("float32", 1e-4), ("bfloat16", 5e-2)):
         model = Diffusion2D(dataclasses.replace(cfg, compute_dtype=dtype_name), device="cuda", seed=0)
         with torch.no_grad():
@@ -236,7 +388,7 @@ def the_slice() -> tuple[int, list[float]]:
                               device="cuda")
             t = torch.full(x_t.shape[:2], 290, dtype=torch.int32, device="cuda")
             out_k = model.denoise(x_t, t, feats, batch.adj, batch.node_mask)
-            with mock.patch.object(attention, "masked_attention_fwd", masked_attention_fwd_plain):
+            with mock.patch.object(attention, "MaskedAttention", PlainAttention):
                 out_p = model.denoise(x_t, t, feats, batch.adj, batch.node_mask)
         err = (out_k - out_p).abs().max().item()
         scale = out_p.abs().max().item()
@@ -248,8 +400,8 @@ def the_slice() -> tuple[int, list[float]]:
 
     # a small puzzle end to end: the card (kernel) against the CPU (plain), f32
     small_cfg = dataclasses.replace(cfg, compute_dtype="float32")
-    small = puzzle(6, "cpu")
-    final_cpu = Diffusion2D(small_cfg, device="cpu", seed=0).sample(small).final
+    small = seeded_puzzles(6, 1, cfg.rotation, rng)
+    final_cpu = Diffusion2D(small_cfg, device="cpu", seed=0).sample(small.to("cpu")).final
     final_gpu = Diffusion2D(small_cfg, device="cuda", seed=0).sample(small.to("cuda")).final.cpu()
     err = (final_gpu - final_cpu).abs().max().item()
     phase(f"6x6 sample f32, card vs CPU: max|d|={err:.3e} (tol 1e-3)")
@@ -263,20 +415,22 @@ def the_slice() -> tuple[int, list[float]]:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     seconds = []
-    masked_attention_fwd.launches = 0
+    per_request = cfg.n_layers * (cfg.steps // cfg.inference_ratio)
+    reset_counts()
     for img in images:
-        start, before = time.perf_counter(), masked_attention_fwd.launches
+        start, before = time.perf_counter(), read_counts()
         out = solver.predict_array(img)
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - start)
-        launched = masked_attention_fwd.launches - before
+        launched = {k: v - before[k] for k, v in read_counts().items()}
         phase(f"request: {seconds[-1]:.3f} s, kernel launches {launched}, output {out.shape}")
-        if launched != cfg.n_layers * (cfg.steps // cfg.inference_ratio):
-            raise AssertionError(f"expected {cfg.n_layers}×{cfg.steps // cfg.inference_ratio} launches")
+        if launched != {"masked_attention_fwd": per_request, "masked_attention_bwd_dq": 0,
+                        "masked_attention_bwd_dkv": 0}:
+            raise AssertionError(f"expected {per_request} forward launches and no backward launch per request")
         if out.shape != (960, 960, 3) or not np.isfinite(out).all():
             raise AssertionError("bad output image")
-    launches = masked_attention_fwd.launches
-    phase(f"served {REQUESTS} requests: {launches} launches, "
+    counts = read_counts()
+    phase(f"served {REQUESTS} requests: launches {counts}, "
           f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
     final = solver.model.sample(batch, torch.Generator(device="cuda").manual_seed(2)).final
@@ -284,14 +438,197 @@ def the_slice() -> tuple[int, list[float]]:
     if not all(torch.isfinite(m.float()).all() for m in metrics.values()):
         raise AssertionError("non-finite metrics")
     phase(f"metrics_from_final (random weights): piece_acc {metrics['piece_acc'].tolist()}")
-    return launches, seconds
+    return counts, seconds
+
+
+def gradient_parity() -> None:
+    """A full-width f32 step's gradients with the kernels against the same
+    step with plain attention, on two 30×30 puzzles with the flagship's 10%
+    expander. Tolerance: 1e-3 of each parameter's largest gradient entry plus
+    1e-6 of the model's (sums in another order through four layers and the
+    encoder; gradients that are 0 in exact arithmetic are rounding noise)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from diffassemble_tpu_torch.models import Diffusion2D
+    from diffassemble_tpu_torch.ops import attention
+
+    cfg = dataclasses.replace(flagship_config(), compute_dtype="float32", encoder_init="")
+    batch = seeded_puzzles(30, 2, cfg.rotation, np.random.default_rng(3), degree="10%").to("cuda")
+    model = Diffusion2D(cfg, device="cuda", seed=0)
+    grads = []
+    for swap in (False, True):
+        model.zero_grad(set_to_none=True)
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        ctx = mock.patch.object(attention, "MaskedAttention", PlainAttention) if swap else contextlib.nullcontext()
+        with ctx:
+            before = read_counts()
+            loss, _ = model.loss(batch, gen)
+            loss.backward()
+            torch.cuda.synchronize()
+            launched = {k: v - before[k] for k, v in read_counts().items()}
+        if launched != dict.fromkeys(KERNEL_SOURCES, 0 if swap else cfg.n_layers):
+            raise AssertionError(f"unexpected launches {launched} (plain attention: {swap})")
+        grads.append({k: p.grad.detach().clone() for k, p in model.named_parameters()})
+    kern, plain = grads
+    gmax = max(float(g.abs().max()) for g in plain.values())
+    worst = 0.0
+    for name, g in plain.items():
+        err = float((kern[name] - g).abs().max())
+        tol = 1e-3 * float(g.abs().max()) + 1e-6 * gmax
+        worst = max(worst, err / tol)
+        if not (torch.isfinite(kern[name]).all() and err <= tol):
+            raise AssertionError(f"{name}: kernel gradient differs from plain by {err:.3e} (tol {tol:.3e})")
+    qkv = [f"denoiser.gnn.transformer.layers.{i}.{p}.weight" for i in range(cfg.n_layers)
+           for p in ("query", "key", "value")]
+    smallest = min(float(kern[n].abs().max()) for n in qkv)
+    if not smallest > 0:
+        raise AssertionError("a query/key/value weight got no gradient through the kernels")
+    phase(f"gradient parity f32, B=2 30x30: kernels vs plain attention, worst err/tol {worst:.3f} over "
+          f"{len(plain)} parameters; all {len(qkv)} query/key/value weights finite, smallest max|g| {smallest:.3e}")
+
+
+def card_vs_cpu_training() -> None:
+    """Two f32 train steps on 6×6 puzzles on the card and on the CPU, with
+    the same draws (made on the CPU): the loss within 1e-4 relative, and the
+    parameters after two steps within 1e-3 of each parameter's largest step
+    (gradients agree to ~1e-5 through another order of sums; Adafactor
+    normalises them). Where an unfactored parameter's gradient is within
+    rounding noise of 0, the direction of its step is set by that noise in
+    either run: there the step is only held to Adafactor's clip, an RMS of at
+    most lr·max(RMS(param), 1e-3)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from diffassemble_tpu_torch.models import Diffusion2D
+    from diffassemble_tpu_torch.train.adafactor import hf_relative_schedule
+    from diffassemble_tpu_torch.train.train_state import create_train_state, make_train_step
+
+    cfg = dataclasses.replace(flagship_config(), compute_dtype="float32", encoder_init="")
+    host = seeded_puzzles(6, 2, cfg.rotation, np.random.default_rng(5), degree="10%")
+    draw_gen = torch.Generator().manual_seed(6)
+    draws = [dict(t_graph=torch.randint(0, cfg.steps, (2,), generator=draw_gen),
+                  noise=torch.randn(host.x0.shape, generator=draw_gen)) for _ in range(2)]
+    runs = {}
+    for device in ("cpu", "cuda"):
+        model = Diffusion2D(cfg, device=device, seed=0)
+        opt = model.make_optimizer()
+        state = create_train_state(model, opt, torch.Generator(device=device).manual_seed(0))
+        it = iter(draws)
+        step = make_train_step(lambda b, g: model.loss(b, g, **{k: v.to(device) for k, v in next(it).items()}), opt)
+        batch = host.to(device)
+        before = {k: p.detach().cpu().clone() for k, p in model.named_parameters()}
+        losses = []
+        for _ in range(2):
+            state, aux = step(state, batch)
+            losses.append(float(aux["total_loss"]))
+        runs[device] = (losses, before, {k: p.detach().cpu() for k, p in model.named_parameters()},
+                        {k: p.grad.detach().cpu() for k, p in model.named_parameters()}, set(state.opt_state["v"]))
+    (l_cpu, before, p_cpu, g_cpu, unfactored), (l_gpu, _, p_gpu, _, _) = runs["cpu"], runs["cuda"]
+    if not all(math.isfinite(x) and abs(x - y) <= 1e-4 * abs(y) for x, y in zip(l_gpu, l_cpu)):
+        raise AssertionError(f"losses on the card {l_gpu} differ from the CPU's {l_cpu}")
+    lr = hf_relative_schedule(cfg.warmup_steps)(1)  # the second update's (the first is 0 in warmup)
+    gmax = max(float(g.abs().max()) for g in g_cpu.values())
+    worst, undetermined = 0.0, 0
+    for name, want in p_cpu.items():
+        d_want, d_got = want - before[name], p_gpu[name] - before[name]
+        tol = 1e-3 * float(d_want.abs().max()) + 1e-6 * want.abs()
+        g = g_cpu[name]
+        sure = torch.ones_like(g, dtype=torch.bool)
+        if name in unfactored:
+            sure = g.abs() > 1e-3 * float(g.abs().max()) + 1e-6 * gmax
+        undetermined += int((~sure).sum())
+        err = (d_got - d_want).abs()
+        # plus 1e-6 of the parameter: the rounding of p + step in float32
+        clip = lr * max(float(before[name].square().mean().sqrt()), 1e-3) * (1 + 1e-3) + 1e-6 * float(want.abs().max())
+        if not (bool(torch.isfinite(d_got).all()) and bool((err <= tol)[sure].all())
+                and float(d_got.square().mean().sqrt()) <= clip):
+            raise AssertionError(f"{name}: the card's step differs from the CPU's")
+        worst = max(worst, float((err / tol)[sure].max()) if sure.any() else 0.0)
+    phase(f"6x6 train steps f32, card vs CPU: losses {l_gpu} vs {l_cpu}; parameters after 2 steps: "
+          f"worst err/tol {worst:.3f}, {undetermined} entries with a gradient at rounding noise")
+
+
+def training(run_dir: Path) -> tuple[dict[str, int], list[float], list[dict]]:
+    """The second main path: ``run_2d`` of the rotation CLI at full width,
+    batch 8, 30×30; then a resume from its checkpoint. Each train step is
+    timed (host clock to a synchronize) and its launches counted."""
+    import torch
+
+    from diffassemble_tpu_torch.cli import train_2d_rot
+    from diffassemble_tpu_torch.train import trainer as trainer_mod
+
+    steps = []
+    make_step = trainer_mod.make_train_step
+
+    def counted_make_train_step(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def counted(state, batch):
+            torch.cuda.synchronize()
+            start, before = time.perf_counter(), read_counts()
+            new, aux = step(state, batch)
+            torch.cuda.synchronize()
+            launched = {k: v - before[k] for k, v in read_counts().items()}
+            rec = {"step": new.step, "seconds": time.perf_counter() - start, "launches": launched,
+                   **{k: float(aux[k]) for k in ("total_loss", "grad_norm", "grad_norm/encoder",
+                                                 "grad_norm/denoiser", "grad_nonfinite")}}
+            steps.append(rec)
+            phase(f"train step {rec['step']}: {rec['seconds']:.3f} s, launches {launched}, "
+                  f"loss {rec['total_loss']:.4f}, grad_norm {rec['grad_norm']:.4f} "
+                  f"(encoder {rec['grad_norm/encoder']:.4f}, denoiser {rec['grad_norm/denoiser']:.4f})")
+            return new, aux
+
+        return counted
+
+    argv = ["train_2d_rot", *TRAIN_FLAGS, "--run_dir", str(run_dir)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with mock.patch.object(trainer_mod, "make_train_step", counted_make_train_step):
+        with mock.patch.object(sys, "argv", argv + ["-max_steps", str(TRAIN_STEPS)]):
+            train_2d_rot.main()
+        first_run = len(steps)
+        with mock.patch.object(sys, "argv", argv + ["-max_steps", str(TRAIN_STEPS + RESUME_STEPS)]):
+            train_2d_rot.main()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    ckpts = sorted(int(p.name) for p in (run_dir / "checkpoints").iterdir() if p.name.isdigit())
+    expected = dict.fromkeys(KERNEL_SOURCES, 4)
+    if first_run != TRAIN_STEPS or [s["step"] for s in steps] != list(range(1, TRAIN_STEPS + RESUME_STEPS + 1)):
+        raise AssertionError(f"expected steps 1..{TRAIN_STEPS} then a resume to {TRAIN_STEPS + RESUME_STEPS}, "
+                             f"got {[s['step'] for s in steps]}")
+    for s in steps:
+        if s["launches"] != expected:
+            raise AssertionError(f"step {s['step']}: launches {s['launches']}, expected {expected}")
+        if not (math.isfinite(s["total_loss"]) and math.isfinite(s["grad_norm"]) and s["grad_nonfinite"] == 0
+                and s["grad_norm/encoder"] > 0 and s["grad_norm/denoiser"] > 0):
+            raise AssertionError(f"step {s['step']}: bad loss or gradient norms {s}")
+    if ckpts != [TRAIN_STEPS + RESUME_STEPS]:  # the latest (no eval metrics to rank by)
+        raise AssertionError(f"checkpoints {ckpts}")
+    metrics = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    sanity = [m for m in metrics if "sanity/overall__piece_acc" in m]
+    if len(sanity) != 2:
+        raise AssertionError("expected a sanity eval in each run")
+    # steady steps: every step after the first of each run (the first pays warm-up)
+    steady = [s["seconds"] for i, s in enumerate(steps) if i not in (0, first_run)]
+    phase(f"training: {len(steps)} steps (resumed at step {TRAIN_STEPS}), launches {counts}, "
+          f"steady s/step {sum(steady) / len(steady):.3f} ({', '.join(f'{x:.3f}' for x in steady)}), "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB, checkpoints {ckpts}, "
+          f"sanity piece_acc {[m['sanity/overall__piece_acc'] for m in sanity]}")
+    return counts, steady, steps
 
 
 def _family(kernel_name: str) -> str:
     name = kernel_name.lower()
-    for family, keys in (("masked_attention_fwd (this port)", ("masked_attention_fwd",)),
+    for family, keys in (("masked_attention_bwd (this port)", ("masked_attention_bwd",)),
+                         ("masked_attention_fwd (this port)", ("masked_attention_fwd",)),
                          ("matmul", ("gemm", "cutlass", "xmma", "sm90", "nvjet")),
-                         ("convolution", ("conv", "cudnn", "winograd", "implicit")),
+                         ("convolution", ("conv", "cudnn", "winograd", "implicit", "wgrad", "dgrad")),
                          ("reduction", ("reduce", "norm", "softmax")),
                          ("elementwise", ("elementwise", "vectorized", "unrolled"))):
         if any(k in name for k in keys):
@@ -299,24 +636,17 @@ def _family(kernel_name: str) -> str:
     return "other"
 
 
-def profile_request() -> None:
-    """One serving request (after one warm-up) under torch.profiler: wall
-    time, device time by kernel family and the device's idle share."""
-    import numpy as np
+def _profile(fn, label: str) -> None:
+    """Run ``fn`` once (after one warm-up) under torch.profiler: wall time,
+    device time by kernel family and the device's idle share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from diffassemble_tpu_torch.cli.serve import PuzzleSolver
-    from diffassemble_tpu_torch.models import Diffusion2DConfig
-
-    cfg = Diffusion2DConfig(**json.loads(CONFIG.read_text()))
-    solver = PuzzleSolver(cfg, seed=0, device="cuda", puzzle_size=30)
-    img = np.random.default_rng(100).random((960, 960, 3)).astype(np.float32)
-    solver.predict_array(img)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        solver.predict_array(img)
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - start)
     families: dict[str, list[float]] = {}
@@ -334,10 +664,10 @@ def profile_request() -> None:
             kernels.append((dev_us / 1e3, ev.count, ev.key))
     device_ms = sum(f[0] for f in families.values())
     if device_ms == 0:
-        phase(f"profile: request {wall_ms:.2f} ms wall; device time not measured (the trace holds none)")
+        phase(f"profile: {label} {wall_ms:.2f} ms wall; device time not measured (the trace holds none)")
         return
     launches = sum(int(f[1]) for f in families.values())
-    phase(f"profile: request {wall_ms:.2f} ms wall, {device_ms:.2f} ms in {launches} device kernels, "
+    phase(f"profile: {label} {wall_ms:.2f} ms wall, {device_ms:.2f} ms in {launches} device kernels, "
           f"device idle share {1 - device_ms / wall_ms:.3f} (one stream: kernels do not overlap)")
     for fam, (ms, calls) in sorted(families.items(), key=lambda kv: -kv[1][0]):
         phase(f"profile:   {fam:34s} {ms:9.3f} ms  {calls:6d} launches  {ms / device_ms:.3f} of device time")
@@ -345,48 +675,109 @@ def profile_request() -> None:
         phase(f"profile:     {ms:9.3f} ms {calls:6d}x  {key[:100]}")
 
 
+def profile_request() -> None:
+    import numpy as np
+
+    from diffassemble_tpu_torch.cli.serve import PuzzleSolver
+
+    solver = PuzzleSolver(flagship_config(), seed=0, device="cuda", puzzle_size=30)
+    img = np.random.default_rng(100).random((960, 960, 3)).astype(np.float32)
+    _profile(lambda: solver.predict_array(img), "request")
+
+
+def profile_train_step() -> None:
+    """One full-width train step at batch 8 (the smoke's training recipe, on
+    a batch of seeded 30×30 puzzles with one shared 10% expander)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from diffassemble_tpu_torch.models import Diffusion2D
+    from diffassemble_tpu_torch.train.train_state import create_train_state, make_train_step
+
+    cfg = dataclasses.replace(flagship_config(), encoder_init="")
+    rng = np.random.default_rng(7)
+    batch = seeded_puzzles(30, TRAIN_BATCH, cfg.rotation, rng).to("cuda")
+    adj = torch.as_tensor(seeded_puzzles(30, 1, cfg.rotation, rng, degree="10%").adj).cuda()
+    batch = batch._replace(adj=batch.adj & adj)
+    model = Diffusion2D(cfg, device="cuda", seed=0)
+    opt = model.make_optimizer()
+    holder = [create_train_state(model, opt, torch.Generator(device="cuda").manual_seed(0))]
+    step = make_train_step(model.loss, opt)
+
+    def one_step():
+        holder[0], _ = step(holder[0], batch)
+
+    torch.cuda.reset_peak_memory_stats()
+    _profile(one_step, "train step")
+    phase(f"profile: max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def kernel_line(errs: dict, rows: list[dict], serve_counts: dict, train_counts: dict,
+                request_seconds: list[float], step_seconds: list[float]) -> dict:
+    from diffassemble_tpu_torch import REFERENCE_PACKAGE
+    from diffassemble_tpu_torch.ops import cuda_attention
+
+    out = []
+    for kernel, source in KERNEL_SOURCES.items():
+        # the forward kernel's figures are per denoiser step at the serving
+        # shapes (B = 1); the backward kernels' per train step (B = 8)
+        b = 1 if kernel == "masked_attention_fwd" else TRAIN_BATCH
+        per = [r for r in rows if r["kernel"] == kernel and r["b"] == b]
+        step = {key: sum(r[key] * r["launches_per_step"] for r in per)
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        out.append({
+            "name": kernel,
+            "route": "cuda",
+            "source": source,
+            "replaces": f"{REFERENCE_PACKAGE}/{cuda_attention.REPLACES[kernel]}",
+            "launches": serve_counts[kernel] + train_counts[kernel],
+            "launches_by_path": {"serve": serve_counts[kernel], "train": train_counts[kernel]},
+            "max_abs_err": errs[kernel],
+            "ms": step["ms"],
+            "plain_ms": step["plain_ms"],
+            "bound_ms": step["bound_ms"],
+            "bound_by": "operations" if all(r["bound_by"] == "operations" for r in per) else "bytes",
+            "library_ms": step["library_ms"],
+            **({} if b == 1 else {"library_computes": "dQ, dK and dV in one SDPA backward, the same call in both "
+                                                      "backward rows: set it against the sum of their ms"}),
+            "times_are_for": (f"one {'denoiser step' if b == 1 else 'train step'}: 3 launches at Dh=32 and 1 at "
+                              f"Dh=144, B={b}, H={HEADS}, N={N_NODES}, bf16"),
+            "per_shape": [r for r in rows if r["kernel"] == kernel],
+        })
+    out[0]["seconds_per_request"] = request_seconds
+    out[1]["seconds_per_train_step"] = step_seconds
+    return {"kernels": out}
+
+
 def main() -> None:
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
-    ap.add_argument("--profile", action="store_true",
-                    help="instead of the smoke run, profile one serving request")
+    ap.add_argument("--profile", nargs="?", const="serve", choices=["serve", "train"],
+                    help="instead of the smoke run, profile one serving request (default) or one train step")
     args = ap.parse_args()
-
-    from diffassemble_tpu_torch import REFERENCE_PACKAGE
-    from diffassemble_tpu_torch.ops import cuda_attention
 
     smi, name, count = environment()
     build()
     if args.profile:
-        profile_request()
+        profile_request() if args.profile == "serve" else profile_train_step()
         print(smi, flush=True)
         return
-    kern = kernel_vs_plain()
-    launches, seconds = the_slice()
-    per = kern["per_shape"]
-    step = {key: sum(p[key] * p["launches_per_step"] for p in per)
-            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    bound_by = "operations" if all(p["bound_by"] == "operations" for p in per) else "bytes"
-    kernels = {"kernels": [{
-        "name": "masked_attention_fwd",
-        "route": "cuda",
-        "source": "diffassemble_tpu_torch/csrc/masked_attention_fwd.cu",
-        "replaces": f"{REFERENCE_PACKAGE}/{cuda_attention.REPLACES}",
-        "launches": launches,
-        "max_abs_err": kern["max_abs_err"],
-        "ms": step["ms"],
-        "plain_ms": step["plain_ms"],
-        "bound_ms": step["bound_ms"],
-        "bound_by": bound_by,
-        "library_ms": step["library_ms"],
-        "times_are_for": "one denoiser step: 3 launches at Dh=32 and 1 at Dh=144, B=1, H=8, N=908, bf16",
-        "per_shape": per,
-        "seconds_per_request": seconds,
-    }]}
+    errs = kernels_vs_plain()
+    rows = timing()
+    serve_counts, request_seconds = serving()
+    gradient_parity()
+    card_vs_cpu_training()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_run_") as tmp:
+        train_counts, step_seconds, _ = training(Path(tmp))
+    if serve_counts["masked_attention_fwd"] == 0 or any(v == 0 for v in train_counts.values()):
+        raise AssertionError(f"a kernel of a main path was not launched: serve {serve_counts}, train {train_counts}")
+    line = kernel_line(errs, rows, serve_counts, train_counts, request_seconds, step_seconds)
     phase("done")
     print(smi, flush=True)
-    print(json.dumps(kernels), flush=True)
+    print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}), flush=True)
 
 

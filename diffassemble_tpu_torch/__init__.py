@@ -1,12 +1,13 @@
 """diffassemble_tpu_torch — the PyTorch/CUDA port of the JAX package beside it.
 
 The JAX package (this package's name without ``_torch``) is the reference;
-this package mirrors its module
-layout (``data``, ``ops``, ``nn``, ``models``, ``utils``, ``cli``) so that each
-module's counterpart is found under the same path. It imports torch and numpy
-only. The masked graph attention, the one Pallas kernel on the serving path,
-is a hand-written CUDA kernel (``csrc/masked_attention_fwd.cu``) built with
-``nvcc`` at first use and bound through ``ctypes``.
+this package mirrors its module layout (``data``, ``ops``, ``nn``,
+``models``, ``train``, ``utils``, ``cli``) so that each module's counterpart
+is found under the same path. It imports torch and numpy only. The masked
+graph attention, whose forward and two backward passes were the JAX
+package's Pallas kernels, runs on three hand-written CUDA kernels
+(``csrc/masked_attention_fwd.cu``, ``csrc/masked_attention_bwd.cu``) built
+with ``nvcc`` at first use and bound through ``ctypes``.
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; without a card they raise rather than fall back.

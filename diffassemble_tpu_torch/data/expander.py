@@ -1,10 +1,12 @@
 """Random d-regular expander graph topologies as boolean attention masks.
 
-Port of the JAX package's ``data/expander.py:23-108``: d-regular random graphs
+Port of the JAX package's ``data/expander.py``: d-regular random graphs
 built from permutation + rolls, retried until the second-smallest Laplacian
 eigenvalue clears the bound ``d − 2√(d−1) − 0.1``, with a fully-connected
 fallback for ≤10 nodes and percent-degree strings ("10%"). The output is an
 (N, N) boolean adjacency mask, the attention-mask currency of the package.
+``cached_expander_mask`` (one fixed topology per size, the ``unique_graph``
+mode) and ``random_dropout_mask`` (random edge subsampling) complete it.
 Runs host-side (numpy/scipy); the same ``rng`` gives the same mask as the JAX
 package's copy.
 """
@@ -12,6 +14,7 @@ package's copy.
 from __future__ import annotations
 
 import math
+from functools import lru_cache
 
 import numpy as np
 
@@ -96,4 +99,28 @@ def expander_mask(
         mask |= mask.T  # symmetric
     if self_loops:
         np.fill_diagonal(mask, True)
+    return mask
+
+
+@lru_cache(maxsize=64)
+def cached_expander_mask(num_nodes: int, degree_key: str, seed: int) -> np.ndarray:
+    """One fixed topology per (size, degree) — the reference's `unique_graph`
+    mode (puzzle_dataset.py:194-212).
+
+    The returned array is marked read-only: lru_cache hands the same ndarray
+    to every caller, so an in-place mutation would poison the cache."""
+    rng = np.random.default_rng(seed)
+    mask = expander_mask(num_nodes, degree_key if degree_key.endswith("%") else int(degree_key), rng)
+    mask.setflags(write=False)
+    return mask
+
+
+def random_dropout_mask(
+    num_nodes: int, keep_frac: float, rng: np.random.Generator
+) -> np.ndarray:
+    """Random edge subsampling of the dense graph — the reference's
+    `random_dropout` alternative to expanders (puzzle_dataset.py:615-628)."""
+    mask = rng.random((num_nodes, num_nodes)) < keep_frac
+    mask |= mask.T
+    np.fill_diagonal(mask, True)
     return mask

@@ -1,11 +1,13 @@
-"""Continuous 2D puzzle diffusion, sampling path — port of
-the JAX package's ``models/diffusion_2d.py``.
+"""Continuous 2D puzzle diffusion — port of the JAX package's
+``models/diffusion_2d.py``.
 
 Gaussian DDIM/DDPM over node states x ∈ R² (position) or R⁴ (position +
 rotation unit vector), conditioned on per-piece visual features through the
 graph-attention denoiser, with classifier-free guidance and greedy-assignment
 metrics. The visual features are computed once per batch and reused at every
-step. Loss and optimizer come with the training slice.
+step. Training: ``loss`` (per-graph t, huber/l1/l2 on ε or x₀, the aux head),
+``init`` (seeded weights plus the ``encoder_init`` npz) and
+``make_optimizer`` (Adafactor with the HF relative schedule).
 """
 
 from __future__ import annotations
@@ -16,22 +18,24 @@ import math
 import torch
 from torch import nn
 
+from .. import convert
 from ..data.batch import PuzzleBatch
 from ..nn.denoiser import GraphDenoiser2D
 from ..nn.efficientnet import EfficientNetB0Features
 from ..nn.layers import init_weights
 from ..ops.assignment import greedy_assignment_batch
-from ..ops.gaussian import SampleLoopResult, sample_loop
+from ..ops.gaussian import SampleLoopResult, q_sample, sample_loop
 from ..ops.schedules import DiffusionSchedule
+from ..train.adafactor import Adafactor, hf_relative_schedule, reference_layouts
 from ..utils.device import resolve_device
+from ..utils.params import load_params
 
 
 @dataclasses.dataclass(frozen=True)
 class Diffusion2DConfig:
     """The JAX package's config, field for field, so that a run's
-    ``config.json`` loads unchanged. Fields of training (loss, optimizer,
-    pretrained weights) are carried but not read by this slice;
-    ``attention_impl`` is carried but the port dispatches attention by device."""
+    ``config.json`` loads unchanged. ``attention_impl`` and ``remat`` are
+    carried but not read: the port dispatches attention by device."""
 
     steps: int = 300
     sampling: str = "ddim"
@@ -75,7 +79,9 @@ class Diffusion2D(nn.Module):
     """Encoder + denoiser + sampler.
 
     Built with seeded random weights (``seed``) on ``device``; load converted
-    JAX weights with ``load_state_dict(convert.convert_params(params))``.
+    JAX weights with ``load_state_dict(convert.convert_params(params))``. The
+    constructor reads no file: ``init`` (the training path) loads the
+    ``encoder_init`` npz.
     """
 
     def __init__(self, config: Diffusion2DConfig, device: torch.device | str = "cuda", seed: int = 0):
@@ -119,10 +125,97 @@ class Diffusion2D(nn.Module):
         if not patches.is_floating_point():
             patches = patches.float() / 255.0
         feats = self.encoder(patches.reshape(b * n, *patches.shape[2:]))
+        if self.cfg.freeze_backbone:
+            feats = feats.detach()
         return feats.reshape(b, n, -1)
 
     def denoise(self, x_t, t, feats, adj, node_mask) -> torch.Tensor:
         return self.denoiser(x_t, t, feats, adj, node_mask).float()
+
+    # ------------------------------------------------------------ training
+
+    @torch.no_grad()
+    def init(self, seed: int = 0) -> None:
+        """Fresh seeded weights, then the ``encoder_init`` npz if the config
+        names one (the JAX ``init``). The npz is the JAX package's flattened
+        parameter tree (``utils/params.py``)."""
+        if self.cfg.visual_pretrained:
+            raise NotImplementedError(
+                "visual_pretrained (load_pretrained_features) is not ported yet: ROADMAP Queue 1 item 6")
+        init_weights(self, torch.Generator().manual_seed(seed))
+        if self.cfg.encoder_init:
+            loaded = convert.convert_params({"encoder": load_params(self.cfg.encoder_init)["encoder"]})
+            own = {f"encoder.{k}": v for k, v in self.encoder.state_dict().items()}
+            if loaded.keys() != own.keys() or any(loaded[k].shape != own[k].shape for k in own):
+                raise ValueError(
+                    f"encoder_init {self.cfg.encoder_init!r} does not match the "
+                    f"{self.cfg.backbone} encoder's parameter structure"
+                )
+            self.encoder.load_state_dict({k[len("encoder."):]: v for k, v in loaded.items()})
+
+    def loss(
+        self,
+        batch: PuzzleBatch,
+        generator: torch.Generator | None = None,
+        t_graph: torch.Tensor | None = None,
+        noise: torch.Tensor | None = None,
+        cf_keep: torch.Tensor | None = None,
+    ) -> tuple[torch.Tensor, dict]:
+        """Training loss (the JAX ``loss``): per-graph t ~ U[0, T) spread to
+        the nodes, huber (δ = 1) / l1 / l2 on ε or x₀, masked mean over valid
+        nodes, plus ``aux_loss_weight`` × the aux head's x₀ loss.
+
+        t (B,), the noise (B, N, C) and the classifier-free keep mask (B, 1, 1)
+        are drawn from ``generator`` unless given (the tests feed the JAX
+        package's draws). Returns (loss, aux) with 0-dim tensors."""
+        cfg = self.cfg
+        b, n = batch.x0.shape[:2]
+        dev = batch.x0.device
+        if t_graph is None:
+            t_graph = torch.randint(0, cfg.steps, (b,), generator=generator, device=dev)
+        t = t_graph[:, None].expand(b, n)
+        if noise is None:
+            noise = torch.randn(batch.x0.shape, generator=generator, device=dev)
+        x_noisy = q_sample(self.sched, batch.x0, t, noise)
+
+        feats = self.visual_features(batch.patches)
+        if cfg.classifier_free_prob > 0:
+            if cf_keep is None:
+                cf_keep = torch.rand((b, 1, 1), generator=generator, device=dev) >= cfg.classifier_free_prob
+            feats = feats * cf_keep.to(feats.dtype)
+
+        target = batch.x0 if cfg.mean_type == "xstart" else noise
+        err_fn = {"huber": _huber, "l1": lambda p, y: (p - y).abs(), "l2": lambda p, y: (p - y) ** 2}[cfg.loss_type]
+        mask = batch.node_mask[..., None].float()
+
+        def masked_mean(per_elem):
+            n_valid_elems = mask.sum() * per_elem.shape[-1]
+            return (per_elem * mask).sum() / n_valid_elems.clamp_min(1.0)
+
+        aux = {}
+        if cfg.aux_loss_weight > 0:
+            pred, aux_pred = self.denoiser(x_noisy, t, feats, batch.adj, batch.node_mask, return_aux=True)
+            pred = pred.float()
+            # deep supervision: the fusion-level head predicts x0 from the features alone
+            aux_loss = masked_mean(err_fn(aux_pred.float(), batch.x0))
+            aux["aux_loss"] = aux_loss
+        else:
+            pred = self.denoise(x_noisy, t, feats, batch.adj, batch.node_mask)
+            aux_loss = 0.0
+        per_elem = err_fn(pred, target)
+        main = masked_mean(per_elem)
+        if cfg.rotation:
+            aux["loss/pos"] = masked_mean(per_elem[..., :2])
+            aux["loss/rot"] = masked_mean(per_elem[..., 2:])
+        loss = main + cfg.aux_loss_weight * aux_loss
+        return loss, {"loss": main, "total_loss": loss, "t_mean": t_graph.float().mean(), **aux}
+
+    def make_optimizer(self) -> Adafactor:
+        """Adafactor with HF-style relative step sizes (the JAX
+        ``make_optimizer``): lr_t = min(1e-2, 1/√t) × min(1, t/warmup), scaled
+        by each parameter's RMS, factored over the same two dimensions as
+        optax factors the JAX package's layout of each parameter."""
+        return Adafactor(hf_relative_schedule(self.cfg.warmup_steps), reference_layouts(self))
 
     @torch.no_grad()
     def sample(
@@ -183,3 +276,10 @@ class Diffusion2D(nn.Module):
             "puzzle_correct": (piece_correct | ~valid).all(-1).float(),
             "n_valid": n_valid,
         }
+
+
+def _huber(pred: torch.Tensor, target: torch.Tensor, delta: float = 1.0) -> torch.Tensor:
+    """``optax.huber_loss``: 0.5·min(|e|, δ)² + δ·(|e| − min(|e|, δ))."""
+    abs_err = (pred - target).abs()
+    quadratic = torch.clamp(abs_err, max=delta)
+    return 0.5 * quadratic**2 + delta * (abs_err - quadratic)

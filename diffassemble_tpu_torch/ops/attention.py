@@ -6,9 +6,11 @@ global nodes) is a (B, N, N) boolean mask:
 
   out_i = Σ_j softmax_j((q_i · k_j)/√d) v_j   over j with adj[b, i, j]
 
-Dispatch (``masked_attention``): a CUDA tensor goes to the hand-written kernel
-(``ops/cuda_attention.py``) at every N; a CPU tensor, or a call that asks for
-the weights (visualisation only), goes to the plain version below. The JAX
+Dispatch (``masked_attention``): a CUDA tensor goes through
+``MaskedAttention`` (``ops/cuda_attention.py``), whose forward and backward
+are the hand-written kernels, at every N; a CPU tensor, or a call that asks
+for the weights (visualisation only), goes to the plain version below, which
+autograd differentiates. The JAX
 package's padding wrapper (``_pallas_masked_attention``) permutes to
 (B, H, N, Dh) and pads N to the 128-row block; the CUDA kernel reads the
 (B, N, H, Dh) layout as it is and masks the ragged last tile itself, which is
@@ -19,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from .cuda_attention import masked_attention_fwd
+from .cuda_attention import MaskedAttention
 
 _NEG_INF = -1e9
 
@@ -42,7 +44,7 @@ def masked_attention(
         (B, N, H, Dh) attended values; rows with no edges at all return zeros.
     """
     if q.is_cuda and not return_weights:
-        return masked_attention_fwd(q, k, v, adj)[0]
+        return MaskedAttention.apply(q, k, v, adj)
     return _plain_masked_attention(q, k, v, adj, return_weights)
 
 

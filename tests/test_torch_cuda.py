@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card. Every test here needs a CUDA card and
+"""The port's CUDA kernels on the card. Every test here needs a CUDA card and
 skips without one. The file imports no JAX, so it runs on a machine that has
 only PyTorch; there, skip the repository's conftest (it sets JAX up):
 
@@ -63,6 +63,75 @@ def test_cuda_kernel_matches_plain(n, dh, dtype, card):
     nonempty = ~empty[:, None, :].expand_as(lse)
     assert bool(((lse - l_p).abs()[nonempty] <= 1e-5 * (1 + l_p.abs()[nonempty])).all())
     assert torch.equal(lse[~nonempty], l_p[~nonempty])
+
+
+def _bwd_tol(ref, dtype):
+    """f32: 1e-5 relative plus 1e-5 of max|ref| (sums of ~N products in
+    another order); bf16: one bf16 ulp of the output (2^-7 relative) plus
+    1e-4 of max|ref| (the same f32 sums, then rounded once to bf16)."""
+    rel, floor = (1e-5, 1e-5) if dtype == torch.float32 else (2.0**-7, 1e-4)
+    return rel * ref.abs() + floor * ref.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n, dh", [(200, 32), (200, 144), (908, 32), (908, 144)])
+def test_cuda_bwd_kernels_match_plain(n, dh, dtype, card):
+    """dQ, dK and dV of the two backward kernels against their plain versions
+    on the same inputs; empty query rows give dQ exactly 0 and keys no query
+    attends give dK = dV exactly 0; nothing is NaN."""
+    dt = getattr(torch, dtype)
+    q, k, v, adj = (x.to(card) for x in _inputs(2, n, 8, dh, seed=n + dh))
+    adj[0, :, 10:13] = False  # keys no query attends
+    q, k, v = (x.to(dt) for x in (q, k, v))
+    dout = torch.randn(q.shape, generator=torch.Generator(device=card).manual_seed(n), device=card).to(dt)
+    o, lse = cuda_attention.masked_attention_fwd(q, k, v, adj)
+    delta = cuda_attention.attention_delta(dout, o)
+    before = [kern.launches for kern in cuda_attention.KERNELS[1:]]
+    dq = cuda_attention.masked_attention_bwd_dq(q, k, v, adj, dout, lse, delta)
+    dk, dv = cuda_attention.masked_attention_bwd_dkv(q, k, v, adj, dout, lse, delta)
+    torch.cuda.synchronize()
+    assert [kern.launches for kern in cuda_attention.KERNELS[1:]] == [b + 1 for b in before]
+    dq_p = cuda_attention.masked_attention_bwd_dq_plain(q, k, v, adj, dout, lse, delta)
+    dk_p, dv_p = cuda_attention.masked_attention_bwd_dkv_plain(q, k, v, adj, dout, lse, delta)
+    for got, ref in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
+        assert got.dtype == dt and got.shape == q.shape and bool(torch.isfinite(got).all())
+        assert bool(((got.float() - ref.float()).abs() <= _bwd_tol(ref.float(), dt)).all())
+    empty, unattended = ~adj.any(-1), ~adj.any(-2)
+    assert int(empty.sum()) >= 3 and int(unattended.sum()) >= 3
+    assert bool((dq[empty] == 0).all())
+    assert bool((dk[unattended] == 0).all()) and bool((dv[unattended] == 0).all())
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_gives_every_attention_projection_a_gradient(card):
+    """One train step on the card goes through the three kernels (4 launches
+    each at 4 layers) and gives every query/key/value weight of every layer a
+    finite, nonzero gradient (dropped gradients would leave them None)."""
+    from diffassemble_tpu_torch.train.train_state import create_train_state, make_train_step
+
+    cfg = Diffusion2DConfig(steps=300, mean_type="xstart", rotation=True, architecture="exophormer",
+                            n_layers=4, virt_nodes=8, hidden_dim=256, heads=8, aux_loss_weight=0.1,
+                            compute_dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    samples = [make_puzzle(rng.random((192, 192, 3)).astype(np.float32), 6, 6, 32, rotation=True, rng=rng)
+               for _ in range(2)]
+    batch = collate_puzzles(samples, 36).to(card)
+    model = Diffusion2D(cfg, device=card, seed=0)
+    opt = model.make_optimizer()
+    state = create_train_state(model, opt, torch.Generator(device=card).manual_seed(0))
+    step = make_train_step(model.loss, opt)
+    before = [kern.launches for kern in cuda_attention.KERNELS]
+    state, aux = step(state, batch)
+    torch.cuda.synchronize()
+    assert [kern.launches for kern in cuda_attention.KERNELS] == [b + 4 for b in before]
+    assert np.isfinite(float(aux["loss"])) and float(aux["grad_norm"]) > 0
+    names = [f"denoiser.gnn.transformer.layers.{i}.{proj}.weight"
+             for i in range(4) for proj in ("query", "key", "value")]
+    for name in names:
+        g = model.get_parameter(name).grad  # the step leaves its (clipped) gradients there
+        assert g is not None, name
+        assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0, name
 
 
 @pytest.mark.cuda
