@@ -8,18 +8,25 @@
 Phases, each ending in a line with the elapsed seconds:
 
 1. environment: the card's name and power limit (nvidia-smi), device count;
-2. build: the three masked-attention kernels from ``csrc/`` with nvcc (one
-   nvcc per source, in parallel; -Xptxas -v);
+2. build: the masked-attention kernels from ``csrc/`` with nvcc (one nvcc
+   per source, in parallel; -Xptxas -v), failing if a tensor-core kernel
+   spills registers;
 3. the forward kernel against its plain PyTorch version on the card:
    the 10% expander + 8 virtual nodes at the main paths' batches (B = 1 for a
    request, B = 8 for a train step), the same with padded nodes and empty
    rows, fully connected, and N = 200, at head widths 32 and 144, in bf16 and
    f32; then the two backward kernels (dQ, and dK/dV) against theirs over the
-   same masks, with exact zeros on empty query rows and unattended keys;
+   same masks, with exact zeros on empty query rows and unattended keys. In
+   bf16 at Dh 32 and 144 the backward runs on the tensor-core route, in f32 on
+   the CUDA-core route; each line names its route. Then all three kernels at
+   the other head widths they take, 20, 104 and 264, in both types, on the
+   B = 1 expander and the padded/empty-rows masks; a head of 296 must raise;
 4. timing of the three kernels, their plain versions and the PyTorch calls
    (``scaled_dot_product_attention`` forward, and one backward of it, which
    computes dQ, dK and dV together) at the serving shapes (B = 1) and the
-   training shapes (B = 8), H = 8, N = 908;
+   training shapes (B = 8), H = 8, N = 908; at B = 8 also the backward's
+   CUDA-core route in bf16 (inputs 2 bytes off a 16-byte boundary take it) and
+   the three kernels at Dh 20, 104 and 264;
 5. serving, the first main path: the flagship 30×30 rotation config from
    ``weights/diffusion2d_rot30/config.json`` (JSON only) with seeded weights;
    one denoiser call with the kernel against the same call with plain
@@ -71,11 +78,17 @@ TRAIN_FLAGS = [
     "--aux_loss_weight", "0.1", "--warmup_steps", "500", "--compute_dtype", "bfloat16",
     "--device", "cuda",
 ]
-KERNEL_SOURCES = {
+CUDA_CORE_SOURCES = {
     "masked_attention_fwd": "diffassemble_tpu_torch/csrc/masked_attention_fwd.cu",
     "masked_attention_bwd_dq": "diffassemble_tpu_torch/csrc/masked_attention_bwd.cu",
     "masked_attention_bwd_dkv": "diffassemble_tpu_torch/csrc/masked_attention_bwd.cu",
 }
+TENSOR_CORE_SOURCE = "diffassemble_tpu_torch/csrc/masked_attention_bwd_tc.cu"  # the backward pair
+# each kernel's source on the main paths (bf16 at Dh 32 and 144)
+KERNEL_SOURCES = {**CUDA_CORE_SOURCES, "masked_attention_bwd_dq": TENSOR_CORE_SOURCE,
+                  "masked_attention_bwd_dkv": TENSOR_CORE_SOURCE}
+MAIN_HEAD_DIMS = (32, 144)
+OTHER_HEAD_DIMS = (20, 104, 264)  # not a multiple of 8; the 3D checkpoints' last layers
 
 _T0 = time.perf_counter()
 
@@ -149,10 +162,17 @@ def build() -> None:
     from diffassemble_tpu_torch.ops import cuda_attention
 
     lib = cuda_attention.load_library()
+    source, spills = "", []
     for line in lib.compiler_log.splitlines():
+        if line.startswith("=="):
+            source = line
         if line.startswith("==") or "registers" in line or "spill" in line:
             print("  " + line.strip(), flush=True)
+        if "_tc." in source and "spill" in line and not line.strip().endswith("0 bytes spill stores, 0 bytes spill loads"):
+            spills.append(line.strip())
     phase(f"build: {', '.join(p.name for p in lib.paths.values())} in {lib.build_seconds:.2f} s")
+    if spills:
+        raise AssertionError(f"a tensor-core kernel spills registers: {spills}")
 
 
 def reset_counts() -> None:
@@ -200,9 +220,89 @@ def _masks(torch, np):
     return [(label, m.cuda().contiguous()) for label, m in out]
 
 
+def _check_kernels(label: str, mask, dh: int, dtype, gen, max_err: dict[str, float]) -> None:
+    """The three kernels against their plain versions on one mask, width and
+    type; raises on a disagreement. Updates ``max_err`` per kernel."""
+    import torch
+
+    from diffassemble_tpu_torch.ops import cuda_attention as ca
+
+    b, n, _ = mask.shape
+    empty = ~mask.any(-1)  # (B, N) query rows with no edges
+    unattended = ~mask.any(-2)  # (B, N) keys no query attends
+    q, k, v, dout = (torch.randn((b, n, HEADS, dh), generator=gen, device="cuda").to(dtype) for _ in range(4))
+    o, lse = ca.masked_attention_fwd(q, k, v, mask)
+    torch.cuda.synchronize()
+    o_p, lse_p = ca.masked_attention_fwd_plain(q, k, v, mask)
+    of, opf = o.float(), o_p.float()
+    vmax = v.float().abs().max().item()
+    if dtype == torch.float32:
+        # f32: sums of ~N products in another order
+        tol = 1e-5 * opf.abs() + 1e-5 * vmax
+    else:
+        # bf16: one ulp of the output (2^-7 relative) plus the plain
+        # version's rounding of each probability to bf16 (2^-9 of max|v|)
+        tol = 2.0**-7 * opf.abs() + 2.0**-9 * vmax
+    err = (of - opf).abs()
+    nonempty = ~empty[:, None, :].expand(b, HEADS, n)
+    lse_err = (lse - lse_p).abs()[nonempty]
+    ok = (
+        bool(torch.isfinite(of).all()) and bool(torch.isfinite(lse).all())
+        and bool((err <= tol).all())
+        and bool((lse_err <= 1e-5 * (1 + lse_p.abs()[nonempty])).all())
+        and bool((of[empty] == 0).all())
+        and torch.equal(lse[~nonempty], lse_p[~nonempty])
+    )
+    max_err["masked_attention_fwd"] = max(max_err["masked_attention_fwd"], err.max().item())
+    fwd_route = ca.route("masked_attention_fwd", q, k, v, mask)
+    phase(f"fwd vs plain: {label:34s} B={b} N={n} Dh={dh:3d} {str(dtype)[6:]:8s} {fwd_route:12s} "
+          f"max|dO|={err.max().item():.3e} max|dL|={lse_err.max().item():.3e} "
+          f"empty rows={int(empty.sum())} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"forward kernel disagrees with its plain version: {label} Dh={dh} {dtype}")
+
+    # the backward kernels, from this forward's O and L
+    delta = ca.attention_delta(dout, o)
+    args = (q, k, v, mask, dout, lse, delta)
+    routes = {ca.route(name, *args) for name in ("masked_attention_bwd_dq", "masked_attention_bwd_dkv")}
+    want = "tensor_cores" if dtype == torch.bfloat16 and dh in MAIN_HEAD_DIMS else "cuda_cores"
+    if routes != {want}:
+        raise AssertionError(f"backward routes {routes} at Dh={dh} {dtype}, expected {want}")
+    dq = ca.masked_attention_bwd_dq(*args)
+    dk, dv = ca.masked_attention_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    dq_p = ca.masked_attention_bwd_dq_plain(*args)
+    dk_p, dv_p = ca.masked_attention_bwd_dkv_plain(*args)
+    # f32: 1e-5 relative plus 1e-5 of max|ref| (sums of ~N products in
+    # another order); bf16: one bf16 ulp (2^-7 relative) plus 1e-4 of
+    # max|ref| (the same f32 sums, then rounded once to bf16)
+    rel, floor = (1e-5, 1e-5) if dtype == torch.float32 else (2.0**-7, 1e-4)
+    errs, worst, ok = {}, 0.0, True
+    for key, got, ref in (("dQ", dq, dq_p), ("dK", dk, dk_p), ("dV", dv, dv_p)):
+        gf, rf = got.float(), ref.float()
+        e = (gf - rf).abs()
+        t = rel * rf.abs() + floor * rf.abs().max()
+        errs[key] = e.max().item()
+        worst = max(worst, (e / t).max().item())
+        ok &= bool(torch.isfinite(gf).all()) and got.dtype == dtype
+        ok &= bool((e <= t).all())
+    zeros = (bool((dq[empty] == 0).all()) and bool((dk[unattended] == 0).all())
+             and bool((dv[unattended] == 0).all()))
+    max_err["masked_attention_bwd_dq"] = max(max_err["masked_attention_bwd_dq"], errs["dQ"])
+    max_err["masked_attention_bwd_dkv"] = max(max_err["masked_attention_bwd_dkv"], errs["dK"], errs["dV"])
+    phase(f"bwd vs plain: {label:34s} B={b} N={n} Dh={dh:3d} {str(dtype)[6:]:8s} {want:12s} "
+          f"max|ddQ|={errs['dQ']:.3e} max|ddK|={errs['dK']:.3e} max|ddV|={errs['dV']:.3e} "
+          f"worst err/tol {worst:.3f} unattended keys={int(unattended.sum())} exact zeros {zeros} "
+          f"{'ok' if ok and zeros else 'FAIL'}")
+    if not (ok and zeros):
+        raise AssertionError(f"backward kernels disagree with their plain versions: {label} Dh={dh} {dtype}")
+
+
 def kernels_vs_plain() -> dict[str, float]:
-    """Each kernel against its plain version on the same inputs; returns the
-    largest |kernel − plain| of each kernel."""
+    """Each kernel against its plain version on the same inputs: every mask
+    at the main paths' widths, then the other widths on two masks; a head
+    wider than the kernels take must raise. Returns the largest
+    |kernel − plain| of each kernel."""
     import numpy as np
     import torch
 
@@ -210,72 +310,34 @@ def kernels_vs_plain() -> dict[str, float]:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_err = dict.fromkeys(KERNEL_SOURCES, 0.0)
-    for label, mask in _masks(torch, np):
-        b, n, _ = mask.shape
-        empty = ~mask.any(-1)  # (B, N) query rows with no edges
-        unattended = ~mask.any(-2)  # (B, N) keys no query attends
-        for dh in (32, 144):
+    masks = _masks(torch, np)
+    for label, mask in masks:
+        for dh in MAIN_HEAD_DIMS:
             for dtype in (torch.bfloat16, torch.float32):
-                q, k, v, dout = (torch.randn((b, n, HEADS, dh), generator=gen, device="cuda").to(dtype)
-                                 for _ in range(4))
-                o, lse = ca.masked_attention_fwd(q, k, v, mask)
-                torch.cuda.synchronize()
-                o_p, lse_p = ca.masked_attention_fwd_plain(q, k, v, mask)
-                of, opf = o.float(), o_p.float()
-                vmax = v.float().abs().max().item()
-                if dtype == torch.float32:
-                    # f32: sums of ~N products in another order
-                    tol = 1e-5 * opf.abs() + 1e-5 * vmax
-                else:
-                    # bf16: one ulp of the output (2^-7 relative) plus the plain
-                    # version's rounding of each probability to bf16 (2^-9 of max|v|)
-                    tol = 2.0**-7 * opf.abs() + 2.0**-9 * vmax
-                err = (of - opf).abs()
-                nonempty = ~empty[:, None, :].expand(b, HEADS, n)
-                lse_err = (lse - lse_p).abs()[nonempty]
-                ok = (
-                    bool(torch.isfinite(of).all()) and bool(torch.isfinite(lse).all())
-                    and bool((err <= tol).all())
-                    and bool((lse_err <= 1e-5 * (1 + lse_p.abs()[nonempty])).all())
-                    and bool((of[empty] == 0).all())
-                    and torch.equal(lse[~nonempty], lse_p[~nonempty])
-                )
-                max_err["masked_attention_fwd"] = max(max_err["masked_attention_fwd"], err.max().item())
-                phase(f"fwd vs plain: {label:34s} B={b} N={n} Dh={dh:3d} {str(dtype)[6:]:8s} "
-                      f"max|dO|={err.max().item():.3e} max|dL|={lse_err.max().item():.3e} "
-                      f"empty rows={int(empty.sum())} {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise AssertionError(f"forward kernel disagrees with its plain version: {label} Dh={dh} {dtype}")
-
-                # the backward kernels, from this forward's O and L
-                delta = ca.attention_delta(dout, o)
-                dq = ca.masked_attention_bwd_dq(q, k, v, mask, dout, lse, delta)
-                dk, dv = ca.masked_attention_bwd_dkv(q, k, v, mask, dout, lse, delta)
-                torch.cuda.synchronize()
-                dq_p = ca.masked_attention_bwd_dq_plain(q, k, v, mask, dout, lse, delta)
-                dk_p, dv_p = ca.masked_attention_bwd_dkv_plain(q, k, v, mask, dout, lse, delta)
-                # f32: 1e-5 relative plus 1e-5 of max|ref| (sums of ~N products in
-                # another order); bf16: one bf16 ulp (2^-7 relative) plus 1e-4 of
-                # max|ref| (the same f32 sums, then rounded once to bf16)
-                rel, floor = (1e-5, 1e-5) if dtype == torch.float32 else (2.0**-7, 1e-4)
-                errs, ok = {}, True
-                for key, got, ref in (("dQ", dq, dq_p), ("dK", dk, dk_p), ("dV", dv, dv_p)):
-                    gf, rf = got.float(), ref.float()
-                    e = (gf - rf).abs()
-                    errs[key] = e.max().item()
-                    ok &= bool(torch.isfinite(gf).all()) and got.dtype == dtype
-                    ok &= bool((e <= rel * rf.abs() + floor * rf.abs().max()).all())
-                zeros = (bool((dq[empty] == 0).all()) and bool((dk[unattended] == 0).all())
-                         and bool((dv[unattended] == 0).all()))
-                max_err["masked_attention_bwd_dq"] = max(max_err["masked_attention_bwd_dq"], errs["dQ"])
-                max_err["masked_attention_bwd_dkv"] = max(max_err["masked_attention_bwd_dkv"], errs["dK"],
-                                                          errs["dV"])
-                phase(f"bwd vs plain: {label:34s} B={b} N={n} Dh={dh:3d} {str(dtype)[6:]:8s} "
-                      f"max|ddQ|={errs['dQ']:.3e} max|ddK|={errs['dK']:.3e} max|ddV|={errs['dV']:.3e} "
-                      f"unattended keys={int(unattended.sum())} exact zeros {zeros} {'ok' if ok and zeros else 'FAIL'}")
-                if not (ok and zeros):
-                    raise AssertionError(f"backward kernels disagree with their plain versions: {label} Dh={dh} {dtype}")
+                _check_kernels(label, mask, dh, dtype, gen, max_err)
+    for label, mask in (masks[0], masks[2]):  # B = 1 expander; padded nodes and empty rows
+        for dh in OTHER_HEAD_DIMS:
+            for dtype in (torch.bfloat16, torch.float32):
+                _check_kernels(label, mask, dh, dtype, gen, max_err)
+    wide = torch.zeros((1, 16, HEADS, ca.MAX_HEAD_DIM + 8), device="cuda")
+    try:
+        ca.masked_attention_fwd(wide, wide, wide, torch.ones((1, 16, 16), dtype=torch.bool, device="cuda"))
+    except ValueError as e:
+        phase(f"Dh={wide.shape[-1]} raises: {e}")
+    else:
+        raise AssertionError(f"a head of {wide.shape[-1]} columns did not raise")
     return max_err
+
+
+def _misaligned(x):
+    """A contiguous copy of ``x`` starting 2 bytes past a 16-byte boundary:
+    the backward kernels take the CUDA-core route for it."""
+    import torch
+
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
 
 
 def timing() -> list[dict]:
@@ -283,7 +345,9 @@ def timing() -> list[dict]:
     training (B = 8, all three) shapes, bf16, fully connected mask. The
     library's backward is one SDPA backward, which computes dQ, dK and dV
     together: both backward rows carry that one time, to be set against the
-    sum of the two kernels' times."""
+    sum of the two kernels' times. At B = 8 the backward's CUDA-core route in
+    bf16 is timed beside its tensor-core route, and the three kernels at the
+    widths off the main paths; those rows have ``main_path`` false."""
     import torch
 
     from diffassemble_tpu_torch.ops import cuda_attention as ca
@@ -293,7 +357,10 @@ def timing() -> list[dict]:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for b in (1, TRAIN_BATCH):
         mask = torch.ones((b, N_NODES, N_NODES), dtype=torch.bool, device="cuda")
-        for dh, count in STEP_LAUNCHES:
+        shapes = [(dh, count, True) for dh, count in STEP_LAUNCHES]
+        if b == TRAIN_BATCH:
+            shapes += [(dh, 0, False) for dh in OTHER_HEAD_DIMS]
+        for dh, count, main in shapes:
             q, k, v, dout = (torch.randn((b, N_NODES, HEADS, dh), generator=gen, device="cuda")
                              .to(torch.bfloat16) for _ in range(4))
             o, lse = ca.masked_attention_fwd(q, k, v, mask)
@@ -319,15 +386,33 @@ def timing() -> list[dict]:
             for kernel, fn, plain, library_ms in cases:
                 ms, plain_ms = cuda_ms(fn), cuda_ms(plain)
                 bound, bound_by = bound_ms(kernel, b, N_NODES, HEADS, dh, 2)
-                rows.append({"kernel": kernel, "b": b, "dh": dh, "launches_per_step": count, "ms": ms,
-                             "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound,
-                             "bound_by": bound_by})
-                phase(f"timing {kernel:25s} B={b} N={N_NODES} H={HEADS} Dh={dh:3d} bf16: kernel {ms:.4f} ms, "
-                      f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {bound:.5f} ms ({bound_by})")
-            if b == TRAIN_BATCH:
-                pair = rows[-2]["ms"] + rows[-1]["ms"]
+                route = ca.route(kernel, *args)
+                rows.append({"kernel": kernel, "b": b, "dh": dh, "route": route, "main_path": main,
+                             "launches_per_step": count, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                             "bound_ms": bound, "bound_by": bound_by})
+                phase(f"timing {kernel:25s} B={b} N={N_NODES} H={HEADS} Dh={dh:3d} bf16 {route:12s}: kernel "
+                      f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
+                      f"bound {bound:.5f} ms ({bound_by})")
+            if b == TRAIN_BATCH and main:
+                tc_pair = rows[-2]["ms"] + rows[-1]["ms"]
                 phase(f"timing backward pair          B={b} N={N_NODES} H={HEADS} Dh={dh:3d} bf16: dQ + dK/dV kernels "
-                      f"{pair:.4f} ms against one SDPA backward (dQ, dK, dV) {lib_bwd:.4f} ms: {pair / lib_bwd:.2f}x")
+                      f"{tc_pair:.4f} ms against one SDPA backward (dQ, dK, dV) {lib_bwd:.4f} ms: "
+                      f"{tc_pair / lib_bwd:.2f}x")
+                # the CUDA-core route on the same inputs, 2 bytes off a 16-byte boundary
+                mq, mk, mv, mdo = (_misaligned(t) for t in (q, k, v, dout))
+                margs = (mq, mk, mv, mask, mdo, lse, delta)
+                cc = {}
+                for kernel, fn in (("masked_attention_bwd_dq", lambda: ca.masked_attention_bwd_dq(*margs)),
+                                   ("masked_attention_bwd_dkv", lambda: ca.masked_attention_bwd_dkv(*margs))):
+                    assert ca.route(kernel, *margs) == "cuda_cores"
+                    ref = next(r for r in rows[-2:] if r["kernel"] == kernel)
+                    cc[kernel] = cuda_ms(fn)
+                    rows.append({**ref, "route": "cuda_cores", "main_path": False, "launches_per_step": 0,
+                                 "ms": cc[kernel]})
+                cc_pair = sum(cc.values())
+                phase(f"timing backward pair, CUDA cores B={b} N={N_NODES} H={HEADS} Dh={dh:3d} bf16: "
+                      f"dQ {cc['masked_attention_bwd_dq']:.4f} + dK/dV {cc['masked_attention_bwd_dkv']:.4f} = "
+                      f"{cc_pair:.4f} ms; the tensor-core pair is {cc_pair / tc_pair:.2f}x faster")
             del out_t, qt, kt, vt
     return rows
 
@@ -724,13 +809,16 @@ def kernel_line(errs: dict, rows: list[dict], serve_counts: dict, train_counts: 
         # the forward kernel's figures are per denoiser step at the serving
         # shapes (B = 1); the backward kernels' per train step (B = 8)
         b = 1 if kernel == "masked_attention_fwd" else TRAIN_BATCH
-        per = [r for r in rows if r["kernel"] == kernel and r["b"] == b]
+        per = [r for r in rows if r["kernel"] == kernel and r["b"] == b and r["main_path"]]
         step = {key: sum(r[key] * r["launches_per_step"] for r in per)
                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
         out.append({
             "name": kernel,
             "route": "cuda",
             "source": source,
+            "sources_by_route": {"cuda_cores": CUDA_CORE_SOURCES[kernel],
+                                 **({"tensor_cores": TENSOR_CORE_SOURCE}
+                                    if kernel in cuda_attention.TENSOR_CORE_KERNELS else {})},
             "replaces": f"{REFERENCE_PACKAGE}/{cuda_attention.REPLACES[kernel]}",
             "launches": serve_counts[kernel] + train_counts[kernel],
             "launches_by_path": {"serve": serve_counts[kernel], "train": train_counts[kernel]},
@@ -743,7 +831,7 @@ def kernel_line(errs: dict, rows: list[dict], serve_counts: dict, train_counts: 
             **({} if b == 1 else {"library_computes": "dQ, dK and dV in one SDPA backward, the same call in both "
                                                       "backward rows: set it against the sum of their ms"}),
             "times_are_for": (f"one {'denoiser step' if b == 1 else 'train step'}: 3 launches at Dh=32 and 1 at "
-                              f"Dh=144, B={b}, H={HEADS}, N={N_NODES}, bf16"),
+                              f"Dh=144, B={b}, H={HEADS}, N={N_NODES}, bf16, route {per[0]['route']}"),
             "per_shape": [r for r in rows if r["kernel"] == kernel],
         })
     out[0]["seconds_per_request"] = request_seconds

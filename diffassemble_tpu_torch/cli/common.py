@@ -172,7 +172,8 @@ def run_2d(args) -> None:
         if getattr(args, "checkpoint_path", ""):
             from ..train.checkpoint import restore_explicit
 
-            params = eval_params(restore_explicit(args.checkpoint_path, state))
+            # the live params, as the reference evaluates an explicit checkpoint
+            params = restore_explicit(args.checkpoint_path, state).params
         else:
             restored = trainer.ckpt.restore(state)
             params = eval_params(restored if restored is not None else state)

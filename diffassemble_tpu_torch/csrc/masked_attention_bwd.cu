@@ -33,17 +33,22 @@
 // (about 10.1 GFLOP at Dh = 32) and the dK/dV kernel 8·B·H·N²·Dh (about
 // 13.5 GFLOP), against some 2 bytes·B·N·H·Dh per tensor plus B·N² mask bytes:
 // hundreds of operations per byte, far above the card's ~295 bf16 ridge, so
-// the bound is the tensor-core rate. This first design is the simple, correct
-// one: its products run on the CUDA cores in f32 (no wgmma/TMA yet), so it
-// sits well above that bound; making it fast is later work. What the design
+// the bound is the tensor-core rate. These kernels are the CUDA-core route:
+// their products run on the CUDA cores in f32. They serve every float32 call
+// and the bf16 calls at the head widths that the tensor-core kernels
+// (masked_attention_bwd_tc.cu) are not instantiated for. What the design
 // does: one block of 4 warps per (16-row tile, head, batch) of the rows it
 // owns, a loop over 32-row tiles of the other side staged in shared memory
 // as f32 (+1 column of padding, so lane j reads row j without bank
 // conflicts), each warp owning 4 rows and each lane one row of the staged
-// tile for the scores, then a 32-column slice of the head width for the
-// outputs. At Dh = 144 the head width is split across the lanes as the
-// forward does (5 slots of 32 columns, the last half used). Shared memory is
-// 12.5 KB (Dh 32) to 56 KB (Dh 144) a block, taken as dynamic shared memory.
+// tile for the scores, then 32-column slices of the head width for the
+// outputs. The kernels are templated on the number of 32-column slots a
+// lane holds (1 to 9) and take the head width at run time, so every width
+// from 1 to 288 runs; the last slot is partly idle when the width is not a
+// multiple of 32. The main path's widths, 32 and 144, are also instantiated
+// with the width fixed at compile time: a run-time width cost them 12-27%
+// (PERF.md §6). Shared memory (dynamic) is sized from the width: 12.5 KB at
+// Dh 32, 56 KB at Dh 144, 109 KB at Dh 288.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,57 +75,58 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// Rows [row0, row0 + rows) of one head of a (B, N, H, DH) tensor into f32
+// Rows [row0, row0 + rows) of one head of a (B, N, H, dh) tensor into f32
 // shared memory with row stride `ld`; rows past n are zero.
-template <typename T, int DH>
+template <typename T>
 __device__ __forceinline__ void stage_rows(float* dst, int ld, const T* __restrict__ src,
                                            size_t base, size_t node_stride, int row0, int rows,
-                                           int n) {
-  for (int idx = threadIdx.x; idx < rows * DH; idx += kThreads) {
-    const int r = idx / DH, d = idx % DH;
+                                           int n, int dh) {
+  for (int idx = threadIdx.x; idx < rows * dh; idx += kThreads) {
+    const int r = idx / dh, d = idx % dh;
     const int row = row0 + r;
     dst[r * ld + d] = row < n ? to_f32(src[base + (size_t)row * node_stride + d]) : 0.f;
   }
 }
 
-template <int DH>
-constexpr int dq_smem_bytes() {
-  return (2 * kBlockOwn * DH + 2 * kBlockOther * (DH + 1)) * (int)sizeof(float);
+constexpr int dq_smem_bytes(int dh) {
+  return (2 * kBlockOwn * dh + 2 * kBlockOther * (dh + 1)) * (int)sizeof(float);
 }
 
-template <int DH>
-constexpr int dkv_smem_bytes() {
-  return dq_smem_bytes<DH>() + 2 * kBlockOther * (int)sizeof(float) + kBlockOther * kBlockOwn;
+constexpr int dkv_smem_bytes(int dh) {
+  return dq_smem_bytes(dh) + 2 * kBlockOther * (int)sizeof(float) + kBlockOther * kBlockOwn;
 }
 
-template <typename T, int DH>
+// DH > 0 fixes the head width at compile time (the main path's 32 and 144);
+// DH = 0 takes it at run time from `head_dim`.
+template <typename T, int SLOTS, int DH>
 __global__ void __launch_bounds__(kThreads)
 masked_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                const T* __restrict__ v, const int8_t* __restrict__ mask,
                                const T* __restrict__ dout, const float* __restrict__ lse,
                                const float* __restrict__ delta, T* __restrict__ dq, int n,
-                               int heads, float scale) {
-  constexpr int kSlots = (DH + 31) / 32;
-  constexpr int kLd = DH + 1;
+                               int heads, int head_dim, float scale) {
+  constexpr int kSlots = SLOTS;
+  const int dh = DH > 0 ? DH : head_dim;
+  const int ld = dh + 1;
   extern __shared__ float smem[];
-  float* q_s = smem;                          // [kBlockOwn][DH]
-  float* do_s = q_s + kBlockOwn * DH;         // [kBlockOwn][DH]
-  float* k_s = do_s + kBlockOwn * DH;         // [kBlockOther][kLd]
-  float* v_s = k_s + kBlockOther * kLd;       // [kBlockOther][kLd]
+  float* q_s = smem;                          // [kBlockOwn][dh]
+  float* do_s = q_s + kBlockOwn * dh;         // [kBlockOwn][dh]
+  float* k_s = do_s + kBlockOwn * dh;         // [kBlockOther][ld]
+  float* v_s = k_s + kBlockOther * ld;       // [kBlockOther][ld]
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int q0 = blockIdx.x * kBlockOwn;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const size_t node_stride = (size_t)heads * DH;
-  const size_t base = (size_t)b * n * node_stride + (size_t)h * DH;
+  const size_t node_stride = (size_t)heads * dh;
+  const size_t base = (size_t)b * n * node_stride + (size_t)h * dh;
   const int8_t* mask_b = mask + (size_t)b * n * n;
   const float* lse_bh = lse + ((size_t)b * heads + h) * n;
   const float* delta_bh = delta + ((size_t)b * heads + h) * n;
 
-  stage_rows<T, DH>(q_s, DH, q, base, node_stride, q0, kBlockOwn, n);
-  stage_rows<T, DH>(do_s, DH, dout, base, node_stride, q0, kBlockOwn, n);
+  stage_rows<T>(q_s, dh, q, base, node_stride, q0, kBlockOwn, n, dh);
+  stage_rows<T>(do_s, dh, dout, base, node_stride, q0, kBlockOwn, n, dh);
 
   float l_row[kRowsPerWarp], d_row[kRowsPerWarp], acc[kRowsPerWarp][kSlots];
 #pragma unroll
@@ -134,8 +140,8 @@ masked_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = 0; k0 < n; k0 += kBlockOther) {
     __syncthreads();  // the previous tile has been consumed (and q_s, do_s are staged)
-    stage_rows<T, DH>(k_s, kLd, k, base, node_stride, k0, kBlockOther, n);
-    stage_rows<T, DH>(v_s, kLd, v, base, node_stride, k0, kBlockOther, n);
+    stage_rows<T>(k_s, ld, k, base, node_stride, k0, kBlockOther, n, dh);
+    stage_rows<T>(v_s, ld, v, base, node_stride, k0, kBlockOther, n, dh);
     __syncthreads();
 
     // scores and dP of this warp's rows against key k0 + lane
@@ -143,14 +149,14 @@ masked_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) s[r] = dp[r] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < DH; ++d) {
-      const float kd = k_s[lane * kLd + d];
-      const float vd = v_s[lane * kLd + d];
+    for (int d = 0; d < dh; ++d) {
+      const float kd = k_s[lane * ld + d];
+      const float vd = v_s[lane * ld + d];
 #pragma unroll
       for (int r = 0; r < kRowsPerWarp; ++r) {
         const int row = warp * kRowsPerWarp + r;
-        s[r] = fmaf(q_s[row * DH + d], kd, s[r]);
-        dp[r] = fmaf(do_s[row * DH + d], vd, dp[r]);
+        s[r] = fmaf(q_s[row * dh + d], kd, s[r]);
+        dp[r] = fmaf(do_s[row * dh + d], vd, dp[r]);
       }
     }
 
@@ -171,7 +177,7 @@ masked_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < kSlots; ++c) {
         const int d = lane + 32 * c;
-        kj[c] = d < DH ? k_s[j * kLd + d] : 0.f;
+        kj[c] = d < dh ? k_s[j * ld + d] : 0.f;
       }
 #pragma unroll
       for (int r = 0; r < kRowsPerWarp; ++r) {
@@ -189,26 +195,27 @@ masked_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < kSlots; ++c) {
       const int d = lane + 32 * c;
-      if (d < DH) dq[base + (size_t)row * node_stride + d] = from_f32<T>(acc[r][c] * scale);
+      if (d < dh) dq[base + (size_t)row * node_stride + d] = from_f32<T>(acc[r][c] * scale);
     }
   }
 }
 
-template <typename T, int DH>
+template <typename T, int SLOTS, int DH>
 __global__ void __launch_bounds__(kThreads)
 masked_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                 const T* __restrict__ v, const int8_t* __restrict__ mask,
                                 const T* __restrict__ dout, const float* __restrict__ lse,
                                 const float* __restrict__ delta, T* __restrict__ dk,
-                                T* __restrict__ dv, int n, int heads, float scale) {
-  constexpr int kSlots = (DH + 31) / 32;
-  constexpr int kLd = DH + 1;
+                                T* __restrict__ dv, int n, int heads, int head_dim, float scale) {
+  constexpr int kSlots = SLOTS;
+  const int dh = DH > 0 ? DH : head_dim;
+  const int ld = dh + 1;
   extern __shared__ float smem[];
-  float* k_s = smem;                               // [kBlockOwn][DH]
-  float* v_s = k_s + kBlockOwn * DH;               // [kBlockOwn][DH]
-  float* q_s = v_s + kBlockOwn * DH;               // [kBlockOther][kLd]
-  float* do_s = q_s + kBlockOther * kLd;           // [kBlockOther][kLd]
-  float* l_s = do_s + kBlockOther * kLd;           // [kBlockOther]
+  float* k_s = smem;                               // [kBlockOwn][dh]
+  float* v_s = k_s + kBlockOwn * dh;               // [kBlockOwn][dh]
+  float* q_s = v_s + kBlockOwn * dh;               // [kBlockOther][ld]
+  float* do_s = q_s + kBlockOther * ld;           // [kBlockOther][ld]
+  float* l_s = do_s + kBlockOther * ld;           // [kBlockOther]
   float* d_s = l_s + kBlockOther;                  // [kBlockOther]
   int8_t* m_s = reinterpret_cast<int8_t*>(d_s + kBlockOther);  // [kBlockOther][kBlockOwn]
 
@@ -217,14 +224,14 @@ masked_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k
   const int j0 = blockIdx.x * kBlockOwn;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const size_t node_stride = (size_t)heads * DH;
-  const size_t base = (size_t)b * n * node_stride + (size_t)h * DH;
+  const size_t node_stride = (size_t)heads * dh;
+  const size_t base = (size_t)b * n * node_stride + (size_t)h * dh;
   const int8_t* mask_b = mask + (size_t)b * n * n;
   const float* lse_bh = lse + ((size_t)b * heads + h) * n;
   const float* delta_bh = delta + ((size_t)b * heads + h) * n;
 
-  stage_rows<T, DH>(k_s, DH, k, base, node_stride, j0, kBlockOwn, n);
-  stage_rows<T, DH>(v_s, DH, v, base, node_stride, j0, kBlockOwn, n);
+  stage_rows<T>(k_s, dh, k, base, node_stride, j0, kBlockOwn, n, dh);
+  stage_rows<T>(v_s, dh, v, base, node_stride, j0, kBlockOwn, n, dh);
 
   float acc_k[kRowsPerWarp][kSlots], acc_v[kRowsPerWarp][kSlots];
 #pragma unroll
@@ -235,8 +242,8 @@ masked_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k
 
   for (int i0 = 0; i0 < n; i0 += kBlockOther) {
     __syncthreads();  // the previous tile has been consumed (and k_s, v_s are staged)
-    stage_rows<T, DH>(q_s, kLd, q, base, node_stride, i0, kBlockOther, n);
-    stage_rows<T, DH>(do_s, kLd, dout, base, node_stride, i0, kBlockOther, n);
+    stage_rows<T>(q_s, ld, q, base, node_stride, i0, kBlockOther, n, dh);
+    stage_rows<T>(do_s, ld, dout, base, node_stride, i0, kBlockOther, n, dh);
     if (threadIdx.x < kBlockOther) {
       const int row = i0 + threadIdx.x;
       l_s[threadIdx.x] = row < n ? lse_bh[row] : 0.f;
@@ -255,14 +262,14 @@ masked_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) s[r] = dpt[r] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < DH; ++d) {
-      const float qd = q_s[lane * kLd + d];
-      const float dod = do_s[lane * kLd + d];
+    for (int d = 0; d < dh; ++d) {
+      const float qd = q_s[lane * ld + d];
+      const float dod = do_s[lane * ld + d];
 #pragma unroll
       for (int r = 0; r < kRowsPerWarp; ++r) {
         const int own = warp * kRowsPerWarp + r;
-        s[r] = fmaf(k_s[own * DH + d], qd, s[r]);
-        dpt[r] = fmaf(v_s[own * DH + d], dod, dpt[r]);
+        s[r] = fmaf(k_s[own * dh + d], qd, s[r]);
+        dpt[r] = fmaf(v_s[own * dh + d], dod, dpt[r]);
       }
     }
 
@@ -283,8 +290,8 @@ masked_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k
 #pragma unroll
       for (int c = 0; c < kSlots; ++c) {
         const int d = lane + 32 * c;
-        qi[c] = d < DH ? q_s[i * kLd + d] : 0.f;
-        doi[c] = d < DH ? do_s[i * kLd + d] : 0.f;
+        qi[c] = d < dh ? q_s[i * ld + d] : 0.f;
+        doi[c] = d < dh ? do_s[i * ld + d] : 0.f;
       }
 #pragma unroll
       for (int r = 0; r < kRowsPerWarp; ++r) {
@@ -306,7 +313,7 @@ masked_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k
 #pragma unroll
     for (int c = 0; c < kSlots; ++c) {
       const int d = lane + 32 * c;
-      if (d < DH) {
+      if (d < dh) {
         const size_t off = base + (size_t)key * node_stride + d;
         dk[off] = from_f32<T>(acc_k[r][c] * scale);
         dv[off] = from_f32<T>(acc_v[r][c]);
@@ -322,61 +329,94 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <typename T, int DH>
+template <typename T, int SLOTS, int DH>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* mask,
                       const void* dout, const void* lse, const void* delta, void* dq, int batch,
-                      int n, int heads, float scale, cudaStream_t stream) {
-  constexpr int bytes = dq_smem_bytes<DH>();
-  static const cudaError_t opted = allow_smem(masked_attention_bwd_dq_kernel<T, DH>, bytes);
+                      int n, int heads, int dh, float scale, cudaStream_t stream) {
+  // opted into once, for the widest head this instantiation takes
+  static const cudaError_t opted = allow_smem(masked_attention_bwd_dq_kernel<T, SLOTS, DH>,
+                                              dq_smem_bytes(DH > 0 ? DH : 32 * SLOTS));
   if (opted != cudaSuccess) return opted;
   const dim3 grid((n + kBlockOwn - 1) / kBlockOwn, heads, batch);
-  masked_attention_bwd_dq_kernel<T, DH><<<grid, kThreads, bytes, stream>>>(
+  masked_attention_bwd_dq_kernel<T, SLOTS, DH><<<grid, kThreads, dq_smem_bytes(dh), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int8_t*>(mask), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<T*>(dq), n,
-      heads, scale);
+      heads, dh, scale);
   return cudaGetLastError();
 }
 
-template <typename T, int DH>
+template <typename T, int SLOTS, int DH>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* mask,
                        const void* dout, const void* lse, const void* delta, void* dk, void* dv,
-                       int batch, int n, int heads, float scale, cudaStream_t stream) {
-  constexpr int bytes = dkv_smem_bytes<DH>();
-  static const cudaError_t opted = allow_smem(masked_attention_bwd_dkv_kernel<T, DH>, bytes);
+                       int batch, int n, int heads, int dh, float scale, cudaStream_t stream) {
+  static const cudaError_t opted = allow_smem(masked_attention_bwd_dkv_kernel<T, SLOTS, DH>,
+                                              dkv_smem_bytes(DH > 0 ? DH : 32 * SLOTS));
   if (opted != cudaSuccess) return opted;
   const dim3 grid((n + kBlockOwn - 1) / kBlockOwn, heads, batch);
-  masked_attention_bwd_dkv_kernel<T, DH><<<grid, kThreads, bytes, stream>>>(
+  masked_attention_bwd_dkv_kernel<T, SLOTS, DH><<<grid, kThreads, dkv_smem_bytes(dh), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int8_t*>(mask), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<T*>(dk),
-      static_cast<T*>(dv), n, heads, scale);
+      static_cast<T*>(dv), n, heads, dh, scale);
   return cudaGetLastError();
 }
 
-bool bad_shape(int batch, int n, int heads) {
-  return batch <= 0 || n <= 0 || heads <= 0 || batch > 65535 || heads > 65535;
+constexpr int kMaxSlots = 9;  // head widths up to 9 · 32 = 288
+
+bool bad_shape(int batch, int n, int heads, int head_dim) {
+  return batch <= 0 || n <= 0 || heads <= 0 || batch > 65535 || heads > 65535 || head_dim <= 0 ||
+         head_dim > 32 * kMaxSlots;
+}
+
+// The main path's widths compiled in; any other width by its number of slots.
+#define BWD_DISPATCH(LAUNCH, ...)                                                     \
+  if (head_dim == 32) return (int)LAUNCH<T, 1, 32>(__VA_ARGS__);                     \
+  if (head_dim == 144) return (int)LAUNCH<T, 5, 144>(__VA_ARGS__);                   \
+  switch ((head_dim + 31) / 32) {                                                    \
+    case 1: return (int)LAUNCH<T, 1, 0>(__VA_ARGS__);                                \
+    case 2: return (int)LAUNCH<T, 2, 0>(__VA_ARGS__);                                \
+    case 3: return (int)LAUNCH<T, 3, 0>(__VA_ARGS__);                                \
+    case 4: return (int)LAUNCH<T, 4, 0>(__VA_ARGS__);                                \
+    case 5: return (int)LAUNCH<T, 5, 0>(__VA_ARGS__);                                \
+    case 6: return (int)LAUNCH<T, 6, 0>(__VA_ARGS__);                                \
+    case 7: return (int)LAUNCH<T, 7, 0>(__VA_ARGS__);                                \
+    case 8: return (int)LAUNCH<T, 8, 0>(__VA_ARGS__);                                \
+    case 9: return (int)LAUNCH<T, 9, 0>(__VA_ARGS__);                                \
+    default: return (int)cudaErrorInvalidValue;                                      \
+  }
+
+template <typename T>
+int dispatch_dq(const void* q, const void* k, const void* v, const void* mask, const void* dout,
+                const void* lse, const void* delta, void* dq, int batch, int n, int heads,
+                int head_dim, float scale, cudaStream_t st) {
+  BWD_DISPATCH(launch_dq, q, k, v, mask, dout, lse, delta, dq, batch, n, heads, head_dim, scale, st)
+}
+
+template <typename T>
+int dispatch_dkv(const void* q, const void* k, const void* v, const void* mask, const void* dout,
+                 const void* lse, const void* delta, void* dk, void* dv, int batch, int n,
+                 int heads, int head_dim, float scale, cudaStream_t st) {
+  BWD_DISPATCH(launch_dkv, q, k, v, mask, dout, lse, delta, dk, dv, batch, n, heads, head_dim,
+               scale, st)
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Each returns the cudaError_t of its launch.
+// dtype: 0 = float32, 1 = bfloat16; head_dim 1 to 288. Each returns the
+// cudaError_t of its launch.
 extern "C" int masked_attention_bwd_dq(const void* q, const void* k, const void* v,
                                        const void* mask, const void* dout, const void* lse,
                                        const void* delta, void* dq, int batch, int n, int heads,
                                        int head_dim, int dtype, float scale, void* stream) {
-  if (bad_shape(batch, n, heads)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(batch, n, heads, head_dim)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 32)
-    return (int)launch_dq<float, 32>(q, k, v, mask, dout, lse, delta, dq, batch, n, heads, scale, st);
-  if (dtype == 0 && head_dim == 144)
-    return (int)launch_dq<float, 144>(q, k, v, mask, dout, lse, delta, dq, batch, n, heads, scale, st);
-  if (dtype == 1 && head_dim == 32)
-    return (int)launch_dq<__nv_bfloat16, 32>(q, k, v, mask, dout, lse, delta, dq, batch, n, heads,
-                                             scale, st);
-  if (dtype == 1 && head_dim == 144)
-    return (int)launch_dq<__nv_bfloat16, 144>(q, k, v, mask, dout, lse, delta, dq, batch, n, heads,
-                                              scale, st);
+  if (dtype == 0)
+    return dispatch_dq<float>(q, k, v, mask, dout, lse, delta, dq, batch, n, heads, head_dim,
+                              scale, st);
+  if (dtype == 1)
+    return dispatch_dq<__nv_bfloat16>(q, k, v, mask, dout, lse, delta, dq, batch, n, heads,
+                                      head_dim, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -385,19 +425,13 @@ extern "C" int masked_attention_bwd_dkv(const void* q, const void* k, const void
                                         const void* delta, void* dk, void* dv, int batch, int n,
                                         int heads, int head_dim, int dtype, float scale,
                                         void* stream) {
-  if (bad_shape(batch, n, heads)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(batch, n, heads, head_dim)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 32)
-    return (int)launch_dkv<float, 32>(q, k, v, mask, dout, lse, delta, dk, dv, batch, n, heads,
-                                      scale, st);
-  if (dtype == 0 && head_dim == 144)
-    return (int)launch_dkv<float, 144>(q, k, v, mask, dout, lse, delta, dk, dv, batch, n, heads,
-                                       scale, st);
-  if (dtype == 1 && head_dim == 32)
-    return (int)launch_dkv<__nv_bfloat16, 32>(q, k, v, mask, dout, lse, delta, dk, dv, batch, n,
-                                              heads, scale, st);
-  if (dtype == 1 && head_dim == 144)
-    return (int)launch_dkv<__nv_bfloat16, 144>(q, k, v, mask, dout, lse, delta, dk, dv, batch, n,
-                                               heads, scale, st);
+  if (dtype == 0)
+    return dispatch_dkv<float>(q, k, v, mask, dout, lse, delta, dk, dv, batch, n, heads,
+                               head_dim, scale, st);
+  if (dtype == 1)
+    return dispatch_dkv<__nv_bfloat16>(q, k, v, mask, dout, lse, delta, dk, dv, batch, n, heads,
+                                       head_dim, scale, st);
   return (int)cudaErrorInvalidValue;
 }

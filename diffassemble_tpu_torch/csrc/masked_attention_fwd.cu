@@ -27,11 +27,17 @@
 // making it fast is later work. What the design does: one block per
 // (16-row query tile, head, batch); K/V tiles of 32 keys are staged in shared
 // memory as f32, each warp owns 4 query rows, each lane one key of the tile
-// for the scores and a 32-column slice of the head width for the output, and
+// for the scores and 32-column slices of the head width for the output, and
 // an online softmax over the key tiles keeps the (N, N) scores out of device
-// memory. At Dh = 144 the head width is split across the lanes (5 slots of
-// 32 columns, the last half used), so each thread holds 4×5 accumulators and
-// register pressure stays low; shared memory is 46,208 bytes per block.
+// memory. The kernel is templated on the number of 32-column slots a lane
+// holds (1 to 9) and takes the head width at run time, so every width from 1
+// to 288 runs (at Dh = 144, 5 slots, the last half used; each thread holds
+// 4×5 accumulators). The main path's widths, 32 and 144, are also
+// instantiated with the width fixed at compile time and static shared
+// memory: a run-time width in dynamic shared memory cost them up to 52%
+// (PERF.md §6). Shared memory is dynamic and sized from the width:
+// 10,368 bytes at Dh 32, 46,208 at Dh 144, 84,608 at Dh 264 (above 48 KB
+// the dynamic buffer is opted into once per instantiation).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,16 +76,31 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T, int DH>
+constexpr int smem_bytes(int dh) {
+  return (kBlockQ * dh + kBlockK * (dh + 1) + kBlockK * dh) * (int)sizeof(float);
+}
+
+// DH > 0 fixes the head width at compile time (the main path's 32 and 144);
+// DH = 0 takes it at run time from `head_dim`.
+template <typename T, int SLOTS, int DH>
 __global__ void __launch_bounds__(kWarps * 32)
 masked_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, const int8_t* __restrict__ mask,
                             T* __restrict__ o, float* __restrict__ lse, int n, int heads,
-                            float scale) {
-  constexpr int kSlots = (DH + 31) / 32;  // 32-column slices of the head width per lane
-  __shared__ float q_s[kBlockQ][DH];
-  __shared__ float k_s[kBlockK][DH + 1];  // +1: lane j reads row j, conflict-free
-  __shared__ float v_s[kBlockK][DH];
+                            int head_dim, float scale) {
+  constexpr int kSlots = SLOTS;  // 32-column slices of the head width per lane
+  const int dh = DH > 0 ? DH : head_dim;
+  const int ld = dh + 1;         // k_s row stride: lane j reads row j, conflict-free
+  // a width fixed at compile time takes three static arrays: one dynamic
+  // buffer cost this kernel up to 52% at Dh 144, one static buffer with
+  // offsets 8% at Dh 32 (PERF.md §6)
+  extern __shared__ float smem_dynamic[];
+  __shared__ float q_st[kBlockQ * (DH > 0 ? DH : 1)];
+  __shared__ float k_st[kBlockK * (DH > 0 ? DH + 1 : 1)];
+  __shared__ float v_st[kBlockK * (DH > 0 ? DH : 1)];
+  float* q_s = DH > 0 ? q_st : smem_dynamic;                  // [kBlockQ][dh]
+  float* k_s = DH > 0 ? k_st : q_s + kBlockQ * dh;            // [kBlockK][ld]
+  float* v_s = DH > 0 ? v_st : k_s + kBlockK * ld;            // [kBlockK][dh]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -87,14 +108,14 @@ masked_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * kBlockQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const size_t node_stride = (size_t)heads * DH;
-  const size_t base = (size_t)b * n * node_stride + (size_t)h * DH;
+  const size_t node_stride = (size_t)heads * dh;
+  const size_t base = (size_t)b * n * node_stride + (size_t)h * dh;
   const int8_t* mask_b = mask + (size_t)b * n * n;
 
-  for (int idx = tid; idx < kBlockQ * DH; idx += kWarps * 32) {
-    const int r = idx / DH, d = idx % DH;
+  for (int idx = tid; idx < kBlockQ * dh; idx += kWarps * 32) {
+    const int r = idx / dh, d = idx % dh;
     const int row = q0 + r;
-    q_s[r][d] = row < n ? to_f32(q[base + (size_t)row * node_stride + d]) : 0.f;
+    q_s[r * dh + d] = row < n ? to_f32(q[base + (size_t)row * node_stride + d]) : 0.f;
   }
 
   float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kSlots];
@@ -108,12 +129,12 @@ masked_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = 0; k0 < n; k0 += kBlockK) {
     __syncthreads();  // the previous tile has been consumed
-    for (int idx = tid; idx < kBlockK * DH; idx += kWarps * 32) {
-      const int j = idx / DH, d = idx % DH;
+    for (int idx = tid; idx < kBlockK * dh; idx += kWarps * 32) {
+      const int j = idx / dh, d = idx % dh;
       const int key = k0 + j;
       const size_t off = base + (size_t)key * node_stride + d;
-      k_s[j][d] = key < n ? to_f32(k[off]) : 0.f;
-      v_s[j][d] = key < n ? to_f32(v[off]) : 0.f;
+      k_s[j * ld + d] = key < n ? to_f32(k[off]) : 0.f;
+      v_s[j * dh + d] = key < n ? to_f32(v[off]) : 0.f;
     }
     __syncthreads();
 
@@ -122,10 +143,10 @@ masked_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) s[r] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < DH; ++d) {
-      const float kd = k_s[lane][d];
+    for (int d = 0; d < dh; ++d) {
+      const float kd = k_s[lane * ld + d];
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) s[r] = fmaf(q_s[warp * kRowsPerWarp + r][d], kd, s[r]);
+      for (int r = 0; r < kRowsPerWarp; ++r) s[r] = fmaf(q_s[(warp * kRowsPerWarp + r) * dh + d], kd, s[r]);
     }
 
     const int key = k0 + lane;
@@ -151,7 +172,7 @@ masked_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < kSlots; ++c) {
         const int d = lane + 32 * c;
-        vj[c] = d < DH ? v_s[j][d] : 0.f;
+        vj[c] = d < dh ? v_s[j * dh + d] : 0.f;
       }
 #pragma unroll
       for (int r = 0; r < kRowsPerWarp; ++r) {
@@ -170,41 +191,76 @@ masked_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < kSlots; ++c) {
       const int d = lane + 32 * c;
-      if (d < DH) o[base + (size_t)row * node_stride + d] = from_f32<T>(acc[r][c] / denom);
+      if (d < dh) o[base + (size_t)row * node_stride + d] = from_f32<T>(acc[r][c] / denom);
     }
     if (lane == 0) lse[((size_t)b * heads + h) * n + row] = m[r] + logf(denom);
   }
 }
 
-template <typename T, int DH>
-void launch(const void* q, const void* k, const void* v, const void* mask, void* o, void* lse,
-            int batch, int n, int heads, float scale, cudaStream_t stream) {
+// Dynamic shared memory above 48 KB has to be opted into once per kernel.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <typename T, int SLOTS, int DH>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* o,
+                   void* lse, int batch, int n, int heads, int dh, float scale,
+                   cudaStream_t stream) {
+  // a run-time width takes dynamic shared memory, opted into once for the
+  // widest head the instantiation takes
+  const int dynamic_bytes = DH > 0 ? 0 : smem_bytes(dh);
+  static const cudaError_t opted =
+      DH > 0 ? cudaSuccess
+             : allow_smem(masked_attention_fwd_kernel<T, SLOTS, DH>, smem_bytes(32 * SLOTS));
+  if (opted != cudaSuccess) return opted;
   const dim3 grid((n + kBlockQ - 1) / kBlockQ, heads, batch);
-  masked_attention_fwd_kernel<T, DH><<<grid, kWarps * 32, 0, stream>>>(
+  masked_attention_fwd_kernel<T, SLOTS, DH><<<grid, kWarps * 32, dynamic_bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int8_t*>(mask), static_cast<T*>(o), static_cast<float*>(lse), n, heads,
+      static_cast<const int8_t*>(mask), static_cast<T*>(o), static_cast<float*>(lse), n, heads, dh,
       scale);
+  return cudaGetLastError();
+}
+
+constexpr int kMaxSlots = 9;  // head widths up to 9 · 32 = 288
+
+// The main path's widths compiled in; any other width by its number of slots.
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, const void* mask, void* o, void* lse,
+             int batch, int n, int heads, int head_dim, float scale, cudaStream_t st) {
+#define FWD_LAUNCH(SLOTS, DH) \
+  (int)launch<T, SLOTS, DH>(q, k, v, mask, o, lse, batch, n, heads, head_dim, scale, st)
+  if (head_dim == 32) return FWD_LAUNCH(1, 32);
+  if (head_dim == 144) return FWD_LAUNCH(5, 144);
+  switch ((head_dim + 31) / 32) {
+    case 1: return FWD_LAUNCH(1, 0);
+    case 2: return FWD_LAUNCH(2, 0);
+    case 3: return FWD_LAUNCH(3, 0);
+    case 4: return FWD_LAUNCH(4, 0);
+    case 5: return FWD_LAUNCH(5, 0);
+    case 6: return FWD_LAUNCH(6, 0);
+    case 7: return FWD_LAUNCH(7, 0);
+    case 8: return FWD_LAUNCH(8, 0);
+    case 9: return FWD_LAUNCH(9, 0);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef FWD_LAUNCH
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
+// dtype: 0 = float32, 1 = bfloat16; head_dim 1 to 288. Returns the
+// cudaError_t of the launch.
 extern "C" int masked_attention_fwd(const void* q, const void* k, const void* v, const void* mask,
                                     void* o, void* lse, int batch, int n, int heads, int head_dim,
                                     int dtype, float scale, void* stream) {
-  if (batch <= 0 || n <= 0 || heads <= 0 || batch > 65535 || heads > 65535)
+  if (batch <= 0 || n <= 0 || heads <= 0 || batch > 65535 || heads > 65535 || head_dim <= 0 ||
+      head_dim > 32 * kMaxSlots)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 32) {
-    launch<float, 32>(q, k, v, mask, o, lse, batch, n, heads, scale, st);
-  } else if (dtype == 0 && head_dim == 144) {
-    launch<float, 144>(q, k, v, mask, o, lse, batch, n, heads, scale, st);
-  } else if (dtype == 1 && head_dim == 32) {
-    launch<__nv_bfloat16, 32>(q, k, v, mask, o, lse, batch, n, heads, scale, st);
-  } else if (dtype == 1 && head_dim == 144) {
-    launch<__nv_bfloat16, 144>(q, k, v, mask, o, lse, batch, n, heads, scale, st);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (dtype == 0) return dispatch<float>(q, k, v, mask, o, lse, batch, n, heads, head_dim, scale, st);
+  if (dtype == 1)
+    return dispatch<__nv_bfloat16>(q, k, v, mask, o, lse, batch, n, heads, head_dim, scale, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -9,6 +9,24 @@ Three kernels replace the three TPU kernels of the JAX package's
   ``_bwd_dq_kernel`` and ``masked_attention_bwd_dkv`` replaces
   ``_bwd_dkv_kernel`` (both launched by ``_flash_bwd``).
 
+Each takes every head width from 1 to ``MAX_HEAD_DIM`` (288) in float32 and
+bfloat16, by one of two routes, which ``route`` names and ``_launch``
+dispatches by type and width:
+
+- the tensor-core route (``"tensor_cores"``): ``csrc/masked_attention_bwd_tc.cu``,
+  the dQ and dK/dV kernels on ``mma.sync`` with bf16 operands and f32
+  accumulators, for bfloat16 at the widths in ``TENSOR_CORE_HEAD_DIMS``
+  (32 and 144, the main path's), whose base pointers are 16-byte aligned (as
+  every fresh allocation is);
+- the CUDA-core route (``"cuda_cores"``): the three kernels of
+  ``masked_attention_fwd.cu`` and ``masked_attention_bwd.cu``, products in f32
+  on the CUDA cores, templated on the number of 32-column slots (1 to 9) and
+  given the width at run time (32 and 144 are also compiled in): the forward
+  at every width, and the backward for float32 and for the bfloat16 calls the
+  tensor-core route does not take.
+
+Both routes are hand-written kernels, held against the same plain versions.
+
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use (one ``nvcc`` per source, run in
 parallel), cached under ``diffassemble_tpu_torch/_build/`` by the source's
@@ -42,6 +60,7 @@ _PKG = Path(__file__).resolve().parents[1]
 SOURCES = {
     "fwd": _PKG / "csrc" / "masked_attention_fwd.cu",
     "bwd": _PKG / "csrc" / "masked_attention_bwd.cu",
+    "bwd_tc": _PKG / "csrc" / "masked_attention_bwd_tc.cu",
 }
 BUILD_DIR = _PKG / "_build"
 # the TPU kernel each one replaces, in the JAX package (REFERENCE_PACKAGE)
@@ -50,7 +69,10 @@ REPLACES = {
     "masked_attention_bwd_dq": "ops/pallas_attention.py:94",
     "masked_attention_bwd_dkv": "ops/pallas_attention.py:121",
 }
-HEAD_DIMS = (32, 144)  # head widths the kernels are instantiated for
+MAX_HEAD_DIM = 288  # the widest head the kernels take (9 slots of 32 columns)
+# the kernels with a tensor-core route (bfloat16), and its head widths
+TENSOR_CORE_KERNELS = ("masked_attention_bwd_dq", "masked_attention_bwd_dkv")
+TENSOR_CORE_HEAD_DIMS = (32, 144)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG_INF = -1e9
 NVCC_FLAGS = (
@@ -64,6 +86,8 @@ _SIGNATURES = {  # C function → (library, argtypes)
     "masked_attention_fwd": ("fwd", [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P]),
     "masked_attention_bwd_dq": ("bwd", [_P] * 8 + [_I] * 5 + [ctypes.c_float, _P]),
     "masked_attention_bwd_dkv": ("bwd", [_P] * 9 + [_I] * 5 + [ctypes.c_float, _P]),
+    "masked_attention_bwd_dq_tc": ("bwd_tc", [_P] * 8 + [_I] * 5 + [ctypes.c_float, _P]),
+    "masked_attention_bwd_dkv_tc": ("bwd_tc", [_P] * 9 + [_I] * 5 + [ctypes.c_float, _P]),
 }
 
 
@@ -208,25 +232,40 @@ def _check(q, k, v, mask, dout=None, lse=None, delta=None):
             raise ValueError(f"{name} must be (B, H, N) float32 on {q.device}, got {tuple(t.shape)} {t.dtype}")
     if q.dtype not in _DTYPES:
         raise ValueError(f"kernel takes float32 or bfloat16, got {q.dtype}")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"kernel is built for head widths {HEAD_DIMS}, got {dh}")
+    if not 1 <= dh <= MAX_HEAD_DIM:
+        raise ValueError(f"the kernels take head widths 1 to {MAX_HEAD_DIM}, got {dh} "
+                         "(wider heads: ROADMAP Queue 2, K3)")
     if mask.shape != (b, n, n) or mask.dtype not in (torch.bool, torch.int8) or mask.device != q.device:
         raise ValueError(f"mask must be (B, N, N) bool/int8 on {q.device}, got {tuple(mask.shape)} {mask.dtype}")
     if not all(t.is_contiguous() for t in (q, k, v, mask, dout, lse, delta) if t is not None):
         raise ValueError("the kernels' inputs must be contiguous")
 
 
+def route(name: str, *tensors: torch.Tensor) -> str:
+    """The route kernel ``name`` takes for ``tensors`` (q first):
+    ``"tensor_cores"`` for a kernel in ``TENSOR_CORE_KERNELS`` in bfloat16 at
+    a width in ``TENSOR_CORE_HEAD_DIMS`` with every base pointer 16-byte
+    aligned, else ``"cuda_cores"``."""
+    q = tensors[0]
+    if (name in TENSOR_CORE_KERNELS and q.dtype == torch.bfloat16 and q.shape[-1] in TENSOR_CORE_HEAD_DIMS
+            and all(t.data_ptr() % 16 == 0 for t in tensors)):
+        return "tensor_cores"
+    return "cuda_cores"
+
+
 def _launch(name: str, *tensors: torch.Tensor) -> None:
     """Call kernel ``name`` on ``tensors`` (inputs then outputs, all on one
-    card) with q's shape, on the current stream; raise on a CUDA error."""
+    card) with q's shape, on the current stream, by its ``route``; raise on a
+    CUDA error."""
     q = tensors[0]
     b, n, h, dh = q.shape
-    rc = load_library().fn(name)(
+    c_name = name + "_tc" if route(name, *tensors) == "tensor_cores" else name
+    rc = load_library().fn(c_name)(
         *(t.data_ptr() for t in tensors), b, n, h, dh, _DTYPES[q.dtype], 1.0 / math.sqrt(dh),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{c_name} launch failed: CUDA error {rc}")
 
 
 def masked_attention_fwd(

@@ -3,7 +3,9 @@ path and its Pallas forward kernel (interpret mode). The CUDA kernel is held
 against its plain version on the card in ``test_torch_cuda.py``.
 
 Tolerance on the CPU: 2e-5 absolute on outputs and log-sum-exps of order 1,
-float32 sums of up to 264 products taken in another order.
+float32 sums of up to 264 products taken in another order. The head widths
+are the main path's (32, 144) and two the kernels take besides (20, not a
+multiple of 8, and 104, a 3D checkpoint's).
 """
 
 import jax.numpy as jnp
@@ -34,7 +36,7 @@ def _inputs(b, n, h, dh, seed, n_virtual=2, n_padded=7, empty_rows=3):
     return q, k, v, adj.numpy()
 
 
-CASES = [(200, 32), (200, 144), (256, 32), (256, 144)]
+CASES = [(200, 32), (200, 144), (256, 32), (256, 144), (200, 20), (256, 104)]
 
 
 @pytest.mark.parametrize("n, dh", CASES)
@@ -116,7 +118,7 @@ def test_mask_helpers_match_jax():
 @pytest.mark.parametrize(
     "change, message",
     [
-        (lambda q, k, v, m: (q[..., :16].contiguous(), k[..., :16].contiguous(), v[..., :16].contiguous(), m),
+        (lambda q, k, v, m: tuple(torch.cat([x] * 10, -1)[..., :296].contiguous() for x in (q, k, v)) + (m,),
          "head widths"),
         (lambda q, k, v, m: (q.half(), k.half(), v.half(), m), "float32 or bfloat16"),
         (lambda q, k, v, m: (q, k, v, m[:, :-1]), "mask must be"),

@@ -8,6 +8,8 @@ The inputs are made with numpy and fed to both packages; the mask is a 10%
 expander over the real nodes plus virtual nodes, with padded nodes, query rows
 with no edges and keys no query attends. N = 256 is two of the Pallas
 kernels' 128-row blocks; N = 200 is padded to 256 (masked rows) for JAX only.
+The head widths are the main path's (32, 144) and two the CUDA-core kernels
+take besides (20, not a multiple of 8, and 104, a 3D checkpoint's).
 
 Tolerance, float32: 2e-5 of max(1, max|reference|) — sums of up to 256
 products of order-1 terms taken in another order, and P taken from L
@@ -76,7 +78,7 @@ def _check_zeros(adj, dq, dk, dv):
     assert np.all(dk[unattended] == 0.0) and np.all(dv[unattended] == 0.0)
 
 
-@pytest.mark.parametrize("dh", [32, 144])
+@pytest.mark.parametrize("dh", [32, 144, 20, 104])
 @pytest.mark.parametrize("n", [256, 200])
 def test_bwd_plain_matches_pallas_flash_bwd(n, dh):
     q, k, v, g, adj = _inputs(n, dh, seed=n + dh)
@@ -181,3 +183,90 @@ def test_bwd_wrapper_checks(change, message):
     args = (*t, lse, ca.attention_delta(t[4], o))
     with pytest.raises(ValueError, match=message):
         ca._check(*change(args))
+
+
+def _tc_emulation(q, k, v, mask, dout, lse, delta, split: bool):
+    """dQ, dK and dV as the tensor-core kernels round them: S and dP from the
+    bf16 inputs with f32 sums; P and dS in f32, entering their products as
+    the bf16 pair hi = bf16(x), lo = bf16(x − hi) (``split``) or as bf16(x)
+    alone; each product of a pair summed into one f32 result; the outputs
+    rounded once to bf16."""
+    p, ds, scale = ca._bwd_plain_parts(q, k, v, mask, dout, lse, delta)
+
+    def parts(x):
+        hi = x.bfloat16().float()
+        return (hi, (x - hi).bfloat16().float()) if split else (hi,)
+
+    dq = sum(torch.einsum("bhnm,bmhd->bnhd", x, k.float()) for x in parts(ds)) * scale
+    dk = sum(torch.einsum("bhnm,bnhd->bmhd", x, q.float()) for x in parts(ds)) * scale
+    dv = sum(torch.einsum("bhnm,bnhd->bmhd", x, dout.float()) for x in parts(p))
+    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+@pytest.mark.parametrize("dh", [32, 144])
+def test_tensor_core_rounding_holds_the_bf16_gate_only_with_the_hi_lo_split(dh):
+    """The tensor cores take bf16 operands, and P and dS are f32. At the
+    serving path's shape (B = 1, H = 8, N = 908, the 10% expander plus 8
+    virtual nodes, randn bf16 inputs), the hi + lo split holds the card's
+    bf16 gate against the plain versions (one bf16 ulp, 2^-7 relative, plus
+    1e-4 of max|ref|: worst error/tolerance 0.81-0.95 here, the final bf16
+    rounding's one-ulp flips, which the gate always admits); rounding P and
+    dS once to bf16 breaks it (6.4-12.3 here)."""
+    rng = np.random.default_rng(dh)
+    q, k, v, g = (torch.as_tensor(rng.standard_normal((1, 908, 8, dh)).astype(np.float32)).bfloat16()
+                  for _ in range(4))
+    topo = torch.as_tensor(expander_mask(900, "10%", np.random.default_rng(0)))
+    node_mask = torch.ones((1, 900), dtype=torch.bool)
+    adj, _ = tattn.extend_mask_with_virtual_nodes(tattn.build_adjacency_mask(topo, node_mask), node_mask, 8)
+    adj[0, EMPTY_ROWS] = False
+    adj[0, :, UNATTENDED] = False
+    o, lse = ca.masked_attention_fwd_plain(q, k, v, adj)
+    args = (q, k, v, adj, g, lse, ca.attention_delta(g, o))
+    refs = (ca.masked_attention_bwd_dq_plain(*args), *ca.masked_attention_bwd_dkv_plain(*args))
+
+    def worst(outs):
+        ratios = []
+        for out, ref in zip(outs, refs):
+            rf = ref.float()
+            tol = 2.0**-7 * rf.abs() + 1e-4 * rf.abs().max()
+            ratios.append(float(((out.float() - rf).abs() / tol).max()))
+        return ratios
+
+    split = _tc_emulation(*args, split=True)
+    assert max(worst(split)) <= 1.0, worst(split)
+    assert min(worst(_tc_emulation(*args, split=False))) > 1.0
+    # a masked entry gives P = dS = 0 exactly, and the pair of 0 is (0, 0)
+    dq, dk, dv = split
+    empty, unattended = ~adj.any(-1), ~adj.any(-2)
+    assert bool(empty[0, EMPTY_ROWS].all()) and bool(unattended[0, UNATTENDED].all())
+    assert bool((dq[empty] == 0).all()) and bool((dk[unattended] == 0).all()) and bool((dv[unattended] == 0).all())
+
+
+@pytest.mark.parametrize("dh", [1, 20, 32, 104, 144, 264, 288])
+def test_check_takes_every_head_width_to_288(dh):
+    """The kernels take every head width from 1 to 288 (9 slots of 32
+    columns), both types, and raise above it, naming the limit."""
+    q, k, v, g, adj = (torch.as_tensor(x) for x in _inputs(40, 1, seed=6, n_virtual=2, n_padded=3))
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.zeros((2, 40, 2, dh), dtype=dtype)
+        lse = torch.zeros((2, 2, 40))
+        ca._check(x, x, x, adj, x, lse, lse)
+    wide = torch.zeros((2, 40, 2, 289))
+    with pytest.raises(ValueError, match="head widths 1 to 288"):
+        ca._check(wide, wide, wide, adj)
+    with pytest.raises(ValueError, match="ROADMAP Queue 2, K3"):
+        ca._check(*(torch.zeros((2, 40, 2, 296)),) * 3, adj)
+
+
+def test_route_is_the_tensor_cores_for_bf16_at_the_main_path_widths():
+    """bfloat16 at Dh 32 and 144 takes the tensor-core backward kernels;
+    float32, other widths and the forward take the CUDA-core kernels."""
+    for dh, dtype, name, want in ((32, torch.bfloat16, "masked_attention_bwd_dq", "tensor_cores"),
+                                  (144, torch.bfloat16, "masked_attention_bwd_dkv", "tensor_cores"),
+                                  (32, torch.float32, "masked_attention_bwd_dq", "cuda_cores"),
+                                  (104, torch.bfloat16, "masked_attention_bwd_dkv", "cuda_cores"),
+                                  (32, torch.bfloat16, "masked_attention_fwd", "cuda_cores")):
+        x = torch.zeros((1, 8, 2, dh), dtype=dtype)
+        assert ca.route(name, x, x, x) == want, (dh, dtype, name)
+    x = torch.zeros((1, 8, 2, 33), dtype=torch.bfloat16)[..., 1:]  # 2-byte offset: not 16-byte aligned
+    assert x.shape[-1] == 32 and ca.route("masked_attention_bwd_dq", x) == "cuda_cores"

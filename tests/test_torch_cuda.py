@@ -37,9 +37,14 @@ def _inputs(b, n, h, dh, seed, n_virtual=8, n_padded=7, empty_rows=3):
     return q, k, v, adj
 
 
+# the main path's widths at two N, then widths the kernels take besides: 20
+# (not a multiple of 8), 104 and 264 (the 3D checkpoints' last layers)
+SHAPES = [(200, 32), (200, 144), (908, 32), (908, 144), (200, 20), (908, 104), (908, 264)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n, dh", [(200, 32), (200, 144), (908, 32), (908, 144)])
+@pytest.mark.parametrize("n, dh", SHAPES)
 def test_cuda_kernel_matches_plain(n, dh, dtype, card):
     """O within 1e-5 relative (f32) or one bf16 ulp plus the plain version's
     rounding of probabilities to bf16 (bf16); L within 1e-5; empty rows
@@ -73,20 +78,39 @@ def _bwd_tol(ref, dtype):
     return rel * ref.abs() + floor * ref.abs().max()
 
 
+def _misaligned(x):
+    """A contiguous copy of ``x`` whose data starts 2 bytes past a 16-byte
+    boundary: the tensor-core route refuses it, the CUDA-core route takes it."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", ["by width", "cuda_cores"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n, dh", [(200, 32), (200, 144), (908, 32), (908, 144)])
-def test_cuda_bwd_kernels_match_plain(n, dh, dtype, card):
+@pytest.mark.parametrize("n, dh", SHAPES)
+def test_cuda_bwd_kernels_match_plain(n, dh, dtype, route, card):
     """dQ, dK and dV of the two backward kernels against their plain versions
     on the same inputs; empty query rows give dQ exactly 0 and keys no query
-    attends give dK = dV exactly 0; nothing is NaN."""
+    attends give dK = dV exactly 0; nothing is NaN. By width, bfloat16 at
+    Dh 32 and 144 takes the tensor-core kernels and everything else the
+    CUDA-core kernels; with inputs off a 16-byte boundary every call takes
+    the CUDA-core kernels."""
     dt = getattr(torch, dtype)
     q, k, v, adj = (x.to(card) for x in _inputs(2, n, 8, dh, seed=n + dh))
     adj[0, :, 10:13] = False  # keys no query attends
     q, k, v = (x.to(dt) for x in (q, k, v))
     dout = torch.randn(q.shape, generator=torch.Generator(device=card).manual_seed(n), device=card).to(dt)
+    if route == "cuda_cores":
+        q, k, v, dout = (_misaligned(x) for x in (q, k, v, dout))
     o, lse = cuda_attention.masked_attention_fwd(q, k, v, adj)
     delta = cuda_attention.attention_delta(dout, o)
+    tensor_cores = route == "by width" and dt == torch.bfloat16 and dh in (32, 144)
+    for name in ("masked_attention_bwd_dq", "masked_attention_bwd_dkv"):
+        got = cuda_attention.route(name, q, k, v, adj, dout, lse, delta)
+        assert got == ("tensor_cores" if tensor_cores else "cuda_cores"), (name, got)
     before = [kern.launches for kern in cuda_attention.KERNELS[1:]]
     dq = cuda_attention.masked_attention_bwd_dq(q, k, v, adj, dout, lse, delta)
     dk, dv = cuda_attention.masked_attention_bwd_dkv(q, k, v, adj, dout, lse, delta)
@@ -101,6 +125,14 @@ def test_cuda_bwd_kernels_match_plain(n, dh, dtype, card):
     assert int(empty.sum()) >= 3 and int(unattended.sum()) >= 3
     assert bool((dq[empty] == 0).all())
     assert bool((dk[unattended] == 0).all()) and bool((dv[unattended] == 0).all())
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_refuse_heads_wider_than_288(card):
+    q = torch.zeros((1, 16, 8, 296), device=card)
+    mask = torch.ones((1, 16, 16), dtype=torch.bool, device=card)
+    with pytest.raises(ValueError, match="head widths 1 to 288"):
+        cuda_attention.masked_attention_fwd(q, q, q, mask)
 
 
 @pytest.mark.cuda
