@@ -17,29 +17,35 @@ Phases, each ending in a line with the elapsed seconds:
    rows, fully connected, and N = 200, at head widths 32 and 144, in bf16 and
    f32; then the two backward kernels (dQ, and dK/dV) against theirs over the
    same masks, with exact zeros on empty query rows and unattended keys. In
-   bf16 at Dh 32 and 144 the backward runs on the tensor-core route, in f32 on
-   the CUDA-core route; each line names its route. Then all three kernels at
-   the other head widths they take, 20, 104 and 264, in both types, on the
-   B = 1 expander and the padded/empty-rows masks; a head of 296 must raise;
+   bf16 at Dh 32 and 144 all three run on the tensor-core route, in f32 on
+   the CUDA-core route; each line names its route, and a kernel on another
+   route than its type and width call for fails. bf16 inputs 2 bytes off a
+   16-byte boundary run all three on the CUDA-core route on the B = 1
+   expander. Then all three kernels at the other head widths they take, 20,
+   104 and 264, in both types, on the B = 1 expander and the
+   padded/empty-rows masks; a head of 296 must raise;
 4. timing of the three kernels, their plain versions and the PyTorch calls
    (``scaled_dot_product_attention`` forward, and one backward of it, which
-   computes dQ, dK and dV together) at the serving shapes (B = 1) and the
-   training shapes (B = 8), H = 8, N = 908; at B = 8 also the backward's
-   CUDA-core route in bf16 (inputs 2 bytes off a 16-byte boundary take it) and
-   the three kernels at Dh 20, 104 and 264;
+   computes dQ, dK and dV together) at the serving shapes (B = 1, the
+   forward) and the training shapes (B = 8, all three), H = 8, N = 908; the
+   same kernels on the CUDA-core route in bf16 (inputs 2 bytes off a 16-byte
+   boundary take it); the tensor-core forward with 64-, 32- and 16-row query
+   blocks (each bit-equal to the launch's own choice); at B = 8 the three
+   kernels at Dh 20, 104 and 264;
 5. serving, the first main path: the flagship 30×30 rotation config from
    ``weights/diffusion2d_rot30/config.json`` (JSON only) with seeded weights;
    one denoiser call with the kernel against the same call with plain
    attention; a 6×6 sample on the card against the CPU; then
    ``PuzzleSolver.predict_array`` on 3 seeded 960×960 images, with exactly
-   120 forward launches (4 layers × 30 steps) and no backward launch each;
+   120 forward launches (4 layers × 30 steps), all on the tensor cores, and
+   no backward launch each;
 6. training: a full-width f32 step's gradients with the kernels against the
    same step with plain attention (every query/key/value weight gets a
    finite, nonzero gradient); a 6×6 f32 train step on the card against the
    CPU; then the second main path, ``run_2d`` of the rotation CLI with the
    flagship's flags at batch 8 on 30×30 puzzles: a sanity eval, 3 steps
-   with exactly 4 + 4 + 4 kernel launches each, a checkpoint, and a resume
-   that continues from it for 2 more steps.
+   with exactly 4 + 4 + 4 kernel launches each, all on the tensor cores, a
+   checkpoint, and a resume that continues from it for 2 more steps.
 
 The last three lines are the nvidia-smi line, a JSON object describing the
 kernels, and ``{"ok": true, "device": {...}}``. Any failure raises, and the
@@ -83,10 +89,13 @@ CUDA_CORE_SOURCES = {
     "masked_attention_bwd_dq": "diffassemble_tpu_torch/csrc/masked_attention_bwd.cu",
     "masked_attention_bwd_dkv": "diffassemble_tpu_torch/csrc/masked_attention_bwd.cu",
 }
-TENSOR_CORE_SOURCE = "diffassemble_tpu_torch/csrc/masked_attention_bwd_tc.cu"  # the backward pair
-# each kernel's source on the main paths (bf16 at Dh 32 and 144)
-KERNEL_SOURCES = {**CUDA_CORE_SOURCES, "masked_attention_bwd_dq": TENSOR_CORE_SOURCE,
-                  "masked_attention_bwd_dkv": TENSOR_CORE_SOURCE}
+# each kernel's source on the main paths: the tensor-core route (bf16 at Dh 32 and 144)
+KERNEL_SOURCES = {
+    "masked_attention_fwd": "diffassemble_tpu_torch/csrc/masked_attention_fwd_tc.cu",
+    "masked_attention_bwd_dq": "diffassemble_tpu_torch/csrc/masked_attention_bwd_tc.cu",
+    "masked_attention_bwd_dkv": "diffassemble_tpu_torch/csrc/masked_attention_bwd_tc.cu",
+}
+FWD_BLOCK_ROWS = (64, 32, 16)  # the tensor-core forward's query blocks, timed in turn
 MAIN_HEAD_DIMS = (32, 144)
 OTHER_HEAD_DIMS = (20, 104, 264)  # not a multiple of 8; the 3D checkpoints' last layers
 
@@ -178,14 +187,23 @@ def build() -> None:
 def reset_counts() -> None:
     from diffassemble_tpu_torch.ops import cuda_attention
 
-    for kern in cuda_attention.KERNELS:
-        kern.launches = 0
+    cuda_attention.reset_launch_counts()
 
 
 def read_counts() -> dict[str, int]:
     from diffassemble_tpu_torch.ops import cuda_attention
 
     return {kern.__name__: kern.launches for kern in cuda_attention.KERNELS}
+
+
+def read_routes() -> dict[str, dict[str, int]]:
+    from diffassemble_tpu_torch.ops import cuda_attention
+
+    return {kern.__name__: dict(kern.launches_by_route) for kern in cuda_attention.KERNELS}
+
+
+def routes_since(before: dict[str, dict[str, int]]) -> dict[str, dict[str, int]]:
+    return {k: {r: n - before[k][r] for r, n in by_route.items()} for k, by_route in read_routes().items()}
 
 
 def _masks(torch, np):
@@ -220,9 +238,13 @@ def _masks(torch, np):
     return [(label, m.cuda().contiguous()) for label, m in out]
 
 
-def _check_kernels(label: str, mask, dh: int, dtype, gen, max_err: dict[str, float]) -> None:
+def _check_kernels(label: str, mask, dh: int, dtype, gen, max_err: dict[str, float],
+                   misaligned: bool = False) -> None:
     """The three kernels against their plain versions on one mask, width and
-    type; raises on a disagreement. Updates ``max_err`` per kernel."""
+    type, on the route these call for: the tensor cores for bf16 at the main
+    paths' widths, else (and for ``misaligned`` inputs, 2 bytes off a 16-byte
+    boundary) the CUDA cores; raises on a disagreement or another route.
+    Updates ``max_err`` per kernel."""
     import torch
 
     from diffassemble_tpu_torch.ops import cuda_attention as ca
@@ -231,6 +253,14 @@ def _check_kernels(label: str, mask, dh: int, dtype, gen, max_err: dict[str, flo
     empty = ~mask.any(-1)  # (B, N) query rows with no edges
     unattended = ~mask.any(-2)  # (B, N) keys no query attends
     q, k, v, dout = (torch.randn((b, n, HEADS, dh), generator=gen, device="cuda").to(dtype) for _ in range(4))
+    if misaligned:
+        q, k, v, dout = (_misaligned(t) for t in (q, k, v, dout))
+        label = f"{label}, misaligned"
+    want = ("tensor_cores" if dtype == torch.bfloat16 and dh in MAIN_HEAD_DIMS and not misaligned
+            else "cuda_cores")
+    fwd_route = ca.route("masked_attention_fwd", q, k, v, mask)
+    if fwd_route != want:
+        raise AssertionError(f"forward route {fwd_route} at Dh={dh} {dtype}, expected {want}")
     o, lse = ca.masked_attention_fwd(q, k, v, mask)
     torch.cuda.synchronize()
     o_p, lse_p = ca.masked_attention_fwd_plain(q, k, v, mask)
@@ -254,9 +284,9 @@ def _check_kernels(label: str, mask, dh: int, dtype, gen, max_err: dict[str, flo
         and torch.equal(lse[~nonempty], lse_p[~nonempty])
     )
     max_err["masked_attention_fwd"] = max(max_err["masked_attention_fwd"], err.max().item())
-    fwd_route = ca.route("masked_attention_fwd", q, k, v, mask)
     phase(f"fwd vs plain: {label:34s} B={b} N={n} Dh={dh:3d} {str(dtype)[6:]:8s} {fwd_route:12s} "
-          f"max|dO|={err.max().item():.3e} max|dL|={lse_err.max().item():.3e} "
+          f"max|dO|={err.max().item():.3e} worst err/tol {(err / tol).max().item():.3f} "
+          f"max|dL|={lse_err.max().item():.3e} "
           f"empty rows={int(empty.sum())} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"forward kernel disagrees with its plain version: {label} Dh={dh} {dtype}")
@@ -265,7 +295,6 @@ def _check_kernels(label: str, mask, dh: int, dtype, gen, max_err: dict[str, flo
     delta = ca.attention_delta(dout, o)
     args = (q, k, v, mask, dout, lse, delta)
     routes = {ca.route(name, *args) for name in ("masked_attention_bwd_dq", "masked_attention_bwd_dkv")}
-    want = "tensor_cores" if dtype == torch.bfloat16 and dh in MAIN_HEAD_DIMS else "cuda_cores"
     if routes != {want}:
         raise AssertionError(f"backward routes {routes} at Dh={dh} {dtype}, expected {want}")
     dq = ca.masked_attention_bwd_dq(*args)
@@ -315,6 +344,8 @@ def kernels_vs_plain() -> dict[str, float]:
         for dh in MAIN_HEAD_DIMS:
             for dtype in (torch.bfloat16, torch.float32):
                 _check_kernels(label, mask, dh, dtype, gen, max_err)
+    for dh in MAIN_HEAD_DIMS:  # the CUDA-core route in bf16 at the main paths' widths
+        _check_kernels(masks[0][0], masks[0][1], dh, torch.bfloat16, gen, max_err, misaligned=True)
     for label, mask in (masks[0], masks[2]):  # B = 1 expander; padded nodes and empty rows
         for dh in OTHER_HEAD_DIMS:
             for dtype in (torch.bfloat16, torch.float32):
@@ -331,7 +362,7 @@ def kernels_vs_plain() -> dict[str, float]:
 
 def _misaligned(x):
     """A contiguous copy of ``x`` starting 2 bytes past a 16-byte boundary:
-    the backward kernels take the CUDA-core route for it."""
+    the kernels take the CUDA-core route for it."""
     import torch
 
     buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
@@ -340,20 +371,60 @@ def _misaligned(x):
     return out
 
 
-def timing() -> list[dict]:
+def _fwd_block_rows_sweep(q, k, v, mask, o, lse) -> list[dict]:
+    """The tensor-core forward at each query block of ``FWD_BLOCK_ROWS`` on
+    the same inputs, through the C entry point that takes the block's rows
+    (uncounted): each must give the wrapper's O and L bit for bit (a warp's
+    16 rows are computed alike in any block), then is timed."""
+    import torch
+
+    from diffassemble_tpu_torch.ops import cuda_attention as ca
+
+    lib = ca.load_library()
+    fn = lib.fn("masked_attention_fwd_tc_rows")
+    b, n, h, dh = q.shape
+    chosen = lib.fn("masked_attention_fwd_tc_block_rows")(b, n, h, dh)
+    stream = torch.cuda.current_stream().cuda_stream
+    out = []
+    for rows in FWD_BLOCK_ROWS:
+        o2, lse2 = torch.empty_like(o), torch.empty_like(lse)
+
+        def call():
+            rc = fn(*(t.data_ptr() for t in (q, k, v, mask, o2, lse2)), b, n, h, dh, 1, 1.0 / math.sqrt(dh),
+                    rows, stream)
+            if rc != 0:
+                raise RuntimeError(f"masked_attention_fwd_tc_rows({rows}) failed: CUDA error {rc}")
+
+        call()
+        torch.cuda.synchronize()
+        if not (torch.equal(o2, o) and torch.equal(lse2, lse)):
+            raise AssertionError(f"the forward with {rows}-row blocks differs from the launch's own (B={b} Dh={dh})")
+        ms = cuda_ms(call)
+        blocks = -(-n // rows) * h * b
+        out.append({"b": b, "dh": dh, "block_rows": rows, "blocks": blocks, "chosen": rows == chosen, "ms": ms})
+        phase(f"timing fwd, tensor cores, {rows:2d}-row query blocks ({blocks:4d} blocks) B={b} Dh={dh:3d}: "
+              f"{ms:.4f} ms{' (the launch chooses these)' if rows == chosen else ''}")
+    if chosen not in FWD_BLOCK_ROWS:
+        raise AssertionError(f"the forward chose {chosen}-row blocks")
+    return out
+
+
+def timing() -> tuple[list[dict], list[dict]]:
     """Kernel, plain and library times at the serving (B = 1, forward) and
     training (B = 8, all three) shapes, bf16, fully connected mask. The
     library's backward is one SDPA backward, which computes dQ, dK and dV
     together: both backward rows carry that one time, to be set against the
-    sum of the two kernels' times. At B = 8 the backward's CUDA-core route in
-    bf16 is timed beside its tensor-core route, and the three kernels at the
-    widths off the main paths; those rows have ``main_path`` false."""
+    sum of the two kernels' times. At the main paths' widths the same kernels
+    on the CUDA-core route in bf16 are timed beside the tensor-core route, and
+    the tensor-core forward at each query block size; at B = 8 the three
+    kernels at the widths off the main paths. Rows off the main paths have
+    ``main_path`` false. Returns the rows and the block-size sweep."""
     import torch
 
     from diffassemble_tpu_torch.ops import cuda_attention as ca
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    rows = []
+    rows, sweep = [], []
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for b in (1, TRAIN_BATCH):
         mask = torch.ones((b, N_NODES, N_NODES), dtype=torch.bool, device="cuda")
@@ -383,38 +454,46 @@ def timing() -> list[dict]:
                     ("masked_attention_bwd_dkv", lambda: ca.masked_attention_bwd_dkv(*args),
                      lambda: ca.masked_attention_bwd_dkv_plain(*args), lib_bwd),
                 ]
+            here = []
             for kernel, fn, plain, library_ms in cases:
                 ms, plain_ms = cuda_ms(fn), cuda_ms(plain)
                 bound, bound_by = bound_ms(kernel, b, N_NODES, HEADS, dh, 2)
                 route = ca.route(kernel, *args)
-                rows.append({"kernel": kernel, "b": b, "dh": dh, "route": route, "main_path": main,
+                here.append({"kernel": kernel, "b": b, "dh": dh, "route": route, "main_path": main,
                              "launches_per_step": count, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                              "bound_ms": bound, "bound_by": bound_by})
                 phase(f"timing {kernel:25s} B={b} N={N_NODES} H={HEADS} Dh={dh:3d} bf16 {route:12s}: kernel "
                       f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
                       f"bound {bound:.5f} ms ({bound_by})")
-            if b == TRAIN_BATCH and main:
-                tc_pair = rows[-2]["ms"] + rows[-1]["ms"]
-                phase(f"timing backward pair          B={b} N={N_NODES} H={HEADS} Dh={dh:3d} bf16: dQ + dK/dV kernels "
-                      f"{tc_pair:.4f} ms against one SDPA backward (dQ, dK, dV) {lib_bwd:.4f} ms: "
-                      f"{tc_pair / lib_bwd:.2f}x")
+            if main:
                 # the CUDA-core route on the same inputs, 2 bytes off a 16-byte boundary
                 mq, mk, mv, mdo = (_misaligned(t) for t in (q, k, v, dout))
                 margs = (mq, mk, mv, mask, mdo, lse, delta)
                 cc = {}
-                for kernel, fn in (("masked_attention_bwd_dq", lambda: ca.masked_attention_bwd_dq(*margs)),
-                                   ("masked_attention_bwd_dkv", lambda: ca.masked_attention_bwd_dkv(*margs))):
+                cc_cases = [("masked_attention_fwd", lambda: ca.masked_attention_fwd(mq, mk, mv, mask))]
+                if b == TRAIN_BATCH:
+                    cc_cases += [("masked_attention_bwd_dq", lambda: ca.masked_attention_bwd_dq(*margs)),
+                                 ("masked_attention_bwd_dkv", lambda: ca.masked_attention_bwd_dkv(*margs))]
+                for kernel, fn in cc_cases:
                     assert ca.route(kernel, *margs) == "cuda_cores"
-                    ref = next(r for r in rows[-2:] if r["kernel"] == kernel)
+                    ref = next(r for r in here if r["kernel"] == kernel)
                     cc[kernel] = cuda_ms(fn)
-                    rows.append({**ref, "route": "cuda_cores", "main_path": False, "launches_per_step": 0,
+                    here.append({**ref, "route": "cuda_cores", "main_path": False, "launches_per_step": 0,
                                  "ms": cc[kernel]})
-                cc_pair = sum(cc.values())
-                phase(f"timing backward pair, CUDA cores B={b} N={N_NODES} H={HEADS} Dh={dh:3d} bf16: "
-                      f"dQ {cc['masked_attention_bwd_dq']:.4f} + dK/dV {cc['masked_attention_bwd_dkv']:.4f} = "
-                      f"{cc_pair:.4f} ms; the tensor-core pair is {cc_pair / tc_pair:.2f}x faster")
+                tc_fwd = here[0]["ms"]
+                phase(f"timing forward, CUDA cores    B={b} N={N_NODES} H={HEADS} Dh={dh:3d} bf16: "
+                      f"{cc['masked_attention_fwd']:.4f} ms; the tensor-core forward is "
+                      f"{cc['masked_attention_fwd'] / tc_fwd:.2f}x faster, {tc_fwd / lib_fwd:.2f}x SDPA's time")
+                if b == TRAIN_BATCH:
+                    tc_pair = here[1]["ms"] + here[2]["ms"]
+                    cc_pair = cc["masked_attention_bwd_dq"] + cc["masked_attention_bwd_dkv"]
+                    phase(f"timing backward pair          B={b} N={N_NODES} H={HEADS} Dh={dh:3d} bf16: dQ + dK/dV "
+                          f"{tc_pair:.4f} ms on the tensor cores, {cc_pair:.4f} ms on the CUDA cores, against one "
+                          f"SDPA backward (dQ, dK, dV) {lib_bwd:.4f} ms: {tc_pair / lib_bwd:.2f}x")
+                sweep += _fwd_block_rows_sweep(q, k, v, mask, o, lse)
+            rows += here
             del out_t, qt, kt, vt
-    return rows
+    return rows, sweep
 
 
 class PlainAttention:
@@ -450,7 +529,7 @@ def seeded_puzzles(n: int, count: int, rotation: bool, rng, degree=None):
     return collate_puzzles(samples, n * n)
 
 
-def serving() -> tuple[dict[str, int], list[float]]:
+def serving() -> tuple[dict[str, int], dict[str, dict[str, int]], list[float]]:
     import dataclasses
 
     import numpy as np
@@ -503,18 +582,22 @@ def serving() -> tuple[dict[str, int], list[float]]:
     per_request = cfg.n_layers * (cfg.steps // cfg.inference_ratio)
     reset_counts()
     for img in images:
-        start, before = time.perf_counter(), read_counts()
+        start, before, before_routes = time.perf_counter(), read_counts(), read_routes()
         out = solver.predict_array(img)
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - start)
         launched = {k: v - before[k] for k, v in read_counts().items()}
-        phase(f"request: {seconds[-1]:.3f} s, kernel launches {launched}, output {out.shape}")
+        fwd_routes = routes_since(before_routes)["masked_attention_fwd"]
+        phase(f"request: {seconds[-1]:.3f} s, kernel launches {launched}, forward by route {fwd_routes}, "
+              f"output {out.shape}")
         if launched != {"masked_attention_fwd": per_request, "masked_attention_bwd_dq": 0,
                         "masked_attention_bwd_dkv": 0}:
             raise AssertionError(f"expected {per_request} forward launches and no backward launch per request")
+        if fwd_routes != {"tensor_cores": per_request, "cuda_cores": 0}:
+            raise AssertionError(f"expected all {per_request} forward launches on the tensor cores, got {fwd_routes}")
         if out.shape != (960, 960, 3) or not np.isfinite(out).all():
             raise AssertionError("bad output image")
-    counts = read_counts()
+    counts, routes = read_counts(), read_routes()
     phase(f"served {REQUESTS} requests: launches {counts}, "
           f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
@@ -523,7 +606,7 @@ def serving() -> tuple[dict[str, int], list[float]]:
     if not all(torch.isfinite(m.float()).all() for m in metrics.values()):
         raise AssertionError("non-finite metrics")
     phase(f"metrics_from_final (random weights): piece_acc {metrics['piece_acc'].tolist()}")
-    return counts, seconds
+    return counts, routes, seconds
 
 
 def gradient_parity() -> None:
@@ -638,7 +721,7 @@ def card_vs_cpu_training() -> None:
           f"worst err/tol {worst:.3f}, {undetermined} entries with a gradient at rounding noise")
 
 
-def training(run_dir: Path) -> tuple[dict[str, int], list[float], list[dict]]:
+def training(run_dir: Path) -> tuple[dict[str, int], dict[str, dict[str, int]], list[float]]:
     """The second main path: ``run_2d`` of the rotation CLI at full width,
     batch 8, 30×30; then a resume from its checkpoint. Each train step is
     timed (host clock to a synchronize) and its launches counted."""
@@ -655,11 +738,12 @@ def training(run_dir: Path) -> tuple[dict[str, int], list[float], list[dict]]:
 
         def counted(state, batch):
             torch.cuda.synchronize()
-            start, before = time.perf_counter(), read_counts()
+            start, before, before_routes = time.perf_counter(), read_counts(), read_routes()
             new, aux = step(state, batch)
             torch.cuda.synchronize()
             launched = {k: v - before[k] for k, v in read_counts().items()}
             rec = {"step": new.step, "seconds": time.perf_counter() - start, "launches": launched,
+                   "routes": routes_since(before_routes),
                    **{k: float(aux[k]) for k in ("total_loss", "grad_norm", "grad_norm/encoder",
                                                  "grad_norm/denoiser", "grad_nonfinite")}}
             steps.append(rec)
@@ -680,16 +764,19 @@ def training(run_dir: Path) -> tuple[dict[str, int], list[float], list[dict]]:
         first_run = len(steps)
         with mock.patch.object(sys, "argv", argv + ["-max_steps", str(TRAIN_STEPS + RESUME_STEPS)]):
             train_2d_rot.main()
-    counts = read_counts()
+    counts, routes = read_counts(), read_routes()
     peak = torch.cuda.max_memory_allocated()
     ckpts = sorted(int(p.name) for p in (run_dir / "checkpoints").iterdir() if p.name.isdigit())
     expected = dict.fromkeys(KERNEL_SOURCES, 4)
+    on_tensor_cores = dict.fromkeys(KERNEL_SOURCES, {"tensor_cores": 4, "cuda_cores": 0})
     if first_run != TRAIN_STEPS or [s["step"] for s in steps] != list(range(1, TRAIN_STEPS + RESUME_STEPS + 1)):
         raise AssertionError(f"expected steps 1..{TRAIN_STEPS} then a resume to {TRAIN_STEPS + RESUME_STEPS}, "
                              f"got {[s['step'] for s in steps]}")
     for s in steps:
         if s["launches"] != expected:
             raise AssertionError(f"step {s['step']}: launches {s['launches']}, expected {expected}")
+        if s["routes"] != on_tensor_cores:
+            raise AssertionError(f"step {s['step']}: launches by route {s['routes']}, expected all on the tensor cores")
         if not (math.isfinite(s["total_loss"]) and math.isfinite(s["grad_norm"]) and s["grad_nonfinite"] == 0
                 and s["grad_norm/encoder"] > 0 and s["grad_norm/denoiser"] > 0):
             raise AssertionError(f"step {s['step']}: bad loss or gradient norms {s}")
@@ -701,11 +788,11 @@ def training(run_dir: Path) -> tuple[dict[str, int], list[float], list[dict]]:
         raise AssertionError("expected a sanity eval in each run")
     # steady steps: every step after the first of each run (the first pays warm-up)
     steady = [s["seconds"] for i, s in enumerate(steps) if i not in (0, first_run)]
-    phase(f"training: {len(steps)} steps (resumed at step {TRAIN_STEPS}), launches {counts}, "
+    phase(f"training: {len(steps)} steps (resumed at step {TRAIN_STEPS}), launches {counts}, by route {routes}, "
           f"steady s/step {sum(steady) / len(steady):.3f} ({', '.join(f'{x:.3f}' for x in steady)}), "
           f"max_memory_allocated {peak / 2**30:.2f} GiB, checkpoints {ckpts}, "
           f"sanity piece_acc {[m['sanity/overall__piece_acc'] for m in sanity]}")
-    return counts, steady, steps
+    return counts, routes, steady
 
 
 def _family(kernel_name: str) -> str:
@@ -799,11 +886,13 @@ def profile_train_step() -> None:
     phase(f"profile: max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
-def kernel_line(errs: dict, rows: list[dict], serve_counts: dict, train_counts: dict,
-                request_seconds: list[float], step_seconds: list[float]) -> dict:
+def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, train: tuple) -> dict:
+    """The kernels' JSON line; ``serve`` and ``train`` are (launches,
+    launches by route, seconds per request or per steady step)."""
     from diffassemble_tpu_torch import REFERENCE_PACKAGE
     from diffassemble_tpu_torch.ops import cuda_attention
 
+    (serve_counts, serve_routes, request_seconds), (train_counts, train_routes, step_seconds) = serve, train
     out = []
     for kernel, source in KERNEL_SOURCES.items():
         # the forward kernel's figures are per denoiser step at the serving
@@ -816,12 +905,11 @@ def kernel_line(errs: dict, rows: list[dict], serve_counts: dict, train_counts: 
             "name": kernel,
             "route": "cuda",
             "source": source,
-            "sources_by_route": {"cuda_cores": CUDA_CORE_SOURCES[kernel],
-                                 **({"tensor_cores": TENSOR_CORE_SOURCE}
-                                    if kernel in cuda_attention.TENSOR_CORE_KERNELS else {})},
+            "sources_by_route": {"tensor_cores": source, "cuda_cores": CUDA_CORE_SOURCES[kernel]},
             "replaces": f"{REFERENCE_PACKAGE}/{cuda_attention.REPLACES[kernel]}",
             "launches": serve_counts[kernel] + train_counts[kernel],
             "launches_by_path": {"serve": serve_counts[kernel], "train": train_counts[kernel]},
+            "launches_by_route": {"serve": serve_routes[kernel], "train": train_routes[kernel]},
             "max_abs_err": errs[kernel],
             "ms": step["ms"],
             "plain_ms": step["plain_ms"],
@@ -834,6 +922,7 @@ def kernel_line(errs: dict, rows: list[dict], serve_counts: dict, train_counts: 
                               f"Dh=144, B={b}, H={HEADS}, N={N_NODES}, bf16, route {per[0]['route']}"),
             "per_shape": [r for r in rows if r["kernel"] == kernel],
         })
+    out[0]["block_rows_sweep"] = sweep
     out[0]["seconds_per_request"] = request_seconds
     out[1]["seconds_per_train_step"] = step_seconds
     return {"kernels": out}
@@ -854,15 +943,15 @@ def main() -> None:
         print(smi, flush=True)
         return
     errs = kernels_vs_plain()
-    rows = timing()
-    serve_counts, request_seconds = serving()
+    rows, sweep = timing()
+    serve = serving()
     gradient_parity()
     card_vs_cpu_training()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_run_") as tmp:
-        train_counts, step_seconds, _ = training(Path(tmp))
-    if serve_counts["masked_attention_fwd"] == 0 or any(v == 0 for v in train_counts.values()):
-        raise AssertionError(f"a kernel of a main path was not launched: serve {serve_counts}, train {train_counts}")
-    line = kernel_line(errs, rows, serve_counts, train_counts, request_seconds, step_seconds)
+        train = training(Path(tmp))
+    if serve[0]["masked_attention_fwd"] == 0 or any(v == 0 for v in train[0].values()):
+        raise AssertionError(f"a kernel of a main path was not launched: serve {serve[0]}, train {train[0]}")
+    line = kernel_line(errs, rows, sweep, serve, train)
     phase("done")
     print(smi, flush=True)
     print(json.dumps(line), flush=True)

@@ -52,22 +52,18 @@
 //   zero-filled (source size 0) and masked. Shared rows are padded by 16
 //   bytes, so the 8 row addresses of each ldmatrix fall in distinct banks.
 // - No atomics: each block owns its output rows; results are deterministic.
+// - The copy, fragment and MMA helpers are in tc_common.cuh, shared with the
+//   tensor-core forward.
 //
 // A wgmma/TMA warp-specialised version is later work (ROADMAP Queue 2).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tc_common.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kOwn = 16 * kWarps;  // rows a block owns (dQ: queries, dK/dV: keys), 16 a warp
-constexpr int kPad = 8;            // bf16 of padding per staged row (16 bytes)
-constexpr int kMaskPad = 4;        // bytes of padding per staged mask row
 
 // The other side's tile (keys for dQ, queries for dK/dV) by head width,
 // timed on the H100 (PERF.md §6): at Dh 144 a 64-row tile spills registers
@@ -75,106 +71,6 @@ constexpr int kMaskPad = 4;        // bytes of padding per staged mask row
 // both take 32 rows there (80 KB, two blocks per SM, no spill).
 constexpr int dq_tile(int dh) { return dh <= 32 ? 64 : 32; }
 constexpr int dkv_tile(int dh) { return dh <= 32 ? 64 : 32; }
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global → shared, asynchronously; zero-filled when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// d += a·b: a 16×16 (row), b 16×8 (col), d 16×8 f32.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
-// (x, y) → the bf16 pairs hi = bf16(x, y) and lo = bf16((x, y) − hi).
-__device__ __forceinline__ void split(float x, float y, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = as_u32(h);
-  lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
-}
-
-// The A fragments (hi and lo) of a 16×16 block from the accumulators of its
-// two 16×8 halves: the m16n8 accumulator layout is the m16k16 A layout.
-__device__ __forceinline__ void to_a(const float (&c0)[4], const float (&c1)[4],
-                                     uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-  split(c0[0], c0[1], hi[0], lo[0]);
-  split(c0[2], c0[3], hi[1], lo[1]);
-  split(c1[0], c1[1], hi[2], lo[2]);
-  split(c1[2], c1[3], hi[3], lo[3]);
-}
-
-// Rows [row0, row0 + ROWS) of one head of a (B, N, H, DH) tensor into shared
-// memory (row stride DH + kPad), by 16-byte cp.async; rows past n are zero.
-template <int DH, int ROWS>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ src, size_t base,
-                                          size_t node_stride, int row0, int n) {
-  constexpr int kChunks = DH / 8;
-  for (int idx = threadIdx.x; idx < ROWS * kChunks; idx += kThreads) {
-    const int r = idx / kChunks, c = idx % kChunks;
-    const int row = row0 + r;
-    const bool valid = row < n;
-    cp_async16(dst + r * (DH + kPad) + c * 8,
-               src + base + (size_t)(valid ? row : 0) * node_stride + c * 8, valid);
-  }
-}
-
-// A fragment of the warp's 16 rows × columns [col, col + 16) of a staged tile.
-template <int LD>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile, int row0, int col) {
-  const int lane = threadIdx.x & 31;
-  ldmatrix_x4(a, tile + (row0 + (lane & 15)) * LD + col + (lane >> 4) * 8);
-}
-
-// B fragments of two 8-row n-tiles (rows [row0, row0 + 16)) × 16 columns
-// [col, col + 16) of a tile stored [n][k]: {b0, b1} of the first, {b2, b3}
-// of the second.
-template <int LD>
-__device__ __forceinline__ void load_b(uint32_t (&b)[4], const bf16* tile, int row0, int col) {
-  const int lane = threadIdx.x & 31;
-  ldmatrix_x4(b, tile + (row0 + (lane & 7) + ((lane >> 4) << 3)) * LD + col + ((lane >> 3) & 1) * 8);
-}
-
-// B fragments of a tile stored [k][n]: k rows [row0, row0 + 16) × two 8-column
-// n-tiles at [col, col + 16), through ldmatrix.trans.
-template <int LD>
-__device__ __forceinline__ void load_b_trans(uint32_t (&b)[4], const bf16* tile, int row0,
-                                             int col) {
-  const int lane = threadIdx.x & 31;
-  ldmatrix_x4_trans(b, tile + (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + col + (lane >> 4) * 8);
-}
 
 template <int DH, int BN>
 constexpr int dq_smem_bytes() {
@@ -215,10 +111,10 @@ masked_attention_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __rest
   const int8_t* mask_b = mask + (size_t)b * n * n;
   const size_t bh = ((size_t)b * heads + h) * n;
 
-  load_rows<DH, kOwn>(q_s, q, base, node_stride, q0, n);
-  load_rows<DH, kOwn>(do_s, dout, base, node_stride, q0, n);
-  load_rows<DH, BN>(kv_s, k, base, node_stride, 0, n);
-  load_rows<DH, BN>(kv_s + BN * kLd, v, base, node_stride, 0, n);
+  load_rows<DH, kOwn, kThreads>(q_s, q, base, node_stride, q0, n);
+  load_rows<DH, kOwn, kThreads>(do_s, dout, base, node_stride, q0, n);
+  load_rows<DH, BN, kThreads>(kv_s, k, base, node_stride, 0, n);
+  load_rows<DH, BN, kThreads>(kv_s + BN * kLd, v, base, node_stride, 0, n);
   cp_async_commit();
 
   float l_r[2], d_r[2];
@@ -237,8 +133,8 @@ masked_attention_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __rest
     const int k0 = it * BN;
     if (it + 1 < tiles) {  // the next tile loads while this one computes
       bf16* next = kv_s + ((it + 1) & 1) * 2 * BN * kLd;
-      load_rows<DH, BN>(next, k, base, node_stride, k0 + BN, n);
-      load_rows<DH, BN>(next + BN * kLd, v, base, node_stride, k0 + BN, n);
+      load_rows<DH, BN, kThreads>(next, k, base, node_stride, k0 + BN, n);
+      load_rows<DH, BN, kThreads>(next + BN * kLd, v, base, node_stride, k0 + BN, n);
     }
     cp_async_commit();
     for (int idx = threadIdx.x; idx < kOwn * BN; idx += kThreads) {
@@ -346,10 +242,10 @@ masked_attention_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __res
   const int8_t* mask_b = mask + (size_t)b * n * n;
   const size_t bh = ((size_t)b * heads + h) * n;
 
-  load_rows<DH, kOwn>(k_s, k, base, node_stride, j0, n);
-  load_rows<DH, kOwn>(v_s, v, base, node_stride, j0, n);
-  load_rows<DH, BM>(qd_s, q, base, node_stride, 0, n);
-  load_rows<DH, BM>(qd_s + BM * kLd, dout, base, node_stride, 0, n);
+  load_rows<DH, kOwn, kThreads>(k_s, k, base, node_stride, j0, n);
+  load_rows<DH, kOwn, kThreads>(v_s, v, base, node_stride, j0, n);
+  load_rows<DH, BM, kThreads>(qd_s, q, base, node_stride, 0, n);
+  load_rows<DH, BM, kThreads>(qd_s + BM * kLd, dout, base, node_stride, 0, n);
   cp_async_commit();
 
   float acc_k[kDT][4], acc_v[kDT][4];
@@ -363,8 +259,8 @@ masked_attention_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __res
     const int i0 = it * BM;
     if (it + 1 < tiles) {  // the next tile loads while this one computes
       bf16* next = qd_s + ((it + 1) & 1) * 2 * BM * kLd;
-      load_rows<DH, BM>(next, q, base, node_stride, i0 + BM, n);
-      load_rows<DH, BM>(next + BM * kLd, dout, base, node_stride, i0 + BM, n);
+      load_rows<DH, BM, kThreads>(next, q, base, node_stride, i0 + BM, n);
+      load_rows<DH, BM, kThreads>(next + BM * kLd, dout, base, node_stride, i0 + BM, n);
     }
     cp_async_commit();
     // the (query tile × 64 keys) block of the untransposed mask, read along keys
@@ -458,13 +354,6 @@ masked_attention_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __res
   }
 }
 
-// Dynamic shared memory above 48 KB has to be opted into once per kernel.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
 template <int DH>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* mask,
                       const void* dout, const void* lse, const void* delta, void* dq, int batch,
@@ -497,10 +386,6 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
       static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), n, heads, scale);
   return cudaGetLastError();
-}
-
-bool bad_shape(int batch, int n, int heads, int dtype) {
-  return batch <= 0 || n <= 0 || heads <= 0 || batch > 65535 || heads > 65535 || dtype != 1;
 }
 
 }  // namespace

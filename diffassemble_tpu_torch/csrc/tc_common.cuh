@@ -1,0 +1,147 @@
+// Device helpers shared by the tensor-core attention kernels
+// (masked_attention_fwd_tc.cu, masked_attention_bwd_tc.cu): asynchronous
+// copies, ldmatrix fragment loads and the mma.sync.m16n8k16 product with bf16
+// operands and f32 accumulators. Included by each source, which is built into
+// its own library; ops/cuda_attention.py hashes this header with every source.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kPad = 8;      // bf16 of padding per staged row (16 bytes)
+constexpr int kMaskPad = 4;  // bytes of padding per staged mask row
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global → shared, asynchronously; zero-filled when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+// 4 bytes global → shared, asynchronously; zero-filled when !valid.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// d += a·b: a 16×16 (row), b 16×8 (col), d 16×8 f32.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// (x, y) → the bf16 pairs hi = bf16(x, y) and lo = bf16((x, y) − hi).
+__device__ __forceinline__ void split(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = as_u32(h);
+  lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+}
+
+// The A fragments (hi and lo) of a 16×16 block from the accumulators of its
+// two 16×8 halves: the m16n8 accumulator layout is the m16k16 A layout.
+__device__ __forceinline__ void to_a(const float (&c0)[4], const float (&c1)[4],
+                                     uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split(c0[0], c0[1], hi[0], lo[0]);
+  split(c0[2], c0[3], hi[1], lo[1]);
+  split(c1[0], c1[1], hi[2], lo[2]);
+  split(c1[2], c1[3], hi[3], lo[3]);
+}
+
+// The same A fragment rounded once to bf16 (no lo half).
+__device__ __forceinline__ void to_a(const float (&c0)[4], const float (&c1)[4],
+                                     uint32_t (&a)[4]) {
+  a[0] = as_u32(__floats2bfloat162_rn(c0[0], c0[1]));
+  a[1] = as_u32(__floats2bfloat162_rn(c0[2], c0[3]));
+  a[2] = as_u32(__floats2bfloat162_rn(c1[0], c1[1]));
+  a[3] = as_u32(__floats2bfloat162_rn(c1[2], c1[3]));
+}
+
+// Rows [row0, row0 + ROWS) of one head of a (B, N, H, DH) tensor into shared
+// memory (row stride DH + kPad), by 16-byte cp.async from a block of THREADS
+// threads; rows past n are zero.
+template <int DH, int ROWS, int THREADS>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ src, size_t base,
+                                          size_t node_stride, int row0, int n) {
+  constexpr int kChunks = DH / 8;
+  for (int idx = threadIdx.x; idx < ROWS * kChunks; idx += THREADS) {
+    const int r = idx / kChunks, c = idx % kChunks;
+    const int row = row0 + r;
+    const bool valid = row < n;
+    cp_async16(dst + r * (DH + kPad) + c * 8,
+               src + base + (size_t)(valid ? row : 0) * node_stride + c * 8, valid);
+  }
+}
+
+// A fragment of the warp's 16 rows × columns [col, col + 16) of a staged tile.
+template <int LD>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile, int row0, int col) {
+  const int lane = threadIdx.x & 31;
+  ldmatrix_x4(a, tile + (row0 + (lane & 15)) * LD + col + (lane >> 4) * 8);
+}
+
+// B fragments of two 8-row n-tiles (rows [row0, row0 + 16)) × 16 columns
+// [col, col + 16) of a tile stored [n][k]: {b0, b1} of the first, {b2, b3}
+// of the second.
+template <int LD>
+__device__ __forceinline__ void load_b(uint32_t (&b)[4], const bf16* tile, int row0, int col) {
+  const int lane = threadIdx.x & 31;
+  ldmatrix_x4(b, tile + (row0 + (lane & 7) + ((lane >> 4) << 3)) * LD + col + ((lane >> 3) & 1) * 8);
+}
+
+// B fragments of a tile stored [k][n]: k rows [row0, row0 + 16) × two 8-column
+// n-tiles at [col, col + 16), through ldmatrix.trans.
+template <int LD>
+__device__ __forceinline__ void load_b_trans(uint32_t (&b)[4], const bf16* tile, int row0,
+                                             int col) {
+  const int lane = threadIdx.x & 31;
+  ldmatrix_x4_trans(b, tile + (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + col + (lane >> 4) * 8);
+}
+
+// Dynamic shared memory above 48 KB has to be opted into once per kernel.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+bool bad_shape(int batch, int n, int heads, int dtype) {
+  return batch <= 0 || n <= 0 || heads <= 0 || batch > 65535 || heads > 65535 || dtype != 1;
+}
+
+}  // namespace

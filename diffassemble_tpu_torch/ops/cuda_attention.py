@@ -3,41 +3,43 @@
 Three kernels replace the three TPU kernels of the JAX package's
 ``ops/pallas_attention.py``:
 
-- ``csrc/masked_attention_fwd.cu``: ``masked_attention_fwd`` replaces
-  ``_attn_kernel`` (launched by ``_flash_fwd``);
-- ``csrc/masked_attention_bwd.cu``: ``masked_attention_bwd_dq`` replaces
-  ``_bwd_dq_kernel`` and ``masked_attention_bwd_dkv`` replaces
-  ``_bwd_dkv_kernel`` (both launched by ``_flash_bwd``).
+- ``masked_attention_fwd`` replaces ``_attn_kernel`` (launched by
+  ``_flash_fwd``);
+- ``masked_attention_bwd_dq`` replaces ``_bwd_dq_kernel`` and
+  ``masked_attention_bwd_dkv`` replaces ``_bwd_dkv_kernel`` (both launched by
+  ``_flash_bwd``).
 
 Each takes every head width from 1 to ``MAX_HEAD_DIM`` (288) in float32 and
 bfloat16, by one of two routes, which ``route`` names and ``_launch``
-dispatches by type and width:
+dispatches by type, width and alignment:
 
-- the tensor-core route (``"tensor_cores"``): ``csrc/masked_attention_bwd_tc.cu``,
-  the dQ and dK/dV kernels on ``mma.sync`` with bf16 operands and f32
-  accumulators, for bfloat16 at the widths in ``TENSOR_CORE_HEAD_DIMS``
-  (32 and 144, the main path's), whose base pointers are 16-byte aligned (as
-  every fresh allocation is);
-- the CUDA-core route (``"cuda_cores"``): the three kernels of
-  ``masked_attention_fwd.cu`` and ``masked_attention_bwd.cu``, products in f32
-  on the CUDA cores, templated on the number of 32-column slots (1 to 9) and
-  given the width at run time (32 and 144 are also compiled in): the forward
-  at every width, and the backward for float32 and for the bfloat16 calls the
-  tensor-core route does not take.
+- the tensor-core route (``"tensor_cores"``): ``csrc/masked_attention_fwd_tc.cu``
+  (the forward) and ``csrc/masked_attention_bwd_tc.cu`` (dQ and dK/dV), on
+  ``mma.sync`` with bf16 operands and f32 accumulators, for bfloat16 at the
+  widths in ``TENSOR_CORE_HEAD_DIMS`` (32 and 144, the main paths'), whose
+  base pointers are 16-byte aligned (as every fresh allocation is); both
+  include the device helpers of ``csrc/tc_common.cuh``;
+- the CUDA-core route (``"cuda_cores"``): ``csrc/masked_attention_fwd.cu`` and
+  ``csrc/masked_attention_bwd.cu``, products in f32 on the CUDA cores,
+  templated on the number of 32-column slots (1 to 9) and given the width at
+  run time (32 and 144 are also compiled in), for float32 (a bf16 or TF32
+  product would not hold its gate), every other width, and bfloat16 inputs
+  off a 16-byte boundary.
 
 Both routes are hand-written kernels, held against the same plain versions.
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use (one ``nvcc`` per source, run in
-parallel), cached under ``diffassemble_tpu_torch/_build/`` by the source's
-hash, and loaded with ``ctypes``.
+parallel), cached under ``diffassemble_tpu_torch/_build/`` by the hash of the
+source and the headers, and loaded with ``ctypes``.
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
-its ``launches`` attribute; for CPU tensors it computes the kernel's plain
-PyTorch version (``*_plain``). There is no fall back from the card to the
-plain version. ``MaskedAttention`` is the autograd ``Function`` over the
-three: the forward kernel, then Δ = rowsum(dO∘O) and the two backward kernels
-(the JAX package's ``custom_vjp`` of ``flash_masked_attention``).
+its ``launches`` attribute, and by route in ``launches_by_route``; for CPU
+tensors it computes the kernel's plain PyTorch version (``*_plain``). There
+is no fall back from the card to the plain version, nor from one route to the
+other. ``MaskedAttention`` is the autograd ``Function`` over the three: the
+forward kernel, then Δ = rowsum(dO∘O) and the two backward kernels (the JAX
+package's ``custom_vjp`` of ``flash_masked_attention``).
 """
 
 from __future__ import annotations
@@ -61,7 +63,9 @@ SOURCES = {
     "fwd": _PKG / "csrc" / "masked_attention_fwd.cu",
     "bwd": _PKG / "csrc" / "masked_attention_bwd.cu",
     "bwd_tc": _PKG / "csrc" / "masked_attention_bwd_tc.cu",
+    "fwd_tc": _PKG / "csrc" / "masked_attention_fwd_tc.cu",
 }
+HEADERS = tuple(sorted((_PKG / "csrc").glob("*.cuh")))  # included by the sources; part of each hash
 BUILD_DIR = _PKG / "_build"
 # the TPU kernel each one replaces, in the JAX package (REFERENCE_PACKAGE)
 REPLACES = {
@@ -71,7 +75,8 @@ REPLACES = {
 }
 MAX_HEAD_DIM = 288  # the widest head the kernels take (9 slots of 32 columns)
 # the kernels with a tensor-core route (bfloat16), and its head widths
-TENSOR_CORE_KERNELS = ("masked_attention_bwd_dq", "masked_attention_bwd_dkv")
+TENSOR_CORE_KERNELS = ("masked_attention_fwd", "masked_attention_bwd_dq", "masked_attention_bwd_dkv")
+ROUTES = ("tensor_cores", "cuda_cores")
 TENSOR_CORE_HEAD_DIMS = (32, 144)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG_INF = -1e9
@@ -88,6 +93,11 @@ _SIGNATURES = {  # C function → (library, argtypes)
     "masked_attention_bwd_dkv": ("bwd", [_P] * 9 + [_I] * 5 + [ctypes.c_float, _P]),
     "masked_attention_bwd_dq_tc": ("bwd_tc", [_P] * 8 + [_I] * 5 + [ctypes.c_float, _P]),
     "masked_attention_bwd_dkv_tc": ("bwd_tc", [_P] * 9 + [_I] * 5 + [ctypes.c_float, _P]),
+    "masked_attention_fwd_tc": ("fwd_tc", [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P]),
+    # the forward with its block's query rows given (64, 32 or 16), and the
+    # rows masked_attention_fwd_tc chooses for (batch, n, heads, head_dim): chip_smoke.py times each
+    "masked_attention_fwd_tc_rows": ("fwd_tc", [_P] * 6 + [_I] * 5 + [ctypes.c_float, _I, _P]),
+    "masked_attention_fwd_tc_block_rows": ("fwd_tc", [_I] * 4),
 }
 
 
@@ -115,7 +125,8 @@ def _nvcc() -> str:
 
 
 def _library_path(key: str) -> Path:
-    digest = hashlib.sha256(SOURCES[key].read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    text = b"".join(p.read_bytes() for p in (SOURCES[key], *HEADERS)) + " ".join(NVCC_FLAGS).encode()
+    digest = hashlib.sha256(text).hexdigest()[:16]
     return BUILD_DIR / f"{SOURCES[key].stem}-{digest}.so"
 
 
@@ -253,19 +264,26 @@ def route(name: str, *tensors: torch.Tensor) -> str:
     return "cuda_cores"
 
 
-def _launch(name: str, *tensors: torch.Tensor) -> None:
+def _launch(name: str, *tensors: torch.Tensor) -> str:
     """Call kernel ``name`` on ``tensors`` (inputs then outputs, all on one
     card) with q's shape, on the current stream, by its ``route``; raise on a
-    CUDA error."""
+    CUDA error. Returns the route."""
     q = tensors[0]
     b, n, h, dh = q.shape
-    c_name = name + "_tc" if route(name, *tensors) == "tensor_cores" else name
+    way = route(name, *tensors)
+    c_name = name + "_tc" if way == "tensor_cores" else name
     rc = load_library().fn(c_name)(
         *(t.data_ptr() for t in tensors), b, n, h, dh, _DTYPES[q.dtype], 1.0 / math.sqrt(dh),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"{c_name} launch failed: CUDA error {rc}")
+    return way
+
+
+def _count(kernel, way: str) -> None:
+    kernel.launches += 1
+    kernel.launches_by_route[way] += 1
 
 
 def masked_attention_fwd(
@@ -282,8 +300,7 @@ def masked_attention_fwd(
     b, n, h, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
-    _launch("masked_attention_fwd", q, k, v, mask, o, lse)
-    masked_attention_fwd.launches += 1
+    _count(masked_attention_fwd, _launch("masked_attention_fwd", q, k, v, mask, o, lse))
     return o, lse
 
 
@@ -297,8 +314,7 @@ def masked_attention_bwd_dq(q, k, v, mask, dout, lse, delta) -> torch.Tensor:
         return masked_attention_bwd_dq_plain(q, k, v, mask, dout, lse, delta)
     _check(q, k, v, mask, dout, lse, delta)
     dq = torch.empty_like(q)
-    _launch("masked_attention_bwd_dq", q, k, v, mask, dout, lse, delta, dq)
-    masked_attention_bwd_dq.launches += 1
+    _count(masked_attention_bwd_dq, _launch("masked_attention_bwd_dq", q, k, v, mask, dout, lse, delta, dq))
     return dq
 
 
@@ -312,15 +328,21 @@ def masked_attention_bwd_dkv(q, k, v, mask, dout, lse, delta) -> tuple[torch.Ten
         return masked_attention_bwd_dkv_plain(q, k, v, mask, dout, lse, delta)
     _check(q, k, v, mask, dout, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("masked_attention_bwd_dkv", q, k, v, mask, dout, lse, delta, dk, dv)
-    masked_attention_bwd_dkv.launches += 1
+    _count(masked_attention_bwd_dkv, _launch("masked_attention_bwd_dkv", q, k, v, mask, dout, lse, delta, dk, dv))
     return dk, dv
 
 
-masked_attention_fwd.launches = 0
-masked_attention_bwd_dq.launches = 0
-masked_attention_bwd_dkv.launches = 0
 KERNELS = (masked_attention_fwd, masked_attention_bwd_dq, masked_attention_bwd_dkv)
+
+
+def reset_launch_counts() -> None:
+    """Set every wrapper's ``launches`` and ``launches_by_route`` to 0."""
+    for kernel in KERNELS:
+        kernel.launches = 0
+        kernel.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+reset_launch_counts()
 
 
 class MaskedAttention(torch.autograd.Function):

@@ -259,14 +259,19 @@ def test_check_takes_every_head_width_to_288(dh):
 
 
 def test_route_is_the_tensor_cores_for_bf16_at_the_main_path_widths():
-    """bfloat16 at Dh 32 and 144 takes the tensor-core backward kernels;
-    float32, other widths and the forward take the CUDA-core kernels."""
-    for dh, dtype, name, want in ((32, torch.bfloat16, "masked_attention_bwd_dq", "tensor_cores"),
-                                  (144, torch.bfloat16, "masked_attention_bwd_dkv", "tensor_cores"),
-                                  (32, torch.float32, "masked_attention_bwd_dq", "cuda_cores"),
-                                  (104, torch.bfloat16, "masked_attention_bwd_dkv", "cuda_cores"),
-                                  (32, torch.bfloat16, "masked_attention_fwd", "cuda_cores")):
-        x = torch.zeros((1, 8, 2, dh), dtype=dtype)
-        assert ca.route(name, x, x, x) == want, (dh, dtype, name)
-    x = torch.zeros((1, 8, 2, 33), dtype=torch.bfloat16)[..., 1:]  # 2-byte offset: not 16-byte aligned
-    assert x.shape[-1] == 32 and ca.route("masked_attention_bwd_dq", x) == "cuda_cores"
+    """bfloat16 at Dh 32 and 144 with 16-byte aligned inputs takes the
+    tensor-core kernels, the forward and the backward pair alike; float32,
+    other widths and misaligned inputs take the CUDA-core kernels."""
+    for name in ("masked_attention_fwd", "masked_attention_bwd_dq", "masked_attention_bwd_dkv"):
+        for dh, dtype, want in ((32, torch.bfloat16, "tensor_cores"), (144, torch.bfloat16, "tensor_cores"),
+                                (32, torch.float32, "cuda_cores"), (144, torch.float32, "cuda_cores"),
+                                (20, torch.bfloat16, "cuda_cores"), (104, torch.bfloat16, "cuda_cores"),
+                                (264, torch.bfloat16, "cuda_cores")):
+            x = torch.zeros((1, 8, 2, dh), dtype=dtype)
+            assert ca.route(name, x, x, x) == want, (dh, dtype, name)
+        for dh in (32, 144):
+            x = torch.zeros((1, 8, 2, dh + 1), dtype=torch.bfloat16)[..., 1:]  # 2 bytes off a 16-byte boundary
+            y = torch.zeros((1, 8, 2, dh), dtype=torch.bfloat16)
+            assert x.shape[-1] == dh and x.data_ptr() % 16 == 2
+            assert ca.route(name, x, y, y) == "cuda_cores" and ca.route(name, y, y, x) == "cuda_cores", (name, dh)
+    assert set(ca.TENSOR_CORE_KERNELS) == set(ca.REPLACES)

@@ -38,24 +38,46 @@ def _inputs(b, n, h, dh, seed, n_virtual=8, n_padded=7, empty_rows=3):
 
 
 # the main path's widths at two N, then widths the kernels take besides: 20
-# (not a multiple of 8), 104 and 264 (the 3D checkpoints' last layers)
-SHAPES = [(200, 32), (200, 144), (908, 32), (908, 144), (200, 20), (908, 104), (908, 264)]
+# (not a multiple of 8), 104 and 264 (the 3D checkpoints' last layers); last
+# an N that is not a multiple of 4 (the tensor-core forward stages such a
+# mask by bytes)
+SHAPES = [(200, 32), (200, 144), (908, 32), (908, 144), (200, 20), (908, 104), (908, 264), (203, 144)]
+
+
+def _misaligned(x):
+    """A contiguous copy of ``x`` whose data starts 2 bytes past a 16-byte
+    boundary: the tensor-core route refuses it, the CUDA-core route takes it."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", ["by width", "cuda_cores"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n, dh", SHAPES)
-def test_cuda_kernel_matches_plain(n, dh, dtype, card):
+def test_cuda_kernel_matches_plain(n, dh, dtype, route, card):
     """O within 1e-5 relative (f32) or one bf16 ulp plus the plain version's
     rounding of probabilities to bf16 (bf16); L within 1e-5; empty rows
-    exactly 0 with the plain version's L."""
+    exactly 0 with the plain version's L. By width, bfloat16 at Dh 32 and
+    144 takes the tensor-core forward and everything else the CUDA-core
+    forward; with inputs off a 16-byte boundary every call takes the
+    CUDA-core forward."""
     dt = getattr(torch, dtype)
     q, k, v, adj = (x.to(card) for x in _inputs(2, n, 8, dh, seed=n + dh))
     q, k, v = (x.to(dt) for x in (q, k, v))
+    if route == "cuda_cores":
+        q, k, v = (_misaligned(x) for x in (q, k, v))
+    tensor_cores = route == "by width" and dt == torch.bfloat16 and dh in (32, 144)
+    want = "tensor_cores" if tensor_cores else "cuda_cores"
+    assert cuda_attention.route("masked_attention_fwd", q, k, v, adj) == want
     before = cuda_attention.masked_attention_fwd.launches
+    before_route = cuda_attention.masked_attention_fwd.launches_by_route[want]
     o, lse = cuda_attention.masked_attention_fwd(q, k, v, adj)
     torch.cuda.synchronize()
     assert cuda_attention.masked_attention_fwd.launches == before + 1
+    assert cuda_attention.masked_attention_fwd.launches_by_route[want] == before_route + 1
     o_p, l_p = cuda_attention.masked_attention_fwd_plain(q, k, v, adj)
     vmax = v.float().abs().max()
     if dt == torch.float32:
@@ -76,15 +98,6 @@ def _bwd_tol(ref, dtype):
     1e-4 of max|ref| (the same f32 sums, then rounded once to bf16)."""
     rel, floor = (1e-5, 1e-5) if dtype == torch.float32 else (2.0**-7, 1e-4)
     return rel * ref.abs() + floor * ref.abs().max()
-
-
-def _misaligned(x):
-    """A contiguous copy of ``x`` whose data starts 2 bytes past a 16-byte
-    boundary: the tensor-core route refuses it, the CUDA-core route takes it."""
-    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
-    out = buf[1:].view(x.shape)
-    out.copy_(x)
-    return out
 
 
 @pytest.mark.cuda
@@ -138,7 +151,7 @@ def test_cuda_kernels_refuse_heads_wider_than_288(card):
 @pytest.mark.cuda
 def test_cuda_train_step_gives_every_attention_projection_a_gradient(card):
     """One train step on the card goes through the three kernels (4 launches
-    each at 4 layers) and gives every query/key/value weight of every layer a
+    each at 4 layers, all on the tensor cores) and gives every query/key/value weight of every layer a
     finite, nonzero gradient (dropped gradients would leave them None)."""
     from diffassemble_tpu_torch.train.train_state import create_train_state, make_train_step
 
@@ -154,9 +167,12 @@ def test_cuda_train_step_gives_every_attention_projection_a_gradient(card):
     state = create_train_state(model, opt, torch.Generator(device=card).manual_seed(0))
     step = make_train_step(model.loss, opt)
     before = [kern.launches for kern in cuda_attention.KERNELS]
+    before_tc = [kern.launches_by_route["tensor_cores"] for kern in cuda_attention.KERNELS]
     state, aux = step(state, batch)
     torch.cuda.synchronize()
     assert [kern.launches for kern in cuda_attention.KERNELS] == [b + 4 for b in before]
+    # bf16 at the flagship's widths: every launch on the tensor cores
+    assert [kern.launches_by_route["tensor_cores"] for kern in cuda_attention.KERNELS] == [b + 4 for b in before_tc]
     assert np.isfinite(float(aux["loss"])) and float(aux["grad_norm"]) > 0
     names = [f"denoiser.gnn.transformer.layers.{i}.{proj}.weight"
              for i in range(4) for proj in ("query", "key", "value")]
