@@ -4,6 +4,7 @@
     python3 chip_smoke.py                  # the smoke run
     python3 chip_smoke.py --profile        # one serving request under torch.profiler
     python3 chip_smoke.py --profile train  # one full-width train step under torch.profiler
+    python3 chip_smoke.py --profile eval   # one held-out call of 32 puzzles, trained weights
 
 Phases, each ending in a line with the elapsed seconds:
 
@@ -14,7 +15,8 @@ Phases, each ending in a line with the elapsed seconds:
 3. the forward kernel against its plain PyTorch version on the card:
    the 10% expander + 8 virtual nodes at the main paths' batches (B = 1 for a
    request, B = 8 for a train step), the same with padded nodes and empty
-   rows, fully connected, and N = 200, at head widths 32 and 144, in bf16 and
+   rows, fully connected, N = 200, and the held-out evaluation's committed
+   expander + 8 virtual nodes at B = 32, at head widths 32 and 144, in bf16 and
    f32; then the two backward kernels (dQ, and dK/dV) against theirs over the
    same masks, with exact zeros on empty query rows and unattended keys. In
    bf16 at Dh 32 and 144 all three run on the tensor-core route, in f32 on
@@ -27,7 +29,8 @@ Phases, each ending in a line with the elapsed seconds:
 4. timing of the three kernels, their plain versions and the PyTorch calls
    (``scaled_dot_product_attention`` forward, and one backward of it, which
    computes dQ, dK and dV together) at the serving shapes (B = 1, the
-   forward) and the training shapes (B = 8, all three), H = 8, N = 908; the
+   forward), the training shapes (B = 8, all three) and the held-out
+   evaluation's (B = 32, the forward), H = 8, N = 908; the
    same kernels on the CUDA-core route in bf16 (inputs 2 bytes off a 16-byte
    boundary take it); the tensor-core forward with 64-, 32- and 16-row query
    blocks (each bit-equal to the launch's own choice); at B = 8 the three
@@ -45,7 +48,18 @@ Phases, each ending in a line with the elapsed seconds:
    CPU; then the second main path, ``run_2d`` of the rotation CLI with the
    flagship's flags at batch 8 on 30×30 puzzles: a sanity eval, 3 steps
    with exactly 4 + 4 + 4 kernel launches each, all on the tensor cores, a
-   checkpoint, and a resume that continues from it for 2 more steps.
+   checkpoint, and a resume that continues from it for 2 more steps;
+7. accuracy, the third main path: the trained checkpoint (the EMA of
+   ``weights/diffusion2d_rot30`` at step 32000, committed converted as
+   ``diffassemble_tpu_torch/assets/diffusion2d_rot30_ema32000.npz``) under
+   bench.py's held-out protocol in bf16: 64 synthetic 960×960 images, the
+   committed expander and rotation draw, ``heldout_eval`` in two calls of 32
+   puzzles with exactly 240 forward launches, all on the tensor cores; then
+   the same over the four other expanders the recipe's seed can give (the
+   seed leaves a choice among five with equal spectral gaps, so which one
+   the TPU's run used is unknown). It fails unless the TPU's piece_acc of
+   0.9763 is within 0.01 of the card's over one of the five. Then, ungated,
+   the same puzzles over a fully connected graph and in calls of 8.
 
 The last three lines are the nvidia-smi line, a JSON object describing the
 kernels, and ``{"ok": true, "device": {...}}``. Any failure raises, and the
@@ -66,6 +80,8 @@ from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "weights" / "diffusion2d_rot30" / "config.json"
+DATA = ROOT / "weights" / "diffusion2d_rot30" / "data.json"  # the flagship's data recipe
+ASSET = ROOT / "diffassemble_tpu_torch" / "assets" / "diffusion2d_rot30_ema32000.npz"
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, NVIDIA H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # non-tensor-core f32 peak
 H100_BYTES_PER_S = 3.35e12
@@ -95,6 +111,12 @@ KERNEL_SOURCES = {
     "masked_attention_bwd_dq": "diffassemble_tpu_torch/csrc/masked_attention_bwd_tc.cu",
     "masked_attention_bwd_dkv": "diffassemble_tpu_torch/csrc/masked_attention_bwd_tc.cu",
 }
+# bench.py's held-out protocol: 64 puzzles of 30x30, sampled 32 to a call
+EVAL_TOTAL, EVAL_N = 64, 32
+# the target: piece_acc of the same checkpoint and protocol on a TPU v5 lite
+# (BENCH_r05.json); the card's must lie within PIECE_ACC_TOL of it
+TPU_PIECE_ACC, PIECE_ACC_TOL = 0.9763, 0.01
+EXPANDER_TRIES = 5  # expander_mask's max_num_iters: the candidate graphs a seed draws
 FWD_BLOCK_ROWS = (64, 32, 16)  # the tensor-core forward's query blocks, timed in turn
 MAIN_HEAD_DIMS = (32, 144)
 OTHER_HEAD_DIMS = (20, 104, 264)  # not a multiple of 8; the 3D checkpoints' last layers
@@ -206,11 +228,24 @@ def routes_since(before: dict[str, dict[str, int]]) -> dict[str, dict[str, int]]
     return {k: {r: n - before[k][r] for r, n in by_route.items()} for k, by_route in read_routes().items()}
 
 
+def committed_adj():
+    """(900, 900) bool: the held-out protocol's expander, committed beside the
+    flagship's converted weights."""
+    import numpy as np
+
+    n = 900
+    with np.load(ASSET) as z:
+        bits = z["heldout_adj_bits"]
+    return np.unpackbits(bits, count=n * n).reshape(n, n).astype(bool)
+
+
 def _masks(torch, np):
     """(label, mask (B, N, N) bool on the card) for each checked topology: the
     main paths' own (the 10% expander plus 8 virtual nodes, at B = 1 as a
     request runs it and shared across B = 8 as a train step runs it), then
-    padded nodes and empty rows, fully connected, and a ragged N = 200."""
+    padded nodes and empty rows, fully connected, a ragged N = 200, and the
+    held-out evaluation's (the committed expander plus 8 virtual nodes,
+    shared across B = 32)."""
     from diffassemble_tpu_torch.data.expander import expander_mask
     from diffassemble_tpu_torch.ops.attention import (
         build_adjacency_mask,
@@ -235,6 +270,10 @@ def _masks(torch, np):
     small_valid[1, 150:] = False
     small = build_adjacency_mask(torch.as_tensor(rng.random((2, 200, 200)) < 0.3), small_valid)
     out.append(("N=200, random 30%, 50 padded", small))
+    eval_valid = torch.ones((EVAL_N, 900), dtype=torch.bool)
+    adj, _ = extend_mask_with_virtual_nodes(build_adjacency_mask(torch.as_tensor(committed_adj()), eval_valid),
+                                            eval_valid, 8)
+    out.append((f"committed expander+8virt, B={EVAL_N} (eval)", adj))
     return [(label, m.cuda().contiguous()) for label, m in out]
 
 
@@ -410,14 +449,15 @@ def _fwd_block_rows_sweep(q, k, v, mask, o, lse) -> list[dict]:
 
 
 def timing() -> tuple[list[dict], list[dict]]:
-    """Kernel, plain and library times at the serving (B = 1, forward) and
-    training (B = 8, all three) shapes, bf16, fully connected mask. The
-    library's backward is one SDPA backward, which computes dQ, dK and dV
-    together: both backward rows carry that one time, to be set against the
-    sum of the two kernels' times. At the main paths' widths the same kernels
-    on the CUDA-core route in bf16 are timed beside the tensor-core route, and
-    the tensor-core forward at each query block size; at B = 8 the three
-    kernels at the widths off the main paths. Rows off the main paths have
+    """Kernel, plain and library times at the serving (B = 1, forward),
+    training (B = 8, all three) and held-out evaluation (B = 32, forward)
+    shapes, bf16, fully connected mask. The library's backward is one SDPA
+    backward, which computes dQ, dK and dV together: both backward rows carry
+    that one time, to be set against the sum of the two kernels' times. At
+    the main paths' widths the same kernels on the CUDA-core route in bf16
+    are timed beside the tensor-core route, and the tensor-core forward at
+    each query block size; at B = 8 the three kernels at the widths off the
+    main paths. Rows off the main paths have
     ``main_path`` false. Returns the rows and the block-size sweep."""
     import torch
 
@@ -426,7 +466,7 @@ def timing() -> tuple[list[dict], list[dict]]:
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows, sweep = [], []
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for b in (1, TRAIN_BATCH):
+    for b in (1, TRAIN_BATCH, EVAL_N):
         mask = torch.ones((b, N_NODES, N_NODES), dtype=torch.bool, device="cuda")
         shapes = [(dh, count, True) for dh, count in STEP_LAUNCHES]
         if b == TRAIN_BATCH:
@@ -795,6 +835,134 @@ def training(run_dir: Path) -> tuple[dict[str, int], dict[str, dict[str, int]], 
     return counts, routes, steady
 
 
+def heldout_setup(n_puzzles: int):
+    """The trained flagship on the card, bf16 as configured, and the first
+    ``n_puzzles`` of its held-out corpus over the committed expander: (config,
+    data recipe, model, corpus, rotation draw, whether this card's own
+    ``build_device_data`` kept the committed expander, the asset's extras)."""
+    import numpy as np
+    import torch
+
+    from diffassemble_tpu_torch import convert
+    from diffassemble_tpu_torch.data.datasets import SyntheticImages
+    from diffassemble_tpu_torch.models import Diffusion2D
+    from diffassemble_tpu_torch.train.device_data import build_device_data
+
+    cfg = flagship_config()
+    recipe = json.loads(DATA.read_text())
+    state, extras = convert.load_jax_npz(ASSET)
+    model = Diffusion2D(cfg, device="cuda")
+    model.load_state_dict(state, strict=True)
+    hw = (recipe["hw"][0], recipe["hw"][0])
+    images = SyntheticImages((hw[0] * 32, hw[1] * 32), n=n_puzzles, seed=recipe["seed"] + 1000, cache=False,
+                             canonical=recipe["canonical"], hf_detail=recipe["hf_detail"], style=recipe["style"])
+    data = build_device_data(images, hw, n_puzzles, degree=recipe["degree"], seed=recipe["seed"], device="cuda")
+    committed = torch.as_tensor(committed_adj(), device="cuda")
+    own_graph = torch.equal(data.adj, committed)
+    rot_k = torch.as_tensor(extras["heldout_rot_k"][:n_puzzles].astype(np.int64), device="cuda")
+    return cfg, recipe, model, data._replace(adj=committed), rot_k, own_graph, extras
+
+
+def accuracy() -> tuple[dict[str, int], dict[str, dict[str, int]], dict]:
+    """The third main path: the trained flagship checkpoint (its EMA at step
+    32000, converted and committed) under bench.py's held-out protocol, bf16
+    as configured: 64 ``SyntheticImages`` of 960x960 with the recipe's knobs
+    (``data.json``, seed + 1000), one expander shared by all, the committed
+    rotation draw, ``heldout_eval`` in calls of 32 puzzles.
+
+    The recipe's seed does not fix the expander: ``expander_mask`` draws five
+    candidates, circulant graphs under five permutations whose Fiedler values
+    are equal, and keeps the one that ARPACK's rounding ranks first, so the
+    TPU's figure was measured over one of the five, which one unknown. The
+    counted run is over the committed candidate; then each other candidate
+    runs. The phase fails unless every forward launch of the counted run took
+    the tensor cores and the TPU's piece_acc lies within PIECE_ACC_TOL of the
+    card's over at least one candidate. Then, ungated, the same puzzles over a
+    fully connected graph (as ``cli/serve.py`` serves) and in calls of 8."""
+    import numpy as np
+    import torch
+
+    from diffassemble_tpu_torch.data import expander_mask
+    from diffassemble_tpu_torch.train.heldout import heldout_eval
+
+    start = time.perf_counter()
+    cfg, recipe, model, data, rot_k, own_graph, extras = heldout_setup(EVAL_TOTAL)
+    committed = data.adj
+    rng = np.random.default_rng(recipe["seed"])
+    candidates = [torch.as_tensor(expander_mask(data.n_nodes, recipe["degree"], rng, max_num_iters=1), device="cuda")
+                  for _ in range(EXPANDER_TRIES)]
+    chosen = [i for i, c in enumerate(candidates) if torch.equal(c, committed)]
+    phase(f"held-out corpus: {EVAL_TOTAL} images made and patchified, model loaded in "
+          f"{time.perf_counter() - start:.2f} s, patches {tuple(data.patches.shape)}; rotation draw of JAX "
+          f"{extras['jax_version']} (threefry partitionable {bool(extras['jax_threefry_partitionable'])}); the "
+          f"committed expander is candidate {chosen} of {EXPANDER_TRIES}; the one this card's build_device_data "
+          f"kept equals it: {own_graph}")
+    if len(chosen) != 1:
+        raise AssertionError("the committed expander is not one of the recipe's candidates")
+
+    calls = []
+    sample = model.sample
+
+    def timed_sample(*args, **kwargs):
+        """``model.sample`` timed by CUDA events and the host clock."""
+        host = time.perf_counter()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = sample(*args, **kwargs)
+        ev[1].record()
+        torch.cuda.synchronize()
+        calls.append({"puzzles": args[0].patches.shape[0], "ms": ev[0].elapsed_time(ev[1]),
+                      "host_s": time.perf_counter() - host})
+        return out
+
+    model.sample = timed_sample
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    metrics = heldout_eval(model, data, rot_k, eval_n=EVAL_N)
+    counts, routes = read_counts(), read_routes()
+    peak = torch.cuda.max_memory_allocated()
+    model.sample = sample
+    per_call = cfg.n_layers * (cfg.steps // cfg.inference_ratio)
+    n_calls = -(-EVAL_TOTAL // EVAL_N)
+    for c in calls:
+        phase(f"held-out call of {c['puzzles']} puzzles: {c['ms']:.2f} ms (CUDA events), {c['host_s']:.3f} s host")
+    phase(f"held-out eval: launches {counts}, forward by route {routes['masked_attention_fwd']}; "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    if counts != {"masked_attention_fwd": n_calls * per_call, "masked_attention_bwd_dq": 0,
+                  "masked_attention_bwd_dkv": 0}:
+        raise AssertionError(f"expected {n_calls * per_call} forward launches and no backward launch")
+    if routes["masked_attention_fwd"] != {"tensor_cores": n_calls * per_call, "cuda_cores": 0}:
+        raise AssertionError(f"expected every forward launch on the tensor cores, got {routes}")
+
+    by_graph = {}
+    for i, cand in enumerate(candidates):
+        m = metrics if i == chosen[0] else heldout_eval(model, data._replace(adj=cand), rot_k, eval_n=EVAL_N)
+        by_graph[f"candidate {i}"] = {"piece_acc": m["overall__piece_acc"], "puzzle_acc": m["overall_acc"],
+                                      "puzzles": m["overall_nImages"], "committed": i == chosen[0]}
+        phase(f"held-out accuracy, bf16, expander candidate {i}{' (committed)' if i == chosen[0] else ''}: "
+              f"piece_acc {m['overall__piece_acc']!r}, puzzle_acc {m['overall_acc']!r} over "
+              f"{m['overall_nImages']:g} puzzles")
+    nearest = min(by_graph, key=lambda g: abs(by_graph[g]["piece_acc"] - TPU_PIECE_ACC))
+    gap = abs(by_graph[nearest]["piece_acc"] - TPU_PIECE_ACC)
+    phase(f"held-out accuracy gate: the TPU's piece_acc {TPU_PIECE_ACC} is {gap:.4f} from the card's over "
+          f"{nearest} (tolerance {PIECE_ACC_TOL})")
+    if any(g["puzzles"] != EVAL_TOTAL for g in by_graph.values()) or not gap <= PIECE_ACC_TOL:
+        raise AssertionError(f"no expander candidate gives a piece_acc within {PIECE_ACC_TOL} of the TPU's "
+                             f"{TPU_PIECE_ACC}: {by_graph}")
+    result = {"piece_acc": metrics["overall__piece_acc"], "puzzle_acc": metrics["overall_acc"], "calls": calls,
+              "max_memory_allocated": peak, "by_expander": by_graph, "nearest_to_tpu": nearest,
+              "own_expander_equals_committed": own_graph, "ungated": {}}
+
+    for label, variant, eval_n in (("fully connected", data._replace(adj=torch.ones_like(committed)), EVAL_N),
+                                   ("committed expander, calls of 8", data, 8)):
+        m = heldout_eval(model, variant, rot_k, eval_n=eval_n)
+        result["ungated"][label] = {"piece_acc": m["overall__piece_acc"], "puzzle_acc": m["overall_acc"]}
+        phase(f"held-out accuracy (ungated), {label}: piece_acc {m['overall__piece_acc']!r}, "
+              f"puzzle_acc {m['overall_acc']!r}")
+    return counts, routes, result
+
+
 def _family(kernel_name: str) -> str:
     name = kernel_name.lower()
     for family, keys in (("masked_attention_bwd (this port)", ("masked_attention_bwd",)),
@@ -886,13 +1054,29 @@ def profile_train_step() -> None:
     phase(f"profile: max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
-def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, train: tuple) -> dict:
+def profile_heldout_call() -> None:
+    """One held-out call of 32 puzzles with the trained weights (the accuracy
+    phase's first call)."""
+    import torch
+
+    from diffassemble_tpu_torch.train.device_data import gather_batch
+
+    _, _, model, data, rot_k, _, _ = heldout_setup(EVAL_N)
+    batch = gather_batch(data, torch.arange(EVAL_N, device="cuda"), rot_k)
+    torch.cuda.reset_peak_memory_stats()
+    _profile(lambda: model.sample(batch).final, f"held-out call of {EVAL_N} puzzles")
+    phase(f"profile: max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, train: tuple, heldout: tuple) -> dict:
     """The kernels' JSON line; ``serve`` and ``train`` are (launches,
-    launches by route, seconds per request or per steady step)."""
+    launches by route, seconds per request or per steady step), ``heldout``
+    (launches, launches by route, the accuracy phase's result)."""
     from diffassemble_tpu_torch import REFERENCE_PACKAGE
     from diffassemble_tpu_torch.ops import cuda_attention
 
     (serve_counts, serve_routes, request_seconds), (train_counts, train_routes, step_seconds) = serve, train
+    eval_counts, eval_routes, eval_result = heldout
     out = []
     for kernel, source in KERNEL_SOURCES.items():
         # the forward kernel's figures are per denoiser step at the serving
@@ -907,9 +1091,11 @@ def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, t
             "source": source,
             "sources_by_route": {"tensor_cores": source, "cuda_cores": CUDA_CORE_SOURCES[kernel]},
             "replaces": f"{REFERENCE_PACKAGE}/{cuda_attention.REPLACES[kernel]}",
-            "launches": serve_counts[kernel] + train_counts[kernel],
-            "launches_by_path": {"serve": serve_counts[kernel], "train": train_counts[kernel]},
-            "launches_by_route": {"serve": serve_routes[kernel], "train": train_routes[kernel]},
+            "launches": serve_counts[kernel] + train_counts[kernel] + eval_counts[kernel],
+            "launches_by_path": {"serve": serve_counts[kernel], "train": train_counts[kernel],
+                                 "heldout_eval": eval_counts[kernel]},
+            "launches_by_route": {"serve": serve_routes[kernel], "train": train_routes[kernel],
+                                  "heldout_eval": eval_routes[kernel]},
             "max_abs_err": errs[kernel],
             "ms": step["ms"],
             "plain_ms": step["plain_ms"],
@@ -925,6 +1111,7 @@ def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, t
     out[0]["block_rows_sweep"] = sweep
     out[0]["seconds_per_request"] = request_seconds
     out[1]["seconds_per_train_step"] = step_seconds
+    out[0]["heldout_eval"] = eval_result
     return {"kernels": out}
 
 
@@ -932,14 +1119,15 @@ def main() -> None:
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
-    ap.add_argument("--profile", nargs="?", const="serve", choices=["serve", "train"],
-                    help="instead of the smoke run, profile one serving request (default) or one train step")
+    ap.add_argument("--profile", nargs="?", const="serve", choices=["serve", "train", "eval"],
+                    help="instead of the smoke run, profile one serving request (default), one train step "
+                         "or one held-out call of 32 puzzles with the trained weights")
     args = ap.parse_args()
 
     smi, name, count = environment()
     build()
     if args.profile:
-        profile_request() if args.profile == "serve" else profile_train_step()
+        {"serve": profile_request, "train": profile_train_step, "eval": profile_heldout_call}[args.profile]()
         print(smi, flush=True)
         return
     errs = kernels_vs_plain()
@@ -949,9 +1137,12 @@ def main() -> None:
     card_vs_cpu_training()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_run_") as tmp:
         train = training(Path(tmp))
-    if serve[0]["masked_attention_fwd"] == 0 or any(v == 0 for v in train[0].values()):
-        raise AssertionError(f"a kernel of a main path was not launched: serve {serve[0]}, train {train[0]}")
-    line = kernel_line(errs, rows, sweep, serve, train)
+    heldout = accuracy()
+    if (serve[0]["masked_attention_fwd"] == 0 or any(v == 0 for v in train[0].values())
+            or heldout[0]["masked_attention_fwd"] == 0):
+        raise AssertionError(f"a kernel of a main path was not launched: serve {serve[0]}, train {train[0]}, "
+                             f"held-out eval {heldout[0]}")
+    line = kernel_line(errs, rows, sweep, serve, train, heldout)
     phase("done")
     print(smi, flush=True)
     print(json.dumps(line), flush=True)

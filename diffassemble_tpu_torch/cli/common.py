@@ -2,10 +2,10 @@
 reference's argparse surface → config + datasets + trainer.
 
 The flags are the JAX CLI's, plus ``--device`` (default ``cuda``; the CPU
-only when asked for). Not ported yet: ``--discrete`` and every backbone but
-efficientnet_b0 (ROADMAP Queue 1 items 12 and 13), and more than one device
-(``-gpus`` > 1; DDP, Queue 1 item 10). Unlike the JAX CLI, ``--unique_graph``
-reaches the dataset (one fixed expander per puzzle size).
+only when asked for). Not ported yet: ``--discrete`` (ROADMAP Queue 1 item
+12), every backbone but efficientnet_b0 (items 6 and 13), and more than one
+device (``-gpus`` > 1; DDP, Queue 1 item 10). Unlike the JAX CLI,
+``--unique_graph`` reaches the dataset (one fixed expander per puzzle size).
 """
 
 from __future__ import annotations
@@ -100,8 +100,10 @@ def build_2d_model(args) -> Diffusion2D:
     if args.discrete:
         raise NotImplementedError("--discrete (the discrete 2D models) is not ported yet: ROADMAP Queue 1 item 12")
     if args.backbone != "efficientnet_b0":
+        # the equivariant ResNets come with OrientationNorm (item 13), the light encoders with item 6
+        item = 13 if args.backbone.endswith("equiv") else 6
         raise NotImplementedError(
-            f"backbone {args.backbone!r} is not ported yet (only efficientnet_b0): ROADMAP Queue 1 item 13")
+            f"backbone {args.backbone!r} is not ported yet (only efficientnet_b0): ROADMAP Queue 1 item {item}")
     degree = args.degree
     if isinstance(degree, str) and degree == "100%":
         degree = -1  # fully connected

@@ -6,7 +6,8 @@ to numpy by the caller, so this module needs no JAX:
 
     {"encoder": {...}, "denoiser": {...}}
 
-Leaf rules: a Dense kernel (in, out) becomes a Linear weight (out, in); a conv
+``load_jax_npz`` reads such a tree from an npz with ``a/b/c`` keys, and any
+other arrays stored beside it. Leaf rules: a Dense kernel (in, out) becomes a Linear weight (out, in); a conv
 kernel HWIO becomes OIHW (a depthwise (kh, kw, 1, C) kernel becomes
 (C, 1, kh, kw)); Embed tables, LayerNorm and BatchNorm2D scales become
 ``weight``; biases and the Exophormer's ``virt_embedding`` carry over. Module
@@ -24,6 +25,8 @@ import re
 
 import numpy as np
 import torch
+
+from .utils.params import load_params
 
 _SEGMENT_RULES = (
     (re.compile(r"^(Exophormer|GraphTransformer)_0$"), "gnn"),
@@ -73,6 +76,18 @@ def _denoiser_heads(denoiser: dict) -> dict:
     for i, head in enumerate(heads):
         out[head] = {"0": denoiser[dense[2 * i]], "2": denoiser[dense[2 * i + 1]]}
     return out
+
+
+def load_jax_npz(path) -> tuple[dict[str, torch.Tensor], dict[str, np.ndarray]]:
+    """An npz of a flattened parameter tree → (``Diffusion2D`` state_dict, extras).
+
+    Keys with a ``/`` are ``a/b/c`` paths into the JAX package's tree
+    (``encoder/...``, ``denoiser/...``); they are rebuilt into the nested tree
+    and converted by ``convert_params``. Every other key is returned as it is
+    in ``extras``."""
+    tree = load_params(path)
+    extras = {k: tree.pop(k) for k in list(tree) if not isinstance(tree[k], dict)}
+    return convert_params(tree), extras
 
 
 def convert_params(params: dict) -> dict[str, torch.Tensor]:

@@ -5,6 +5,7 @@ import pytest
 
 from diffassemble_tpu import data as jdata
 from diffassemble_tpu_torch import data as tdata
+from torch_assets import fixed_eigsh
 
 
 def _img(seed, h, w):
@@ -39,19 +40,12 @@ def test_patchify_and_rotation_identical():
 
 
 @pytest.fixture
-def deterministic_eigsh(monkeypatch):
+def deterministic_eigsh():
     """ARPACK starts from a random vector of its own, so the Fiedler values, and
     with them which candidate graph is kept, vary from call to call in both
     packages alike; a fixed start vector makes the comparison exact."""
-    import scipy.sparse.linalg as sla
-
-    orig = sla.eigsh
-
-    def eigsh(a, *args, **kwargs):
-        kwargs.setdefault("v0", np.random.default_rng(0).random(a.shape[0]))
-        return orig(a, *args, **kwargs)
-
-    monkeypatch.setattr(sla, "eigsh", eigsh)
+    with fixed_eigsh():
+        yield
 
 
 @pytest.mark.parametrize("n, degree", [(9, "10%"), (36, "10%"), (100, "10%"), (64, 5), (50, -1)])

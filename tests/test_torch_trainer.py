@@ -36,6 +36,7 @@ from diffassemble_tpu_torch.data import datasets as tdatasets
 from diffassemble_tpu_torch.models import Diffusion2D, Diffusion2DConfig
 from diffassemble_tpu_torch.train import checkpoint, train_state, trainer
 from diffassemble_tpu_torch.utils import params as tparams
+from torch_assets import fixed_eigsh
 from torch_parity import CFG, ROOT, assert_same_step, seeded_params, small_batch
 
 
@@ -186,19 +187,12 @@ def test_encoder_init_from_a_jax_npz(tmp_path):
 
 
 @pytest.fixture
-def deterministic_eigsh(monkeypatch):
+def deterministic_eigsh():
     """ARPACK starts from a random vector of its own, so the kept expander
     varies from call to call in both packages alike; a fixed start vector
     makes the comparison exact."""
-    import scipy.sparse.linalg as sla
-
-    orig = sla.eigsh
-
-    def eigsh(a, *args, **kwargs):
-        kwargs.setdefault("v0", np.random.default_rng(0).random(a.shape[0]))
-        return orig(a, *args, **kwargs)
-
-    monkeypatch.setattr(sla, "eigsh", eigsh)
+    with fixed_eigsh():
+        yield
 
 
 @pytest.mark.parametrize("kw", [
@@ -253,6 +247,16 @@ def test_cli_trains_three_steps_then_evaluates_on_the_cpu(tmp_path, capsys, monk
     monkeypatch.setattr(sys, "argv", ["train_2d_rot", *flags, "--evaluate", "true"])
     train_2d_rot.main()  # in this process: restores step 3 and evaluates
     assert "overall_acc" in capsys.readouterr().out.splitlines()[-1]
+
+
+@pytest.mark.parametrize("backbone, item", [("tiny", 6), ("convnet", 6), ("resnet18equiv", 13),
+                                            ("resnet34equiv", 13), ("resnet50equiv", 13)])
+def test_cli_refusal_names_the_backbones_roadmap_item(backbone, item):
+    ap = argparse.ArgumentParser()
+    common.add_2d_args(ap)
+    args = ap.parse_args(["--device", "cpu", "--backbone", backbone])
+    with pytest.raises(NotImplementedError, match=rf"{backbone}.*ROADMAP Queue 1 item {item}$"):
+        common.build_2d_model(args)
 
 
 def test_cli_builds_the_flagship_and_refuses_what_is_not_ported():
