@@ -5,6 +5,7 @@
     python3 chip_smoke.py --profile        # one serving request under torch.profiler
     python3 chip_smoke.py --profile train  # one full-width train step under torch.profiler
     python3 chip_smoke.py --profile eval   # one held-out call of 32 puzzles, trained weights
+    python3 chip_smoke.py --profile train-device  # one step of the device-resident recipe
 
 Phases, each ending in a line with the elapsed seconds:
 
@@ -59,7 +60,31 @@ Phases, each ending in a line with the elapsed seconds:
    seed leaves a choice among five with equal spectral gaps, so which one
    the TPU's run used is unknown). It fails unless the TPU's piece_acc of
    0.9763 is within 0.01 of the card's over one of the five. Then, ungated,
-   the same puzzles over a fully connected graph and in calls of 8.
+   the same puzzles over a fully connected graph and in calls of 8;
+8. recipe, the fourth main path: the flagship's device-resident recipe
+   through ``cli/train_device.py`` (config.json and data.json: 30×30, 10%
+   expander, canonical 0.8, hf_detail 0.25, the encoder_init
+   ``weights/efficientnet_b0_pose30hf.npz``, batch 8, EMA), cut to corpora
+   of 16 and 8 puzzles and 6 steps with an evaluation every 3, then a
+   resume to 8: 4 + 4 + 4 tensor-core launches a step, 120 a held-out call,
+   finite losses, checkpoints at 3, 6 and 8, data.json equal to the
+   arguments; steady s/step by host clock and CUDA events, peak memory and
+   the corpora's bytes on the card;
+9. one ``make_device_train_step`` step against one
+   ``train_state.make_train_step`` step on the card, same weights, batch
+   and draws;
+10. mixed, the fifth main path: the mixed-size recipe
+   (``weights/diffusion2d_rot_ms/data.json``: 6/8/10/12 padded to 144
+   pieces) at the flagship's widths, batch 8, 3 steps and two evaluations,
+   all on the tensor cores; then the three kernels against their plain
+   versions on its masks (B = 8, N = 152 with padding rows and unattended
+   keys; bf16 on the tensor cores, f32 on the CUDA cores) and timed there
+   beside their bound and ``scaled_dot_product_attention``;
+11. ddp: one ``Trainer`` step at full width under DDP in a world of one
+   over NCCL, bit-equal to the same step without DDP.
+
+``python3 chip_smoke.py --profile train-device`` profiles one step of the
+recipe instead.
 
 The last three lines are the nvidia-smi line, a JSON object describing the
 kernels, and ``{"ok": true, "device": {...}}``. Any failure raises, and the
@@ -82,6 +107,8 @@ ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "weights" / "diffusion2d_rot30" / "config.json"
 DATA = ROOT / "weights" / "diffusion2d_rot30" / "data.json"  # the flagship's data recipe
 ASSET = ROOT / "diffassemble_tpu_torch" / "assets" / "diffusion2d_rot30_ema32000.npz"
+ENCODER_INIT = ROOT / "weights" / "efficientnet_b0_pose30hf.npz"  # the flagship's encoder_init
+MIXED_DATA = ROOT / "weights" / "diffusion2d_rot_ms" / "data.json"  # the mixed-size recipe (hw 6/8/10/12)
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, NVIDIA H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # non-tensor-core f32 peak
 H100_BYTES_PER_S = 3.35e12
@@ -91,9 +118,9 @@ STEP_LAUNCHES = ((32, 3), (144, 1))  # (head width, launches) per denoiser step 
 REQUESTS = 3
 TRAIN_BATCH = 8
 TRAIN_STEPS, RESUME_STEPS = 3, 2
-# the flagship's training recipe on the rotation CLI (weights/diffusion2d_rot30/config.json
-# and data.json; batch 8 as the 900-piece recipe); encoder_init is left out: the
-# pretrained npz is not in the chip copy, and the weights are seeded
+# the flagship's training flags on the rotation CLI (weights/diffusion2d_rot30/config.json
+# and data.json; batch 8 as the 900-piece recipe), with seeded weights: the recipe
+# phase trains from the flagship's encoder_init (ENCODER_INIT), this phase does not
 TRAIN_FLAGS = [
     "--backbone", "efficientnet_b0", "-dataset", "synthetic", "-puzzle_sizes", "30",
     "--degree", "10%", "--unique_graph", "true", "-batch_size", str(TRAIN_BATCH),
@@ -119,6 +146,12 @@ TPU_PIECE_ACC, PIECE_ACC_TOL = 0.9763, 0.01
 EXPANDER_TRIES = 5  # expander_mask's max_num_iters: the candidate graphs a seed draws
 FWD_BLOCK_ROWS = (64, 32, 16)  # the tensor-core forward's query blocks, timed in turn
 MAIN_HEAD_DIMS = (32, 144)
+# the recipe CLI (cli/train_device.py) cut for time: corpora of 16 and 8
+# puzzles, 6 steps with an evaluation every 3, then a resume to 8; the mixed
+# corpus 3 steps; EMA on as the flagship's run had it
+RECIPE_TRAIN_N, RECIPE_EVAL_N, RECIPE_STEPS, RECIPE_EVAL_EVERY, RECIPE_RESUME_TO = 16, 8, 6, 3, 8
+MIXED_STEPS = 3
+EMA_DECAY = 0.999
 OTHER_HEAD_DIMS = (20, 104, 264)  # not a multiple of 8; the 3D checkpoints' last layers
 
 _T0 = time.perf_counter()
@@ -149,24 +182,28 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(kernel: str, b: int, n: int, h: int, dh: int, elem_bytes: int) -> tuple[float, str]:
+def bound_ms(kernel: str, b: int, n: int, h: int, dh: int, elem_bytes: int,
+             pairs: int | None = None) -> tuple[float, str]:
     """Least time on an H100 for one launch: the larger of its operations over
     the peak rate for the type and the bytes it must move (each input read
     once, each output written once) over the memory rate.
 
-    forward: S and O·V, 4·B·H·N²·Dh; reads q, k, v and the mask, writes O, L.
-    dQ: S, dP and dQ, 6·B·H·N²·Dh; reads q, k, v, dO, L, Δ and the mask, writes dQ.
-    dK/dV: S, dP, dV and dK, 8·B·H·N²·Dh; reads q, k, v, dO, L, Δ and the mask,
-    writes dK and dV."""
+    forward: S and O·V, 4·H·Dh per attended (query, key) pair; reads q, k, v
+    and the mask, writes O, L.
+    dQ: S, dP and dQ, 6·H·Dh a pair; reads q, k, v, dO, L, Δ and the mask, writes dQ.
+    dK/dV: S, dP, dV and dK, 8·H·Dh a pair; reads q, k, v, dO, L, Δ and the mask,
+    writes dK and dV.
+    ``pairs`` is the mask's attended pairs (default: all B·N², fully connected)."""
     tensor = b * n * h * dh * elem_bytes  # one (B, N, H, Dh) tensor
     row = 4.0 * b * h * n  # one (B, H, N) f32 tensor
     mask = b * n * n
+    pairs = mask if pairs is None else pairs
     flops, nbytes = {
         "masked_attention_fwd": (4, 4 * tensor + row + mask),
         "masked_attention_bwd_dq": (6, 5 * tensor + 2 * row + mask),
         "masked_attention_bwd_dkv": (8, 6 * tensor + 2 * row + mask),
     }[kernel]
-    t_ops = flops * b * h * n * n * dh / (H100_BF16_FLOPS if elem_bytes == 2 else H100_F32_FLOPS)
+    t_ops = flops * h * pairs * dh / (H100_BF16_FLOPS if elem_bytes == 2 else H100_F32_FLOPS)
     t_bytes = nbytes / H100_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -499,7 +536,7 @@ def timing() -> tuple[list[dict], list[dict]]:
                 ms, plain_ms = cuda_ms(fn), cuda_ms(plain)
                 bound, bound_by = bound_ms(kernel, b, N_NODES, HEADS, dh, 2)
                 route = ca.route(kernel, *args)
-                here.append({"kernel": kernel, "b": b, "dh": dh, "route": route, "main_path": main,
+                here.append({"kernel": kernel, "b": b, "n": N_NODES, "dh": dh, "route": route, "main_path": main,
                              "launches_per_step": count, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                              "bound_ms": bound, "bound_by": bound_by})
                 phase(f"timing {kernel:25s} B={b} N={N_NODES} H={HEADS} Dh={dh:3d} bf16 {route:12s}: kernel "
@@ -963,6 +1000,406 @@ def accuracy() -> tuple[dict[str, int], dict[str, dict[str, int]], dict]:
     return counts, routes, result
 
 
+def recipe_argv(run_dir: str, data_recipe: dict, max_steps: int, train_n: int, eval_n: int, eval_every: int,
+                backbone: str | None = None, encoder_init: bool = True) -> list[str]:
+    """``cli/train_device.py``'s flags for the flagship's config.json (widths,
+    sampler and, with ``encoder_init``, its pretrained encoder) and a data
+    recipe (``data.json``: sizes, graph, image knobs, seed), at batch 8 with
+    EMA, cut to the given corpora and steps; no reconstruction images (the
+    card machine has no PIL)."""
+    cfg = json.loads(CONFIG.read_text())
+    encoder_init = str(ROOT / cfg["encoder_init"]) if encoder_init and cfg["encoder_init"] else ""
+    return [
+        "--run_dir", run_dir, "--hw", *map(str, data_recipe["hw"]), "--rotation", str(int(cfg["rotation"])),
+        "--backbone", backbone or cfg["backbone"], "--architecture", cfg["architecture"],
+        "--degree", str(data_recipe["degree"]), "--virt_nodes", str(cfg["virt_nodes"]),
+        "--n_layers", str(cfg["n_layers"]), "--steps", str(cfg["steps"]),
+        "--inference_ratio", str(cfg["inference_ratio"]), "--batch_size", str(TRAIN_BATCH),
+        "--train_n", str(train_n), "--eval_n", str(eval_n), "--max_steps", str(max_steps),
+        "--eval_every", str(eval_every), "--log_every", "1", "--compute_dtype", cfg["compute_dtype"],
+        "--warmup_steps", str(cfg["warmup_steps"]), "--aux_loss_weight", str(cfg["aux_loss_weight"]),
+        "--encoder_init", encoder_init, "--hf_detail", str(data_recipe["hf_detail"]),
+        "--canonical", str(data_recipe["canonical"]), "--style", data_recipe["style"],
+        "--seed", str(data_recipe["seed"]), "--ema_decay", str(EMA_DECAY), "--viz_every_eval", "0",
+        "--device", "cuda",
+    ]
+
+
+def drive_recipe(workdir: Path, argvs: list[list[str]], label: str) -> tuple[list[dict], list[dict]]:
+    """Run ``cli/train_device.py``'s ``main`` once per argv, in ``workdir``
+    (its corpus cache lands there), past the round-deadline guard's cutoff
+    (the repository's PROGRESS.jsonl is from another time). Each train step is
+    timed (host clock synchronize to synchronize, and CUDA events) and its
+    launches counted, as is each held-out evaluation. Returns (steps, evals)."""
+    import os
+
+    import torch
+
+    from diffassemble_tpu_torch.cli import train_device
+
+    steps, evals = [], []
+    make_step, heldout = train_device.make_device_train_step, train_device.heldout_eval
+
+    def counted_make_step(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def counted(state, data, batch_size, draws=None):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            start, before, before_routes = time.perf_counter(), read_counts(), read_routes()
+            ev[0].record()
+            new, aux = step(state, data, batch_size, draws)
+            ev[1].record()
+            torch.cuda.synchronize()
+            rec = {"step": new.step, "seconds": time.perf_counter() - start, "ms": ev[0].elapsed_time(ev[1]),
+                   "launches": {k: v - before[k] for k, v in read_counts().items()},
+                   "routes": routes_since(before_routes),
+                   **{k: float(aux[k]) for k in ("total_loss", "grad_norm", "grad_norm/encoder",
+                                                 "grad_norm/denoiser")}}
+            steps.append(rec)
+            phase(f"{label} step {rec['step']}: {rec['seconds']:.3f} s host, {rec['ms']:.2f} ms CUDA events, "
+                  f"launches {rec['launches']}, loss {rec['total_loss']:.4f}, grad_norm {rec['grad_norm']:.4f}")
+            return new, aux
+
+        return counted
+
+    def counted_heldout(model, data, rot_k, eval_n=32, on_slice=None):
+        torch.cuda.synchronize()
+        start, before, before_routes = time.perf_counter(), read_counts(), read_routes()
+        metrics = heldout(model, data, rot_k, eval_n=eval_n, on_slice=on_slice)
+        torch.cuda.synchronize()
+        rec = {"calls": -(-data.n_samples // eval_n), "puzzles": data.n_samples, "n_nodes": data.n_nodes,
+               "seconds": time.perf_counter() - start,
+               "launches": {k: v - before[k] for k, v in read_counts().items()},
+               "routes": routes_since(before_routes), "piece_acc": metrics["overall__piece_acc"]}
+        evals.append(rec)
+        phase(f"{label} evaluation: {rec['puzzles']} puzzles in {rec['calls']} call(s), {rec['seconds']:.3f} s, "
+              f"launches {rec['launches']}, piece_acc {rec['piece_acc']!r}")
+        return metrics
+
+    env = {"DIFFASSEMBLE_DEADLINE_EPOCH": str(time.time() + 86400.0)}
+    with mock.patch.object(train_device, "make_device_train_step", counted_make_step), \
+            mock.patch.object(train_device, "heldout_eval", counted_heldout), \
+            mock.patch.dict(os.environ, env), contextlib.chdir(workdir):
+        for argv in argvs:
+            train_device.main(argv)
+    return steps, evals
+
+
+def _check_recipe_launches(steps: list[dict], evals: list[dict], per_call: int, label: str) -> None:
+    """Every step 4 + 4 + 4 launches, every evaluation ``per_call`` forward
+    launches a call and no backward, all on the tensor cores; finite losses."""
+    step_want = dict.fromkeys(KERNEL_SOURCES, 4)
+    step_routes = dict.fromkeys(KERNEL_SOURCES, {"tensor_cores": 4, "cuda_cores": 0})
+    for s in steps:
+        if s["launches"] != step_want or s["routes"] != step_routes:
+            raise AssertionError(f"{label} step {s['step']}: launches {s['launches']} by route {s['routes']}, "
+                                 f"expected {step_want}, all on the tensor cores")
+        if not (math.isfinite(s["total_loss"]) and math.isfinite(s["grad_norm"]) and s["grad_norm/encoder"] > 0
+                and s["grad_norm/denoiser"] > 0):
+            raise AssertionError(f"{label} step {s['step']}: bad loss or gradient norms {s}")
+    for e in evals:
+        n = per_call * e["calls"]
+        if (e["launches"] != {"masked_attention_fwd": n, "masked_attention_bwd_dq": 0, "masked_attention_bwd_dkv": 0}
+                or e["routes"]["masked_attention_fwd"] != {"tensor_cores": n, "cuda_cores": 0}):
+            raise AssertionError(f"{label} evaluation: launches {e['launches']} by route {e['routes']}, expected "
+                                 f"{n} forward launches on the tensor cores")
+
+
+def _spread(xs: list[float]) -> str:
+    xs = sorted(xs)
+    return f"median {xs[len(xs) // 2]:.4f} (min {xs[0]:.4f}, max {xs[-1]:.4f}, n {len(xs)})"
+
+
+def recipe(workdir: Path) -> tuple[dict[str, int], dict[str, dict[str, int]], dict]:
+    """The fourth main path: the flagship's device-resident recipe through
+    ``cli/train_device.py`` (config.json and data.json: 30×30, 10% expander,
+    canonical 0.8, hf_detail 0.25, the encoder_init, batch 8, EMA), cut to
+    corpora of 16 and 8 puzzles and 6 steps with an evaluation every 3, then a
+    resume to step 8. Gates: 4 + 4 + 4 tensor-core launches a step, 120 a
+    held-out call, finite losses, checkpoints at 3 and 6 then 8, data.json
+    equal to the arguments."""
+    import numpy as np
+    import torch
+
+    data_recipe = json.loads(DATA.read_text())
+    run_dir = workdir / "recipe"
+    argvs = [recipe_argv(str(run_dir), data_recipe, steps, RECIPE_TRAIN_N, RECIPE_EVAL_N, RECIPE_EVAL_EVERY)
+             for steps in (RECIPE_STEPS, RECIPE_RESUME_TO)]
+    if not ENCODER_INIT.is_file():
+        raise FileNotFoundError(f"the flagship's encoder_init {ENCODER_INIT} is not in this checkout")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start = time.perf_counter()
+    steps, evals = drive_recipe(workdir, argvs[:1], "recipe")
+    ckpt_dir = run_dir / "checkpoints"
+    first = sorted(int(p.name) for p in ckpt_dir.iterdir() if p.name.isdigit())
+    more_steps, more_evals = drive_recipe(workdir, argvs[1:], "recipe (resumed)")
+    seconds = time.perf_counter() - start
+    counts, routes = read_counts(), read_routes()
+    peak = torch.cuda.max_memory_allocated()
+    after = sorted(int(p.name) for p in ckpt_dir.iterdir() if p.name.isdigit())
+    cfg = flagship_config()
+    per_call = cfg.n_layers * (cfg.steps // cfg.inference_ratio)
+    _check_recipe_launches(steps + more_steps, evals + more_evals, per_call, "recipe")
+    if [s["step"] for s in steps + more_steps] != list(range(1, RECIPE_RESUME_TO + 1)):
+        raise AssertionError(f"recipe steps {[s['step'] for s in steps + more_steps]}")
+    # evaluations at steps 3 and 6 and a final one, then at 8 and a final one
+    if len(evals) != 3 or len(more_evals) != 2:
+        raise AssertionError(f"recipe evaluations: {len(evals)} then {len(more_evals)}")
+    if first != [RECIPE_EVAL_EVERY, RECIPE_STEPS] or RECIPE_RESUME_TO not in after:
+        raise AssertionError(f"recipe checkpoints {first}, then {after}")
+    written = json.loads((ckpt_dir / "data.json").read_text())
+    want = {**{k: data_recipe[k] for k in ("dataset", "hw", "degree", "canonical", "hf_detail", "style", "seed")},
+            "train_n": RECIPE_TRAIN_N}
+    if written != want:
+        raise AssertionError(f"data.json {written} differs from the arguments {want}")
+    hwtag = "x".join(map(str, data_recipe["hw"]))
+    corpus = 0
+    for f in (workdir / "runs" / "_corpus").glob(f"*-hw{hwtag}-*.npz"):
+        with np.load(f) as z:
+            corpus += sum(int(z[k].nbytes) for k in z.files)
+    steady = [s for i, s in enumerate(steps + more_steps) if i not in (0, len(steps))]
+    result = {"seconds": seconds, "steady_host_s": [s["seconds"] for s in steady],
+              "steady_cuda_ms": [s["ms"] for s in steady], "first_step_s": [steps[0]["seconds"],
+                                                                            more_steps[0]["seconds"]],
+              "max_memory_allocated": peak, "corpus_bytes_on_device": corpus, "checkpoints": after,
+              "eval_seconds": [e["seconds"] for e in evals + more_evals],
+              "piece_acc": [e["piece_acc"] for e in evals + more_evals]}
+    phase(f"recipe: {len(steady) + 2} steps in two runs, {seconds:.1f} s with corpora, evaluations and "
+          f"checkpoints; steady s/step by host clock {_spread(result['steady_host_s'])}, by CUDA events (ms) "
+          f"{_spread(result['steady_cuda_ms'])}; max_memory_allocated {peak / 2**30:.2f} GiB; both corpora "
+          f"{corpus} bytes on the device; checkpoints {first} then {after}; launches {counts}")
+    return counts, routes, result
+
+
+def recipe_corpus():
+    """A device-resident corpus of 8 puzzles of the flagship's recipe
+    (data.json: its size, expander, seed and image knobs) on the card."""
+    from diffassemble_tpu_torch.data.datasets import SyntheticImages
+    from diffassemble_tpu_torch.train.device_data import build_device_data
+
+    recipe_ = json.loads(DATA.read_text())
+    hw = (recipe_["hw"][0],) * 2
+    images = SyntheticImages((hw[0] * 32, hw[1] * 32), n=TRAIN_BATCH, seed=recipe_["seed"], cache=False,
+                             canonical=recipe_["canonical"], hf_detail=recipe_["hf_detail"], style=recipe_["style"])
+    return build_device_data(images, hw, TRAIN_BATCH, degree=recipe_["degree"], seed=recipe_["seed"], device="cuda")
+
+
+def device_step_vs_train_state_step() -> None:
+    """On the card, one ``make_device_train_step`` step against one
+    ``train_state.make_train_step`` step: the flagship at full width in bf16
+    from its encoder_init, the same batch of 8 30×30 puzzles (the recipe's
+    images and expander) and the same draws. Both gradients are finite, so
+    the train-state step's non-finite zeroing does nothing; the steps differ
+    only in how the clip computes the norm. Tolerance as the CPU test holds
+    the device step: the loss and gradient norms within 2e-4 relative, the
+    parameters and EMA within 5e-4 of each parameter's largest update plus
+    1e-6 relative, except where an unfactored parameter's gradient is within
+    2e-4 of its largest entry plus 1e-6 of the model's of 0 (there the
+    first Adafactor step is the sign of the gradient), where the step is only
+    held to the largest."""
+    import dataclasses
+
+    import torch
+
+    from diffassemble_tpu_torch.models import Diffusion2D
+    from diffassemble_tpu_torch.train.device_data import gather_batch, make_device_train_step
+    from diffassemble_tpu_torch.train.train_state import create_train_state, make_train_step
+
+    cfg = dataclasses.replace(flagship_config(), encoder_init=str(ENCODER_INIT))
+    data = recipe_corpus()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    runs = []
+    for kind in ("device", "train_state"):
+        model = Diffusion2D(cfg, device="cuda", seed=0)
+        model.init(0)
+        gen.manual_seed(5)
+        idx = torch.randint(0, data.n_samples, (TRAIN_BATCH,), generator=gen, device="cuda")
+        rot_k = torch.randint(0, 4, (TRAIN_BATCH, data.n_nodes), generator=gen, device="cuda")
+        draws = model.loss_draws(TRAIN_BATCH, (TRAIN_BATCH, data.n_nodes, 4), gen, torch.device("cuda"))
+        opt = model.make_optimizer()
+        state = create_train_state(model, opt, torch.Generator(device="cuda").manual_seed(0), ema=True)
+        before = {k: p.detach().clone() for k, p in model.named_parameters()}
+        if kind == "device":
+            step = make_device_train_step(model.loss, opt, rotation=True, ema_decay=EMA_DECAY)
+            state, aux = step(state, data, TRAIN_BATCH, {"idx": idx, "rot_k": rot_k, **draws})
+        else:
+            step = make_train_step(lambda b, g: model.loss(b, g, **draws), opt, ema_decay=EMA_DECAY)
+            state, aux = step(state, gather_batch(data, idx, rot_k))
+        torch.cuda.synchronize()
+        runs.append((aux, before, {k: p.detach().clone() for k, p in model.named_parameters()},
+                     {k: p.grad.detach().clone() for k, p in model.named_parameters()},
+                     {k: e.clone() for k, e in state.ema_params.items()}, set(state.opt_state["v"])))
+        del model, state, opt
+    (aux_d, before, p_d, _, ema_d, _), (aux_t, _, p_t, g_t, ema_t, unfactored) = runs
+    if float(aux_t["grad_nonfinite"]) != 0.0:
+        raise AssertionError("the train-state step saw non-finite gradients")
+    for key in ("loss", "total_loss", "aux_loss", "grad_norm", "grad_norm/encoder", "grad_norm/denoiser"):
+        a, b = float(aux_d[key]), float(aux_t[key])
+        if not (math.isfinite(a) and abs(a - b) <= 2e-4 * abs(b)):
+            raise AssertionError(f"{key}: device step {a} against train-state step {b}")
+    gmax = max(float(g.abs().max()) for g in g_t.values())
+    worst = 0.0
+    for name, want in p_t.items():
+        g = g_t[name]
+        g_tol = 2e-4 * float(g.abs().max()) + 1e-6 * gmax
+        sure = g.abs() > g_tol if name in unfactored else torch.ones_like(g, dtype=torch.bool)
+        for got_all, want_all in ((p_d, p_t), (ema_d, ema_t)):
+            d_got, d_want = got_all[name] - before[name], want_all[name] - before[name]
+            largest = float(d_want.abs().max())
+            tol = 5e-4 * largest + 1e-6 * want_all[name].abs()
+            err = (d_got - d_want).abs()
+            if not (bool(torch.isfinite(d_got).all()) and bool((err <= tol)[sure].all())
+                    and bool((d_got.abs() <= largest + tol)[~sure].all())):
+                raise AssertionError(f"{name}: the device step's update differs from the train-state step's")
+            if sure.any():
+                worst = max(worst, float((err / tol)[sure].max()))
+    phase(f"device step vs train-state step, {cfg.compute_dtype} B={TRAIN_BATCH} {data.hw.tolist()}: loss "
+          f"{float(aux_d['total_loss']):.6f} vs "
+          f"{float(aux_t['total_loss']):.6f}, grad_norm {float(aux_d['grad_norm']):.6f} vs "
+          f"{float(aux_t['grad_norm']):.6f}; parameters and EMA worst err/tol {worst:.3f} over {len(p_t)}")
+
+
+def mixed_masks(corpus_file: Path):
+    """(label, mask (B, N+8, N+8) bool on the card, pairs) of the mixed
+    corpus's first batch of 8 (two puzzles of each size, padded to 144 + 8
+    virtual nodes), as the denoiser builds it."""
+    import numpy as np
+    import torch
+
+    from diffassemble_tpu_torch.ops.attention import extend_mask_with_virtual_nodes
+    from diffassemble_tpu_torch.train.device_data import DeviceMixedPuzzleData, gather_batch_mixed
+
+    with np.load(corpus_file) as z:
+        data = DeviceMixedPuzzleData(*(torch.from_numpy(z[k]).cuda() for k in DeviceMixedPuzzleData._fields))
+    batch = gather_batch_mixed(data, torch.arange(TRAIN_BATCH, device="cuda"))
+    mask, _ = extend_mask_with_virtual_nodes(batch.adj, batch.node_mask, 8)
+    sizes = batch.patches_dim[:, 0].tolist()
+    return f"mixed {'/'.join(map(str, sorted(set(sizes))))} padded", mask.contiguous()
+
+
+def mixed(workdir: Path) -> tuple[dict[str, int], dict[str, dict[str, int]], dict]:
+    """The fifth main path: the mixed-size recipe (``weights/diffusion2d_rot_ms``'s
+    data.json: sizes 6/8/10/12 padded to 144 pieces, fully connected) through
+    ``cli/train_device.py`` at the flagship's widths and batch 8, 3 steps and
+    two evaluations; its config's backbone (resnet18equiv) is not ported, so
+    efficientnet_b0 stands in, from seeded weights as that config has no
+    encoder_init. Then the three kernels against their plain
+    versions on the masks of its first batch (N = 152 with 8 virtual nodes:
+    rows of padding nodes attend to no key, their columns are attended by no
+    query) and their times there."""
+    data_recipe = json.loads(MIXED_DATA.read_text())
+    run_dir = workdir / "mixed"
+    argv = recipe_argv(str(run_dir), data_recipe, MIXED_STEPS, RECIPE_TRAIN_N, RECIPE_EVAL_N, MIXED_STEPS,
+                       backbone="efficientnet_b0", encoder_init=False)
+    reset_counts()
+    start = time.perf_counter()
+    steps, evals = drive_recipe(workdir, [argv], "mixed")
+    seconds = time.perf_counter() - start
+    counts, routes = read_counts(), read_routes()
+    cfg = flagship_config()
+    _check_recipe_launches(steps, evals, cfg.n_layers * (cfg.steps // cfg.inference_ratio), "mixed")
+    if [s["step"] for s in steps] != list(range(1, MIXED_STEPS + 1)) or len(evals) != 2:
+        raise AssertionError(f"mixed: steps {[s['step'] for s in steps]}, {len(evals)} evaluations")
+    n_max = max(data_recipe["hw"]) ** 2
+    if any(e["n_nodes"] != n_max for e in evals):
+        raise AssertionError(f"mixed: the held-out corpus is not padded to {n_max} pieces: {evals}")
+    phase(f"mixed: {len(steps)} steps in {seconds:.1f} s, host s/step {[round(s['seconds'], 4) for s in steps]}, "
+          f"CUDA events ms {[round(s['ms'], 2) for s in steps]}; launches {counts}")
+    corpus = next((workdir / "runs" / "_corpus").glob(f"train-hw{'x'.join(map(str, data_recipe['hw']))}-*.npz"))
+    return counts, routes, {"corpus": corpus, "steps": steps, "evals": evals, "seconds": seconds}
+
+
+def mixed_kernels(corpus: Path, max_err: dict[str, float]) -> list[dict]:
+    """The three kernels on the mixed corpus's masks: against their plain
+    versions (bf16 on the tensor cores, f32 on the CUDA cores, at Dh 32 and
+    144, the same tolerances and exact zeros as every other mask), then timed
+    beside their plain versions, the bound over the mask's attended pairs and
+    ``scaled_dot_product_attention`` with the same boolean mask."""
+    import torch
+
+    from diffassemble_tpu_torch.ops import cuda_attention as ca
+
+    label, mask = mixed_masks(corpus)
+    b, n, _ = mask.shape
+    pairs = int(mask.sum())
+    phase(f"mixed masks: {label}, B={b} N={n}, {int((~mask.any(-1)).sum())} empty query rows, "
+          f"{pairs} attended pairs ({pairs / mask.numel():.3f} of B·N²)")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for dh in MAIN_HEAD_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            _check_kernels(label, mask, dh, dtype, gen, max_err)
+    rows = []
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for dh, count in STEP_LAUNCHES:
+        q, k, v, dout = (torch.randn((b, n, HEADS, dh), generator=gen, device="cuda").to(torch.bfloat16)
+                         for _ in range(4))
+        o, lse = ca.masked_attention_fwd(q, k, v, mask)
+        delta = ca.attention_delta(dout, o)
+        args = (q, k, v, mask, dout, lse, delta)
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+        sdpa_mask = mask[:, None]
+        with torch.no_grad():
+            lib_fwd = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=sdpa_mask))
+        out_t = sdpa(qt, kt, vt, attn_mask=sdpa_mask)
+        dout_t = dout.transpose(1, 2).contiguous()
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(out_t, (qt, kt, vt), dout_t, retain_graph=True))
+        for kernel, fn, plain, library_ms in (
+                ("masked_attention_fwd", lambda: ca.masked_attention_fwd(q, k, v, mask),
+                 lambda: ca.masked_attention_fwd_plain(q, k, v, mask), lib_fwd),
+                ("masked_attention_bwd_dq", lambda: ca.masked_attention_bwd_dq(*args),
+                 lambda: ca.masked_attention_bwd_dq_plain(*args), lib_bwd),
+                ("masked_attention_bwd_dkv", lambda: ca.masked_attention_bwd_dkv(*args),
+                 lambda: ca.masked_attention_bwd_dkv_plain(*args), lib_bwd)):
+            ms, plain_ms = cuda_ms(fn), cuda_ms(plain)
+            bound, bound_by = bound_ms(kernel, b, n, HEADS, dh, 2, pairs=pairs)
+            route = ca.route(kernel, *args)
+            rows.append({"kernel": kernel, "b": b, "n": n, "dh": dh, "route": route, "main_path": True,
+                         "mask": label, "launches_per_step": count, "ms": ms, "plain_ms": plain_ms,
+                         "library_ms": library_ms, "bound_ms": bound, "bound_by": bound_by})
+            phase(f"timing {kernel:25s} B={b} N={n} H={HEADS} Dh={dh:3d} bf16 {route:12s} ({label}): kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
+                  f"bound {bound:.5f} ms ({bound_by})")
+        del out_t, qt, kt, vt
+    return rows
+
+
+def ddp_world_of_one() -> tuple[dict[str, int], dict[str, dict[str, int]]]:
+    """One ``Trainer`` step at full width (bf16, the flagship's config and
+    encoder_init, batch 8 of 30×30 puzzles over the 10% expander) without a
+    process group, under DDP in a world of one over NCCL (this process,
+    localhost), and without again: parameters and gradients bit-equal. cuDNN
+    runs its deterministic algorithms here."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from diffassemble_tpu_torch.models import Diffusion2D
+    from diffassemble_tpu_torch.parallel.dryrun import one_rank_ddp_matches
+
+    cfg = dataclasses.replace(flagship_config(), encoder_init=str(ENCODER_INIT))
+    rng = np.random.default_rng(8)
+    batch = seeded_puzzles(30, TRAIN_BATCH, cfg.rotation, rng).to("cuda")
+    adj = torch.as_tensor(seeded_puzzles(30, 1, cfg.rotation, rng, degree="10%").adj).cuda()
+    batch = batch._replace(adj=batch.adj & adj)
+    reset_counts()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        n = one_rank_ddp_matches(lambda: Diffusion2D(cfg, device="cuda", seed=0), batch, "nccl")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    counts, routes = read_counts(), read_routes()
+    if counts != dict.fromkeys(KERNEL_SOURCES, 3 * 4):
+        raise AssertionError(f"ddp: launches {counts}, expected 4 of each kernel in each of 3 steps")
+    phase(f"ddp: a world of one over NCCL, one Trainer step bit-equal to the plain step ({n} parameters and "
+          f"their gradients; a second plain step equal too); launches {counts}")
+    return counts, routes
+
+
 def _family(kernel_name: str) -> str:
     name = kernel_name.lower()
     for family, keys in (("masked_attention_bwd (this port)", ("masked_attention_bwd",)),
@@ -1054,6 +1491,34 @@ def profile_train_step() -> None:
     phase(f"profile: max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
+def profile_device_train_step() -> None:
+    """One step of the device-resident recipe (``make_device_train_step``):
+    the flagship at full width from its encoder_init, batch 8 drawn on the
+    card from a corpus of 8 30×30 puzzles of the recipe's images."""
+    import dataclasses
+
+    import torch
+
+    from diffassemble_tpu_torch.models import Diffusion2D
+    from diffassemble_tpu_torch.train.device_data import make_device_train_step
+    from diffassemble_tpu_torch.train.train_state import create_train_state
+
+    cfg = dataclasses.replace(flagship_config(), encoder_init=str(ENCODER_INIT))
+    data = recipe_corpus()
+    model = Diffusion2D(cfg, device="cuda", seed=0)
+    model.init(0)
+    opt = model.make_optimizer()
+    holder = [create_train_state(model, opt, torch.Generator(device="cuda").manual_seed(1), ema=True)]
+    step = make_device_train_step(model.loss, opt, rotation=True, ema_decay=EMA_DECAY)
+
+    def one_step():
+        holder[0], _ = step(holder[0], data, TRAIN_BATCH)
+
+    torch.cuda.reset_peak_memory_stats()
+    _profile(one_step, "device-resident train step")
+    phase(f"profile: max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
 def profile_heldout_call() -> None:
     """One held-out call of 32 puzzles with the trained weights (the accuracy
     phase's first call)."""
@@ -1068,21 +1533,23 @@ def profile_heldout_call() -> None:
     phase(f"profile: max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
-def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, train: tuple, heldout: tuple) -> dict:
+def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, train: tuple, heldout: tuple,
+                recipe_: tuple, mixed_: tuple, ddp: tuple) -> dict:
     """The kernels' JSON line; ``serve`` and ``train`` are (launches,
-    launches by route, seconds per request or per steady step), ``heldout``
-    (launches, launches by route, the accuracy phase's result)."""
+    launches by route, seconds per request or per steady step), ``heldout``,
+    ``recipe_`` and ``mixed_`` (launches, launches by route, the phase's
+    result), ``ddp`` (launches, launches by route)."""
     from diffassemble_tpu_torch import REFERENCE_PACKAGE
     from diffassemble_tpu_torch.ops import cuda_attention
 
-    (serve_counts, serve_routes, request_seconds), (train_counts, train_routes, step_seconds) = serve, train
-    eval_counts, eval_routes, eval_result = heldout
+    paths = {"serve": serve, "train": train, "heldout_eval": heldout, "recipe": recipe_, "mixed": mixed_,
+             "ddp": ddp}
     out = []
     for kernel, source in KERNEL_SOURCES.items():
         # the forward kernel's figures are per denoiser step at the serving
         # shapes (B = 1); the backward kernels' per train step (B = 8)
         b = 1 if kernel == "masked_attention_fwd" else TRAIN_BATCH
-        per = [r for r in rows if r["kernel"] == kernel and r["b"] == b and r["main_path"]]
+        per = [r for r in rows if r["kernel"] == kernel and r["b"] == b and r["n"] == N_NODES and r["main_path"]]
         step = {key: sum(r[key] * r["launches_per_step"] for r in per)
                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
         out.append({
@@ -1091,11 +1558,9 @@ def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, t
             "source": source,
             "sources_by_route": {"tensor_cores": source, "cuda_cores": CUDA_CORE_SOURCES[kernel]},
             "replaces": f"{REFERENCE_PACKAGE}/{cuda_attention.REPLACES[kernel]}",
-            "launches": serve_counts[kernel] + train_counts[kernel] + eval_counts[kernel],
-            "launches_by_path": {"serve": serve_counts[kernel], "train": train_counts[kernel],
-                                 "heldout_eval": eval_counts[kernel]},
-            "launches_by_route": {"serve": serve_routes[kernel], "train": train_routes[kernel],
-                                  "heldout_eval": eval_routes[kernel]},
+            "launches": sum(path[0][kernel] for path in paths.values()),
+            "launches_by_path": {name: path[0][kernel] for name, path in paths.items()},
+            "launches_by_route": {name: path[1][kernel] for name, path in paths.items()},
             "max_abs_err": errs[kernel],
             "ms": step["ms"],
             "plain_ms": step["plain_ms"],
@@ -1109,9 +1574,11 @@ def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, t
             "per_shape": [r for r in rows if r["kernel"] == kernel],
         })
     out[0]["block_rows_sweep"] = sweep
-    out[0]["seconds_per_request"] = request_seconds
-    out[1]["seconds_per_train_step"] = step_seconds
-    out[0]["heldout_eval"] = eval_result
+    out[0]["seconds_per_request"] = serve[2]
+    out[1]["seconds_per_train_step"] = train[2]
+    out[0]["heldout_eval"] = heldout[2]
+    out[1]["recipe"] = recipe_[2]
+    out[1]["mixed"] = {k: v for k, v in mixed_[2].items() if k != "corpus"}
     return {"kernels": out}
 
 
@@ -1119,15 +1586,17 @@ def main() -> None:
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
-    ap.add_argument("--profile", nargs="?", const="serve", choices=["serve", "train", "eval"],
-                    help="instead of the smoke run, profile one serving request (default), one train step "
-                         "or one held-out call of 32 puzzles with the trained weights")
+    ap.add_argument("--profile", nargs="?", const="serve", choices=["serve", "train", "eval", "train-device"],
+                    help="instead of the smoke run, profile one serving request (default), one train step, "
+                         "one held-out call of 32 puzzles with the trained weights, or one step of the "
+                         "device-resident recipe")
     args = ap.parse_args()
 
     smi, name, count = environment()
     build()
     if args.profile:
-        {"serve": profile_request, "train": profile_train_step, "eval": profile_heldout_call}[args.profile]()
+        {"serve": profile_request, "train": profile_train_step, "eval": profile_heldout_call,
+         "train-device": profile_device_train_step}[args.profile]()
         print(smi, flush=True)
         return
     errs = kernels_vs_plain()
@@ -1138,11 +1607,20 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_run_") as tmp:
         train = training(Path(tmp))
     heldout = accuracy()
-    if (serve[0]["masked_attention_fwd"] == 0 or any(v == 0 for v in train[0].values())
-            or heldout[0]["masked_attention_fwd"] == 0):
-        raise AssertionError(f"a kernel of a main path was not launched: serve {serve[0]}, train {train[0]}, "
-                             f"held-out eval {heldout[0]}")
-    line = kernel_line(errs, rows, sweep, serve, train, heldout)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_recipe_") as tmp:
+        rec = recipe(Path(tmp))
+        device_step_vs_train_state_step()
+        mix = mixed(Path(tmp))
+        rows += mixed_kernels(mix[2]["corpus"], errs)
+    ddp = ddp_world_of_one()
+    paths = {"serve": serve[0], "train": train[0], "held-out eval": heldout[0], "recipe": rec[0],
+             "mixed": mix[0], "ddp": ddp[0]}
+    sampling_only = {"serve", "held-out eval"}  # these launch the forward kernel alone
+    idle = {path: counts for path, counts in paths.items()
+            if any(v == 0 for k, v in counts.items() if path not in sampling_only or k == "masked_attention_fwd")}
+    if idle:
+        raise AssertionError(f"a kernel of a main path was not launched: {idle}")
+    line = kernel_line(errs, rows, sweep, serve, train, heldout, rec, mix, ddp)
     phase("done")
     print(smi, flush=True)
     print(json.dumps(line), flush=True)

@@ -3,9 +3,12 @@ reference's argparse surface → config + datasets + trainer.
 
 The flags are the JAX CLI's, plus ``--device`` (default ``cuda``; the CPU
 only when asked for). Not ported yet: ``--discrete`` (ROADMAP Queue 1 item
-12), every backbone but efficientnet_b0 (items 6 and 13), and more than one
-device (``-gpus`` > 1; DDP, Queue 1 item 10). Unlike the JAX CLI,
-``--unique_graph`` reaches the dataset (one fixed expander per puzzle size).
+12) and every backbone but efficientnet_b0 (items 6 and 13). ``-gpus N``
+trains data-parallel over min(N, the run's processes) ranks: launch one
+process per card, e.g. ``torchrun --nproc_per_node N -m
+diffassemble_tpu_torch.cli.train_2d_rot ...``; a single process uses one
+device. Unlike the JAX CLI, ``--unique_graph`` reaches the dataset (one
+fixed expander per puzzle size).
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ def str2bool(value) -> bool:
 
 def add_2d_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("-batch_size", type=int, default=6)
-    ap.add_argument("-gpus", type=int, default=1, help="devices (only 1 is ported)")
+    ap.add_argument("-gpus", type=int, default=1,
+                    help="data-parallel devices, at most the run's processes (one per card)")
     ap.add_argument("-steps", type=int, default=300)
     ap.add_argument("-max_epochs", type=int, default=1000)
     ap.add_argument("-max_steps", type=int, default=100_000)
@@ -96,14 +100,19 @@ def add_2d_args(ap: argparse.ArgumentParser) -> None:
                     help="torch device; the CPU runs only when asked for (--device cpu)")
 
 
+def check_backbone(backbone: str) -> None:
+    """Raise, naming its ROADMAP item, for a backbone the port does not have."""
+    if backbone != "efficientnet_b0":
+        # the equivariant ResNets come with OrientationNorm (item 13), the light encoders with item 6
+        item = 13 if backbone.endswith("equiv") else 6
+        raise NotImplementedError(
+            f"backbone {backbone!r} is not ported yet (only efficientnet_b0): ROADMAP Queue 1 item {item}")
+
+
 def build_2d_model(args) -> Diffusion2D:
     if args.discrete:
         raise NotImplementedError("--discrete (the discrete 2D models) is not ported yet: ROADMAP Queue 1 item 12")
-    if args.backbone != "efficientnet_b0":
-        # the equivariant ResNets come with OrientationNorm (item 13), the light encoders with item 6
-        item = 13 if args.backbone.endswith("equiv") else 6
-        raise NotImplementedError(
-            f"backbone {args.backbone!r} is not ported yet (only efficientnet_b0): ROADMAP Queue 1 item {item}")
+    check_backbone(args.backbone)
     degree = args.degree
     if isinstance(degree, str) and degree == "100%":
         degree = -1  # fully connected
@@ -150,14 +159,26 @@ def build_2d_datasets(args):
     )
 
 
+def device_count() -> int:
+    """The devices a run can use: one per process of its group."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
 def run_2d(args) -> None:
+    from ..parallel.distributed import initialize
+    from ..parallel.mesh import make_mesh
     from ..train.trainer import Trainer
 
-    if args.gpus > 1:
-        raise NotImplementedError("more than one device (DDP) is not ported yet: ROADMAP Queue 1 item 10")
+    initialize(device=args.device)  # no-op for a single process
     model = build_2d_model(args)
     train_ds, test_ds, sizes = build_2d_datasets(args)
     run_dir = args.run_dir or f"runs/{args.dataset}-{'x'.join(map(str, args.puzzle_sizes))}"
+    if args.gpus > device_count():
+        print(f"-gpus {args.gpus}: this run has {device_count()} process(es), one device each; "
+              f"using {device_count()}", flush=True)
+    mesh = make_mesh(min(args.gpus, device_count()), tp=1)
     trainer = Trainer(
         model,
         run_dir=run_dir,
@@ -166,6 +187,7 @@ def run_2d(args) -> None:
         accumulate=max(args.acc_grad, 1),
         seed=args.seed,
         ema_decay=args.ema_decay or None,
+        mesh=mesh,
     )
     if args.evaluate:
         from ..train.train_state import eval_params

@@ -112,6 +112,7 @@ class Diffusion2D(nn.Module):
         )
         init_weights(self, torch.Generator().manual_seed(seed))
         self.to(device)
+        self.stats_group = None  # a process group: the loss's masked means span it (loss)
 
     @property
     def device(self) -> torch.device:
@@ -153,6 +154,17 @@ class Diffusion2D(nn.Module):
                 )
             self.encoder.load_state_dict({k[len("encoder."):]: v for k, v in loaded.items()})
 
+    def loss_draws(self, b: int, x_shape: tuple[int, ...], generator: torch.Generator | None,
+                   device: torch.device) -> dict[str, torch.Tensor]:
+        """The loss's random draws for ``b`` puzzles, in the loss's order: t
+        (b,), the noise ``x_shape`` and, with classifier-free training, the
+        keep mask (b, 1, 1)."""
+        out = {"t_graph": torch.randint(0, self.cfg.steps, (b,), generator=generator, device=device),
+               "noise": torch.randn(x_shape, generator=generator, device=device)}
+        if self.cfg.classifier_free_prob > 0:
+            out["cf_keep"] = torch.rand((b, 1, 1), generator=generator, device=device) >= self.cfg.classifier_free_prob
+        return out
+
     def loss(
         self,
         batch: PuzzleBatch,
@@ -166,30 +178,38 @@ class Diffusion2D(nn.Module):
         nodes, plus ``aux_loss_weight`` × the aux head's x₀ loss.
 
         t (B,), the noise (B, N, C) and the classifier-free keep mask (B, 1, 1)
-        are drawn from ``generator`` unless given (the tests feed the JAX
-        package's draws). Returns (loss, aux) with 0-dim tensors."""
+        are drawn from ``generator`` (``loss_draws``) unless all are given
+        (the tests feed the JAX package's draws). While ``stats_group`` holds
+        a process group, each masked mean divides by the valid entries of the
+        whole batch across the group over the group's size, so that the
+        ranks' mean, which data-parallel training takes, is the whole
+        batch's. Returns (loss, aux) with 0-dim tensors."""
         cfg = self.cfg
         b, n = batch.x0.shape[:2]
         dev = batch.x0.device
         if t_graph is None:
-            t_graph = torch.randint(0, cfg.steps, (b,), generator=generator, device=dev)
+            draws = self.loss_draws(b, batch.x0.shape, generator, dev)
+            t_graph, noise, cf_keep = draws["t_graph"], draws["noise"], draws.get("cf_keep")
         t = t_graph[:, None].expand(b, n)
-        if noise is None:
-            noise = torch.randn(batch.x0.shape, generator=generator, device=dev)
         x_noisy = q_sample(self.sched, batch.x0, t, noise)
 
         feats = self.visual_features(batch.patches)
         if cfg.classifier_free_prob > 0:
-            if cf_keep is None:
-                cf_keep = torch.rand((b, 1, 1), generator=generator, device=dev) >= cfg.classifier_free_prob
             feats = feats * cf_keep.to(feats.dtype)
 
         target = batch.x0 if cfg.mean_type == "xstart" else noise
         err_fn = {"huber": _huber, "l1": lambda p, y: (p - y).abs(), "l2": lambda p, y: (p - y) ** 2}[cfg.loss_type]
         mask = batch.node_mask[..., None].float()
+        n_valid = mask.sum()
+        if self.stats_group is not None:
+            import torch.distributed as dist
+
+            n_valid = n_valid.clone()
+            dist.all_reduce(n_valid, group=self.stats_group)
+            n_valid = n_valid / dist.get_world_size(self.stats_group)
 
         def masked_mean(per_elem):
-            n_valid_elems = mask.sum() * per_elem.shape[-1]
+            n_valid_elems = n_valid * per_elem.shape[-1]
             return (per_elem * mask).sum() / n_valid_elems.clamp_min(1.0)
 
         aux = {}

@@ -108,7 +108,13 @@ class BatchNorm2D(nn.Module):
     """Stateless BN of the JAX package (NCHW): batch statistics ("batch": biased
     variance over N, H, W of this call, in training and in sampling alike) or
     a folded affine ("affine": y = x·scale + bias). Computes in f32 and returns
-    the input's type."""
+    the input's type.
+
+    While ``stats_group`` holds a process group (``parallel.mesh.
+    global_statistics`` sets it for a data-parallel train step), the "batch"
+    statistics are those of the whole batch across the group's ranks, as the
+    JAX package's are over a dp-sharded batch; the gradient flows back
+    through the all-reduce."""
 
     def __init__(self, channels: int, mode: str = "batch", eps: float = 1e-5):
         super().__init__()
@@ -118,11 +124,50 @@ class BatchNorm2D(nn.Module):
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
+        self.stats_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         if self.mode == "batch":
-            mean = xf.mean(dim=(0, 2, 3), keepdim=True)
-            var = xf.var(dim=(0, 2, 3), unbiased=False, keepdim=True)
+            if self.stats_group is None:
+                mean = xf.mean(dim=(0, 2, 3), keepdim=True)
+                var = xf.var(dim=(0, 2, 3), unbiased=False, keepdim=True)
+            else:
+                mean, var = _group_moments(xf, self.stats_group)
             xf = (xf - mean) * torch.rsqrt(var + self.eps)
         return (xf * self.weight[:, None, None] + self.bias[:, None, None]).to(x.dtype)
+
+
+def _group_moments(x: torch.Tensor, group) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel mean and biased variance of (N, C, H, W) ``x`` over every
+    rank's slice of the batch (each rank holds as many entries): the f32 sum,
+    then the f32 sum of squared deviations from the global mean, each summed
+    over the ranks with its gradient."""
+    import torch.distributed as dist
+
+    count = x.numel() // x.shape[1] * dist.get_world_size(group)
+    mean = _GroupSum.apply(x.sum(dim=(0, 2, 3), keepdim=True), group) / count
+    var = _GroupSum.apply((x - mean).square().sum(dim=(0, 2, 3), keepdim=True), group) / count
+    return mean, var
+
+
+class _GroupSum(torch.autograd.Function):
+    """The sum of a tensor over a process group's ranks; its gradient is the
+    sum of the ranks' gradients (each rank's loss reads the sum)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        import torch.distributed as dist
+
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        import torch.distributed as dist
+
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None

@@ -48,6 +48,46 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(t.float().square().sum() for t in tensors))
 
 
+def zero_grads(params: dict[str, torch.Tensor]) -> None:
+    for p in params.values():
+        p.grad = None
+
+
+def gradients(params: dict[str, torch.Tensor]) -> list[torch.Tensor]:
+    """Each parameter's ``.grad``, a zero tensor where the loss did not reach it."""
+    for p in params.values():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    return [p.grad for p in params.values()]
+
+
+@torch.no_grad()
+def apply_update(state: TrainState, optimizer, ema_decay: float | None, aux: dict) -> tuple[TrainState, dict]:
+    """The end of a train step, from the (clipped) gradients in each
+    parameter's ``.grad``: the optimizer updates the parameters in place, the
+    warmup-debiased EMA follows, and ``aux`` gains the global gradient norm
+    and one norm per top-level subtree (encoder, denoiser)."""
+    params = state.params
+    updates, opt_state = optimizer.update({k: p.grad for k, p in params.items()}, state.opt_state, params)
+    for k, p in params.items():
+        p.add_(updates[k])
+    ema = state.ema_params
+    if ema_decay is not None and ema is not None:
+        # warmup-debiased decay: early steps track params closely
+        t = np.float32(state.step + 1)
+        d = min(np.float32(ema_decay), (np.float32(1.0) + t) / (np.float32(10.0) + t))
+        d, keep = float(d), float(np.float32(1.0) - d)
+        for k, e in ema.items():
+            e.copy_(d * e + keep * params[k])
+    aux["grad_norm"] = global_norm(p.grad for p in params.values())
+    groups: dict[str, list[torch.Tensor]] = {}
+    for k, p in params.items():
+        groups.setdefault(k.split(".", 1)[0], []).append(p.grad)
+    for k, gs in groups.items():
+        aux[f"grad_norm/{k}"] = global_norm(gs)
+    return TrainState(params, opt_state, state.step + 1, state.generator, ema), aux
+
+
 def _split(batch, accumulate: int, i: int):
     """Microbatch ``i`` of ``accumulate`` along the leading axis of every field."""
     return type(batch)(*[f.reshape(accumulate, f.shape[0] // accumulate, *f.shape[1:])[i] for f in batch])
@@ -89,8 +129,7 @@ def make_train_step(
 
     def step(state: TrainState, batch) -> tuple[TrainState, dict]:
         params = state.params
-        for p in params.values():
-            p.grad = None
+        zero_grads(params)
         if accumulate == 1:
             loss, aux = loss_fn(batch, state.generator)
             loss.backward()
@@ -105,10 +144,7 @@ def make_train_step(
                 if p.grad is not None:
                     p.grad.div_(accumulate)
             aux = {"loss": total / accumulate}
-        for p in params.values():
-            if p.grad is None:  # a parameter the loss does not reach
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in params.values()]
+        grads = gradients(params)
 
         # non-finite guard BEFORE the clip: one Inf would drive the global
         # norm to inf and the clip scale to 0, zeroing every gradient; zero
@@ -118,27 +154,8 @@ def make_train_step(
             for g in grads:
                 g.nan_to_num_(nan=0.0, posinf=0.0, neginf=0.0)
             clip(grads)
-            updates, opt_state = optimizer.update(
-                {k: p.grad for k, p in params.items()}, state.opt_state, params)
-            for k, p in params.items():
-                p.add_(updates[k])
-            ema = state.ema_params
-            if ema_decay is not None and ema is not None:
-                # warmup-debiased decay: early steps track params closely
-                t = np.float32(state.step + 1)
-                d = min(np.float32(ema_decay), (np.float32(1.0) + t) / (np.float32(10.0) + t))
-                d, keep = float(d), float(np.float32(1.0) - d)
-                for k, e in ema.items():
-                    e.copy_(d * e + keep * params[k])
-            aux["grad_norm"] = global_norm(grads)
             aux["grad_nonfinite"] = 1.0 - all_finite.float()
-            # per-subtree norms (encoder vs denoiser)
-            groups: dict[str, list[torch.Tensor]] = {}
-            for k, p in params.items():
-                groups.setdefault(k.split(".", 1)[0], []).append(p.grad)
-            for k, gs in groups.items():
-                aux[f"grad_norm/{k}"] = global_norm(gs)
-        return TrainState(params, opt_state, state.step + 1, state.generator, ema), aux
+            return apply_update(state, optimizer, ema_decay, aux)
 
     return step
 

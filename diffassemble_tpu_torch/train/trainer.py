@@ -1,16 +1,25 @@
 """Training loop — port of the JAX package's ``train/trainer.py`` (the puzzle task).
 
-- the train step of ``train_state.py`` on one device, batches moved from the
-  host by a prefetch thread;
+- the train step of ``train_state.py`` over the data-parallel mesh
+  (``parallel/mesh.py``: each process takes its slice of the global batch,
+  the model runs under DDP), batches moved from the host by a prefetch
+  thread;
 - a sanity evaluation before training, periodic evaluation (the sampler plus
   greedy-assignment metrics, folded per puzzle size) and checkpointing with
   top-k by a monitored metric, and resume from the latest checkpoint;
 - metric logging to stdout and ``metrics.jsonl``;
-- the dead-gradient tripwire.
+- the dead-gradient tripwire, the preemption guard (SIGTERM/SIGINT:
+  checkpoint and return) and the round-deadline guard (``deadline_margin``:
+  every 50 steps, an evaluation and a checkpoint once the round's cutoff is
+  that near).
 
-Not ported: the device mesh (one device; DDP later), the preemption guard,
-the round-deadline guard, reconstruction images (they need PIL) and the
-OrientationNorm calibration (equivariant encoders only).
+Only the main process logs, evaluates and saves; it evaluates the whole eval
+batch on its own device, which gives the single-process metrics, while the
+other ranks go on to the next step and wait for it there. The ranks agree on
+every stop (preemption, deadline) before acting on it.
+
+Not ported: reconstruction images (``_save_viz``, ROADMAP Queue 1 item 11)
+and the OrientationNorm calibration (equivariant encoders only).
 """
 
 from __future__ import annotations
@@ -27,6 +36,9 @@ import torch
 
 from ..data.batch import PuzzleBatch, collate_puzzles
 from ..data.prefetch import prefetch
+from ..parallel.distributed import PreemptionGuard, is_main_process
+from ..parallel.mesh import Mesh, auto_mesh, data_parallel_loss, shard_batch
+from ..utils.deadline import time_left as _deadline_time_left
 from .checkpoint import CheckpointManager
 from .metrics import MeanMetrics, update_puzzle_metrics
 from .train_state import TrainState, create_train_state, eval_params, make_train_step
@@ -130,6 +142,8 @@ class Trainer:
         adapter: TaskAdapter | None = None,
         ema_decay: float | None = None,
         dead_grad_patience: int = 20,
+        mesh: Mesh | None = None,
+        deadline_margin: float | None = None,
     ):
         self.model = model
         self.device = model.device
@@ -145,7 +159,13 @@ class Trainer:
         self.ckpt = CheckpointManager(self.run_dir / "checkpoints")
         self.ema_decay = ema_decay
         self.optimizer = model.make_optimizer()
-        self.train_step = make_train_step(model.loss, self.optimizer, accumulate, ema_decay=ema_decay)
+        self.mesh = mesh if mesh is not None else auto_mesh(batch_size)
+        self.main = is_main_process()
+        self.train_step = make_train_step(data_parallel_loss(model, self.mesh), self.optimizer, accumulate,
+                                          ema_decay=ema_decay)
+        # round-deadline guard (utils/deadline.py): wind down this many
+        # seconds before the round's cutoff (None = no guard)
+        self.deadline_margin = deadline_margin
         # dead-gradient tripwire: grad_norm exactly 0 or non-finite gradients
         # for this many CONSECUTIVE steps aborts the run with a checkpoint
         # instead of stepping in place; 0/None disables it
@@ -171,18 +191,26 @@ class Trainer:
         if restored is not None:
             state = restored
             print(f"resumed from step {state.step}", flush=True)
-        self.ckpt.save_config(self.model.cfg)
+        if self.main:
+            self.ckpt.save_config(self.model.cfg)
 
         if eval_ds is not None:  # sanity eval of one batch before training
             self.evaluate(eval_params(state), eval_ds, max_batches=1, tag="sanity")
 
+        guard = PreemptionGuard().install()
+        try:
+            return self._loop(state, train_ds, eval_ds, n_max, host_rng, guard)
+        finally:
+            guard.uninstall()
+
+    def _loop(self, state, train_ds, eval_ds, n_max, host_rng, guard) -> TrainState:
         step = state.step
         t_last = time.time()
         dead_streak = 0
         while step < self.max_steps:
             for nb in prefetch(batch_iterator(train_ds, self.batch_size, n_max, host_rng,
                                               collate=self.adapter.collate)):
-                state, aux = self.train_step(state, self._device_batch(nb))
+                state, aux = self.train_step(state, self._device_batch(shard_batch(self.mesh, nb)))
                 step = state.step
                 if self.dead_grad_patience:
                     dead = float(aux["grad_norm"]) == 0.0 or float(aux["grad_nonfinite"]) >= 1.0
@@ -191,28 +219,58 @@ class Trainer:
                         print(f"DEAD-GRADIENT TRIPWIRE: grad_norm==0 or non-finite for {dead_streak} "
                               f"consecutive steps at step {step} — checkpointing and aborting "
                               "(non-retryable)", flush=True)
-                        self.ckpt.save(step, state)
+                        self._save(step, state)
                         raise DeadGradientError(f"gradients dead for {dead_streak} steps at step {step}")
                 if step % 50 == 0 or step == 1:
                     dt = time.time() - t_last
                     t_last = time.time()
-                    self.logger.log(step, {**aux, "steps_per_s": 50 / max(dt, 1e-9)})
+                    self._log(step, {**aux, "steps_per_s": 50 / max(dt, 1e-9)})
                 if eval_ds is not None and step % self.eval_every == 0:
-                    metrics = self.evaluate(eval_params(state), eval_ds, step=step)
-                    self.ckpt.save(step, state, metrics)
+                    self._save(step, state, self.evaluate(eval_params(state), eval_ds, step=step))
                 elif step % self.checkpoint_every == 0:
-                    self.ckpt.save(step, state)
+                    self._save(step, state)
+                if self._any_rank(guard.requested):
+                    print("preemption requested — checkpointing and exiting", flush=True)
+                    self._save(step, state)
+                    return state
+                if (self.deadline_margin is not None and step % 50 == 0
+                        and self._any_rank(_deadline_time_left(self.deadline_margin) <= 0)):
+                    print(f"round-deadline guard: stopping at step {step}", flush=True)
+                    metrics = self.evaluate(eval_params(state), eval_ds, step=step) if eval_ds is not None else None
+                    self._save(step, state, metrics)
+                    return state
                 if step >= self.max_steps:
                     break
-        self.ckpt.save(step, state)
+        self._save(step, state)
         return state
+
+    def _any_rank(self, flag: bool) -> bool:
+        """Whether ``flag`` holds on any rank (every rank calls this alike)."""
+        if not self.mesh.distributed:
+            return flag
+        import torch.distributed as dist
+
+        t = torch.tensor([float(flag)], device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return bool(t.item())
+
+    def _log(self, step: int, payload: dict) -> None:
+        if self.main:
+            self.logger.log(step, payload)
+
+    def _save(self, step: int, state: TrainState, metrics: dict | None = None) -> None:
+        if self.main:
+            self.ckpt.save(step, state, metrics)
 
     # ------------------------------------------------------------------ eval
 
     def evaluate(self, params: dict[str, torch.Tensor], eval_ds, max_batches: int | None = None,
                  tag: str = "val", step: int = 0) -> dict:
         """Sample every eval batch and fold the greedy-assignment metrics per
-        puzzle size; the model runs with ``params`` and gets its own back."""
+        puzzle size; the model runs with ``params`` and gets its own back.
+        Other ranks than the main one return {} at once."""
+        if not self.main:
+            return {}
         n_max = self.adapter.max_nodes(eval_ds)
         agg = MeanMetrics()
         gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
@@ -227,5 +285,5 @@ class Trainer:
                 bm = {k: v.cpu().numpy() for k, v in self.model.metrics_from_final(final, db).items()}
                 self.adapter.fold_metrics(agg, bm, nb)
         metrics = agg.compute()
-        self.logger.log(step, {f"{tag}/{k}": v for k, v in metrics.items()})
+        self._log(step, {f"{tag}/{k}": v for k, v in metrics.items()})
         return metrics

@@ -14,7 +14,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "diffassemble_tpu_torch"
 
-_CHILD = textwrap.dedent(
+_REFUSE = textwrap.dedent(
     """
     import importlib, pkgutil, sys
     BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "chex", "PIL", "diffassemble_tpu")
@@ -33,6 +33,11 @@ _CHILD = textwrap.dedent(
 
     sys.meta_path.insert(0, Refuse())
     sys.path.insert(0, sys.argv[1])
+    """
+)
+
+_CHILD = _REFUSE + textwrap.dedent(
+    """
     import diffassemble_tpu_torch
     names = [m.name for m in pkgutil.walk_packages(diffassemble_tpu_torch.__path__, "diffassemble_tpu_torch.")]
     for name in names:
@@ -63,6 +68,27 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                          timeout=300, env=env, cwd=ROOT)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.split()[-1]) >= 20
+
+
+@pytest.mark.parametrize("module", ["parallel", "parallel.distributed", "parallel.mesh", "parallel.dryrun",
+                                    "utils.deadline", "utils.profiling", "utils.viz", "cli.train_device"])
+def test_training_path_modules_import_alone_without_jax_or_pil(module):
+    """Each module of the device-resident training path and of data-parallel
+    training, imported alone in a fresh process, loads nothing of JAX, its
+    relatives, PIL or the JAX package (``utils.viz`` imports PIL when it
+    draws, never at import)."""
+    child = _REFUSE + textwrap.dedent(
+        f"""
+        importlib.import_module("diffassemble_tpu_torch.{module}")
+        loaded = sorted(m for m in sys.modules if blocked(m))
+        assert not loaded, loaded
+        print("ok")
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", child, str(ROOT)], capture_output=True, text=True,
+                         timeout=300, env=env, cwd=ROOT)
+    assert res.returncode == 0 and res.stdout.split()[-1] == "ok", res.stderr
 
 
 def test_port_sources_name_no_jax_module():
