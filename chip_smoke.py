@@ -6,6 +6,7 @@
     python3 chip_smoke.py --profile train  # one full-width train step under torch.profiler
     python3 chip_smoke.py --profile eval   # one held-out call of 32 puzzles, trained weights
     python3 chip_smoke.py --profile train-device  # one step of the device-resident recipe
+    python3 chip_smoke.py --profile eval3d  # one 3D held-out call of 16 objects, trained weights
 
 Phases, each ending in a line with the elapsed seconds:
 
@@ -81,10 +82,26 @@ Phases, each ending in a line with the elapsed seconds:
    keys; bf16 on the tensor cores, f32 on the CUDA cores) and timed there
    beside their bound and ``scaled_dot_product_attention``;
 11. ddp: one ``Trainer`` step at full width under DDP in a world of one
-   over NCCL, bit-equal to the same step without DDP.
+   over NCCL, bit-equal to the same step without DDP;
+12. 3D held-out, the sixth main path: the trained 3D SE(3) model
+   (``weights/diffusion3d_easy`` at step 12000, bf16, committed converted
+   as ``diffassemble_tpu_torch/assets/diffusion3d_easy12000.npz``) under
+   ``scripts/tpu_eval_3d.py``'s protocol (64 synthetic objects, 512 points,
+   2–8 parts, calls of 16, 30 DDIM steps). First the forward kernel against
+   its plain version on the protocol's own masks (B = 16, N = 8, padding
+   parts with empty rows) at Dh 32 and 264 in bf16 and f32, timed beside
+   its bound over the attended pairs and SDPA; then the asset written as a
+   port run and evaluated by ``cli/train_3d.py``'s ``run_3d --evaluate``,
+   and the protocol through ``train/heldout3d.py``. Each call has exactly
+   120 forward launches, 90 on the tensor cores (Dh 32) and 30 on the CUDA
+   cores (Dh 264, ROADMAP K3), and no backward launch. It fails unless
+   n_parts is 318, every metric is finite, and rmse_t, rmse_r and
+   part_acc@0.05 lie within 0.005, 2° and 0.03 of the JAX package's CPU
+   run of the protocol in bf16; the TPU's figures
+   (``results/diagnostics/eval3d_easy12k.json``) are printed beside, ungated.
 
 ``python3 chip_smoke.py --profile train-device`` profiles one step of the
-recipe instead.
+recipe instead, ``--profile eval3d`` one 3D held-out call of 16 objects.
 
 The last three lines are the nvidia-smi line, a JSON object describing the
 kernels, and ``{"ok": true, "device": {...}}``. Any failure raises, and the
@@ -153,6 +170,25 @@ RECIPE_TRAIN_N, RECIPE_EVAL_N, RECIPE_STEPS, RECIPE_EVAL_EVERY, RECIPE_RESUME_TO
 MIXED_STEPS = 3
 EMA_DECAY = 0.999
 OTHER_HEAD_DIMS = (20, 104, 264)  # not a multiple of 8; the 3D checkpoints' last layers
+# the 3D held-out protocol: scripts/tpu_eval_3d.py on weights/diffusion3d_easy at step 12000
+# (64 synthetic objects in calls of 16, 512 points, 2-8 parts, ratio 10), its params committed
+# converted with the config and the protocol's arguments
+ASSET_3D = ROOT / "diffassemble_tpu_torch" / "assets" / "diffusion3d_easy12000.npz"
+N_PARTS_3D = 318
+# the JAX package's own run of the same protocol on a CPU (tests/torch_assets.py:jax_reference_3d),
+# in the checkpoint's bf16 and in f32; the gate holds the card's bf16 run to the bf16 one
+JAX_CPU_3D = {
+    "bfloat16": {"rmse_t": 0.10137863975251094, "rmse_r": 31.713459108024836, "gd_r": 0.8803411722183228,
+                 "part_acc@0.01": 0.025157232704402517, "part_acc@0.05": 0.4716981132075472},
+    "float32": {"rmse_t": 0.10094427071453538, "rmse_r": 32.21889664232731, "gd_r": 0.8804664611816406,
+                "part_acc@0.01": 0.0220125786163522, "part_acc@0.05": 0.4748427672955975},
+}
+# tolerances, fixed before the first card run (PERF.md §6): wider than the CPU's own bf16-to-f32
+# spread (0.00043, 0.51°, 0.0031) and than the TPU-to-CPU move (0.0003, 0.6°, 2 parts of 318)
+TOL_3D = {"rmse_t": 0.005, "rmse_r": 2.0, "part_acc@0.05": 0.03}
+# the TPU's figures (results/diagnostics/eval3d_easy12k.json), printed beside the card's, ungated
+TPU_3D = {"rmse_t": 0.10167788807302713, "rmse_r": 32.314783960580826, "gd_r": 0.8866940140724182,
+          "part_acc@0.01": 0.0220125786163522, "part_acc@0.05": 0.46855345911949686}
 
 _T0 = time.perf_counter()
 
@@ -315,12 +351,13 @@ def _masks(torch, np):
 
 
 def _check_kernels(label: str, mask, dh: int, dtype, gen, max_err: dict[str, float],
-                   misaligned: bool = False) -> None:
-    """The three kernels against their plain versions on one mask, width and
-    type, on the route these call for: the tensor cores for bf16 at the main
-    paths' widths, else (and for ``misaligned`` inputs, 2 bytes off a 16-byte
-    boundary) the CUDA cores; raises on a disagreement or another route.
-    Updates ``max_err`` per kernel."""
+                   misaligned: bool = False, backward: bool = True) -> None:
+    """The three kernels (the forward alone without ``backward``) against
+    their plain versions on one mask, width and type, on the route these call
+    for: the tensor cores for bf16 at the main paths' widths, else (and for
+    ``misaligned`` inputs, 2 bytes off a 16-byte boundary) the CUDA cores;
+    raises on a disagreement or another route. Updates ``max_err`` per
+    kernel."""
     import torch
 
     from diffassemble_tpu_torch.ops import cuda_attention as ca
@@ -366,6 +403,8 @@ def _check_kernels(label: str, mask, dh: int, dtype, gen, max_err: dict[str, flo
           f"empty rows={int(empty.sum())} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"forward kernel disagrees with its plain version: {label} Dh={dh} {dtype}")
+    if not backward:
+        return
 
     # the backward kernels, from this forward's O and L
     delta = ca.attention_delta(dout, o)
@@ -1400,6 +1439,213 @@ def ddp_world_of_one() -> tuple[dict[str, int], dict[str, dict[str, int]]]:
     return counts, routes
 
 
+def first_batch_3d(protocol: dict):
+    """The 3D protocol's first call on the card: its first 16 objects,
+    collated as the protocol collates them."""
+    import numpy as np
+
+    from diffassemble_tpu_torch.data.breaking_bad import collate_fragments
+    from diffassemble_tpu_torch.train.heldout3d import protocol_dataset
+
+    p = protocol
+    ds = protocol_dataset(test_n=p["batch"], num_points=p["num_points"], max_num_part=p["max_num_part"],
+                          min_num_part=p["min_num_part"], wall_detail=p["wall_detail"],
+                          wall_boost=p["wall_boost"], canonical=p["canonical"], seed=p["seed"])
+    nb = collate_fragments([ds[i] for i in range(len(ds))], p["max_num_part"], rng=np.random.default_rng(p["seed"]))
+    return nb.to("cuda")
+
+
+def kernels_3d(protocol: dict, heads: int, widths: tuple[int, int], max_err: dict[str, float]) -> list[dict]:
+    """The forward kernel on the 3D protocol's masks (B = 16, N = 8): against
+    its plain version at the denoiser's two head widths in bf16 and f32 (the
+    existing tolerances and exact zeros on empty rows), then timed in bf16
+    beside its plain version, the bound over the mask's attended pairs and
+    ``scaled_dot_product_attention`` with the same boolean mask."""
+    import torch
+
+    from diffassemble_tpu_torch.ops import cuda_attention as ca
+
+    # all pairs of each object's valid parts: padding parts have empty rows and unattended keys
+    mask = first_batch_3d(protocol).adj.contiguous()
+    b, n, _ = mask.shape
+    pairs = int(mask.sum())
+    label = "3D protocol, first call"
+    phase(f"3D masks: B={b} N={n}, {int((~mask.any(-1)).sum())} empty query rows (padding parts), "
+          f"{pairs} attended pairs ({pairs / mask.numel():.3f} of B·N²)")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for dh in widths:
+        for dtype in (torch.bfloat16, torch.float32):
+            _check_kernels(label, mask, dh, dtype, gen, max_err, backward=False)
+    rows = []
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for dh in widths:
+        q, k, v = (torch.randn((b, n, heads, dh), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        with torch.no_grad():
+            library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask[:, None]))
+        ms = cuda_ms(lambda: ca.masked_attention_fwd(q, k, v, mask))
+        plain_ms = cuda_ms(lambda: ca.masked_attention_fwd_plain(q, k, v, mask))
+        bound, bound_by = bound_ms("masked_attention_fwd", b, n, heads, dh, 2, pairs=pairs)
+        route = ca.route("masked_attention_fwd", q, k, v, mask)
+        rows.append({"kernel": "masked_attention_fwd", "b": b, "n": n, "dh": dh, "route": route, "main_path": True,
+                     "mask": label, "launches_per_step": 0, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "bound_ms": bound, "bound_by": bound_by})
+        phase(f"timing masked_attention_fwd      B={b} N={n} H={heads} Dh={dh:3d} bf16 {route:12s} ({label}): "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
+              f"bound {bound:.6f} ms ({bound_by})")
+    return rows
+
+
+def _finite(m: dict) -> bool:
+    return all(math.isfinite(v) for v in m.values() if isinstance(v, float)) and all(
+        _finite(v) for v in m.values() if isinstance(v, dict))
+
+
+def eval3d(workdir: Path, max_err: dict[str, float]) -> tuple[dict, dict, dict, list[dict]]:
+    """The sixth main path: the trained 3D SE(3) model (``weights/diffusion3d_easy``
+    at step 12000, bf16, committed converted as ``ASSET_3D``) under
+    ``scripts/tpu_eval_3d.py``'s held-out protocol.
+
+    The forward kernel is checked and timed on the protocol's masks first
+    (``kernels_3d``). The asset is written as a run of the port (config.json
+    and a checkpoint of ``train/checkpoint.py``), which ``cli/train_3d.py``'s
+    ``run_3d --evaluate`` evaluates through ``Trainer.evaluate`` with the
+    fragment adapter in calls of 16; then ``heldout3d_eval`` runs the protocol
+    itself over the 64 objects in 4 calls of 16. Each run has its launches
+    counted from 0: exactly 120 forward launches a call (4 layers × 30 steps),
+    90 on the tensor cores (Dh 32) and 30 on the CUDA cores (Dh 264, the
+    tensor-core route for that width is ROADMAP K3), no backward launch. The
+    phase fails unless those hold, n_parts is 318, every metric is finite and
+    rmse_t, rmse_r and part_acc@0.05 lie within ``TOL_3D`` of the JAX
+    package's CPU run in bf16. The TPU's figures are printed beside the
+    card's, ungated. Returns the launches of the protocol run, by kernel and
+    by route, the result, and the kernel rows."""
+    import argparse
+
+    import torch
+
+    from diffassemble_tpu_torch.cli import train_3d
+    from diffassemble_tpu_torch.train.checkpoint import CheckpointManager
+    from diffassemble_tpu_torch.train.heldout3d import model_from_asset, run_protocol
+    from diffassemble_tpu_torch.train.train_state import TrainState
+
+    start = time.perf_counter()
+    model, cfg, protocol, step = model_from_asset(ASSET_3D, "cuda")
+    heads = cfg.heads
+    widths = (cfg.hidden_dim // heads, (model.feat_dim + 64) // heads)
+    rows = kernels_3d(protocol, heads, widths, max_err)
+    per_call = cfg.n_layers * (cfg.steps // cfg.inference_ratio)
+    n_calls = -(-protocol["test_n"] // protocol["batch"])
+    want_routes = {"tensor_cores": (cfg.n_layers - 1) * (cfg.steps // cfg.inference_ratio),
+                   "cuda_cores": cfg.steps // cfg.inference_ratio}
+    phase(f"3D model loaded from {ASSET_3D.name} (step {step}, {sum(v.numel() for v in model.parameters())} "
+          f"parameters, {cfg.compute_dtype}, backbone {cfg.backbone}, head widths {widths}) in "
+          f"{time.perf_counter() - start:.2f} s")
+
+    # the asset as a run of the port, evaluated by the CLI
+    run_dir = workdir / "run3d"
+    ckpt = CheckpointManager(run_dir / "checkpoints", monitor="rmse_t_AVG", mode="min")
+    ckpt.save_config(cfg)
+    ckpt.save(step, TrainState(dict(model.named_parameters()), {}, step,
+                               torch.Generator(device="cuda").manual_seed(0)))
+    ap = argparse.ArgumentParser()
+    train_3d.add_3d_args(ap)
+    args = ap.parse_args([
+        "--dataset", "synthetic", "--evaluate", "true", "--run_dir", str(run_dir),
+        "--test_n", str(protocol["test_n"]), "--batch_size", str(protocol["batch"]),
+        "--num_points", str(protocol["num_points"]), "--max_num_part", str(protocol["max_num_part"]),
+        "--min_num_part", str(protocol["min_num_part"]), "--wall_detail", str(protocol["wall_detail"]),
+        "--wall_boost", str(protocol["wall_boost"]), "--synthetic_canonical", str(protocol["canonical"]),
+        "--seed", str(protocol["seed"]), "--device", "cuda"])
+    torch.cuda.synchronize()
+    reset_counts()
+    cli_start = time.perf_counter()
+    cli = train_3d.run_3d(args)
+    torch.cuda.synchronize()
+    cli_seconds = time.perf_counter() - cli_start
+    cli_counts, cli_routes = read_counts(), read_routes()
+    phase(f"run_3d --evaluate: {cli_seconds:.2f} s, launches {cli_counts}, forward by route "
+          f"{cli_routes['masked_attention_fwd']}; rmse_t_AVG {cli['rmse_t_AVG'][0]!r}, rmse_r_AVG "
+          f"{cli['rmse_r_AVG'][0]!r}, gd_r_AVG {cli['gd_r_AVG'][0]!r}, part_acc_AVG {cli['part_acc_AVG'][0]!r}")
+    if cli_counts != {"masked_attention_fwd": n_calls * per_call, "masked_attention_bwd_dq": 0,
+                      "masked_attention_bwd_dkv": 0}:
+        raise AssertionError(f"run_3d: launches {cli_counts}, expected {n_calls * per_call} forward and no backward")
+    if cli_routes["masked_attention_fwd"] != {r: n_calls * c for r, c in want_routes.items()}:
+        raise AssertionError(f"run_3d: forward launches by route {cli_routes['masked_attention_fwd']}")
+    if not all(math.isfinite(m) for m, _ in cli.values()):
+        raise AssertionError(f"run_3d: a metric is not finite: {cli}")
+
+    # the protocol itself, each call timed and its launches counted
+    calls = []
+    sample = model.sample
+
+    def timed_sample(*a, **kw):
+        """``model.sample`` timed by CUDA events and the host clock, its launches counted."""
+        torch.cuda.synchronize()
+        before, before_routes, host = read_counts(), read_routes(), time.perf_counter()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = sample(*a, **kw)
+        ev[1].record()
+        torch.cuda.synchronize()
+        calls.append({"objects": int(a[0].x0.shape[0]), "parts": int(a[0].node_mask.sum()),
+                      "ms": ev[0].elapsed_time(ev[1]), "host_s": time.perf_counter() - host,
+                      "launches": {k: v - before[k] for k, v in read_counts().items()},
+                      "routes": routes_since(before_routes)})
+        return out
+
+    model.sample = timed_sample
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    try:
+        result = run_protocol(model, protocol)
+    finally:
+        model.sample = sample
+    counts, routes = read_counts(), read_routes()
+    peak = torch.cuda.max_memory_allocated()
+    for c in calls:
+        phase(f"3D held-out call of {c['objects']} objects ({c['parts']} parts): {c['ms']:.2f} ms (CUDA events), "
+              f"{c['host_s']:.3f} s host, launches {c['launches']}, forward by route "
+              f"{c['routes']['masked_attention_fwd']}")
+    phase(f"3D held-out: launches {counts}, forward by route {routes['masked_attention_fwd']} (the "
+          f"{want_routes['cuda_cores']} CUDA-core launches a call are the Dh {widths[1]} layer: the tensor-core "
+          f"route for it waits for ROADMAP K3); max_memory_allocated {peak / 2**30:.2f} GiB")
+    for c in calls:
+        if c["launches"] != {"masked_attention_fwd": per_call, "masked_attention_bwd_dq": 0,
+                             "masked_attention_bwd_dkv": 0} or c["routes"]["masked_attention_fwd"] != want_routes:
+            raise AssertionError(f"3D held-out call: launches {c['launches']} by route {c['routes']}, expected "
+                                 f"{per_call} forward ({want_routes}) and no backward")
+    if len(calls) != n_calls:
+        raise AssertionError(f"3D held-out: {len(calls)} calls, expected {n_calls}")
+    if len({r["route"] for r in rows}) != len(rows):
+        raise AssertionError(f"3D held-out: the head widths {widths} share a route, so its launches do not split")
+    for r in rows:  # each head width takes its own route: the protocol's launches a call on that route
+        r["launches_per_3d_call"] = [c["routes"]["masked_attention_fwd"][r["route"]] for c in calls]
+
+    card = {"rmse_t": result["rmse_t"], "rmse_r": result["rmse_r"], "gd_r": result["gd_r"],
+            "part_acc@0.01": result["part_acc"]["0.01"], "part_acc@0.05": result["part_acc"]["0.05"]}
+    ref = JAX_CPU_3D[cfg.compute_dtype]
+    for key in card:
+        phase(f"3D held-out {key:14s}: card {card[key]!r}  JAX CPU {cfg.compute_dtype} {ref[key]!r}  "
+              f"JAX CPU float32 {JAX_CPU_3D['float32'][key]!r}  TPU {TPU_3D[key]!r}"
+              + (f"  |card - JAX CPU| {abs(card[key] - ref[key]):.5f} (tolerance {TOL_3D[key]})"
+                 if key in TOL_3D else ""))
+    phase(f"3D held-out: n_parts {result['n_parts']}, part_acc {result['part_acc']}, CD percentiles "
+          f"{result['cd_percentiles']}; the CLI's rmse_t_AVG {cli['rmse_t_AVG'][0]!r} against the protocol's "
+          f"{result['rmse_t']!r}")
+    within = {key: abs(card[key] - ref[key]) <= tol for key, tol in TOL_3D.items()}
+    if result["n_parts"] != N_PARTS_3D or not _finite(result) or not all(within.values()):
+        raise AssertionError(f"3D held-out gate: n_parts {result['n_parts']} (expected {N_PARTS_3D}), "
+                             f"within tolerance {within}, result {result}")
+    ms = [c["ms"] for c in calls]
+    out = {**result, "calls": calls,
+           "ms_per_call": sum(ms) / len(ms), "max_memory_allocated": peak,
+           "cli": {k: m for k, (m, _) in cli.items()}, "cli_seconds": cli_seconds,
+           "cli_launches": cli_counts, "cli_routes": cli_routes}
+    return counts, routes, out, rows
+
+
 def _family(kernel_name: str) -> str:
     name = kernel_name.lower()
     for family, keys in (("masked_attention_bwd (this port)", ("masked_attention_bwd",)),
@@ -1533,17 +1779,31 @@ def profile_heldout_call() -> None:
     phase(f"profile: max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
+def profile_eval3d_call() -> None:
+    """One call of the 3D protocol (its first 16 objects) with the trained weights."""
+    import torch
+
+    from diffassemble_tpu_torch.train.heldout3d import model_from_asset
+
+    model, _, p, _ = model_from_asset(ASSET_3D, "cuda")
+    batch = first_batch_3d(p)
+    torch.cuda.reset_peak_memory_stats()
+    _profile(lambda: model.sample(batch).final, f"3D held-out call of {p['batch']} objects")
+    phase(f"profile: max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
 def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, train: tuple, heldout: tuple,
-                recipe_: tuple, mixed_: tuple, ddp: tuple) -> dict:
+                recipe_: tuple, mixed_: tuple, ddp: tuple, eval3d_: tuple) -> dict:
     """The kernels' JSON line; ``serve`` and ``train`` are (launches,
     launches by route, seconds per request or per steady step), ``heldout``,
-    ``recipe_`` and ``mixed_`` (launches, launches by route, the phase's
-    result), ``ddp`` (launches, launches by route)."""
+    ``recipe_``, ``mixed_`` and ``eval3d_`` (launches, launches by route, the
+    phase's result), ``ddp`` (launches, launches by route)."""
     from diffassemble_tpu_torch import REFERENCE_PACKAGE
     from diffassemble_tpu_torch.ops import cuda_attention
 
+    cli3d = (eval3d_[2]["cli_launches"], eval3d_[2]["cli_routes"])
     paths = {"serve": serve, "train": train, "heldout_eval": heldout, "recipe": recipe_, "mixed": mixed_,
-             "ddp": ddp}
+             "ddp": ddp, "eval3d_cli": cli3d, "eval3d_heldout": eval3d_}
     out = []
     for kernel, source in KERNEL_SOURCES.items():
         # the forward kernel's figures are per denoiser step at the serving
@@ -1579,6 +1839,7 @@ def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, t
     out[0]["heldout_eval"] = heldout[2]
     out[1]["recipe"] = recipe_[2]
     out[1]["mixed"] = {k: v for k, v in mixed_[2].items() if k != "corpus"}
+    out[0]["eval3d"] = {k: v for k, v in eval3d_[2].items() if k not in ("cli_launches", "cli_routes")}
     return {"kernels": out}
 
 
@@ -1586,17 +1847,18 @@ def main() -> None:
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
-    ap.add_argument("--profile", nargs="?", const="serve", choices=["serve", "train", "eval", "train-device"],
+    ap.add_argument("--profile", nargs="?", const="serve",
+                    choices=["serve", "train", "eval", "train-device", "eval3d"],
                     help="instead of the smoke run, profile one serving request (default), one train step, "
-                         "one held-out call of 32 puzzles with the trained weights, or one step of the "
-                         "device-resident recipe")
+                         "one held-out call of 32 puzzles with the trained weights, one step of the "
+                         "device-resident recipe, or one 3D held-out call of 16 objects")
     args = ap.parse_args()
 
     smi, name, count = environment()
     build()
     if args.profile:
         {"serve": profile_request, "train": profile_train_step, "eval": profile_heldout_call,
-         "train-device": profile_device_train_step}[args.profile]()
+         "train-device": profile_device_train_step, "eval3d": profile_eval3d_call}[args.profile]()
         print(smi, flush=True)
         return
     errs = kernels_vs_plain()
@@ -1613,14 +1875,19 @@ def main() -> None:
         mix = mixed(Path(tmp))
         rows += mixed_kernels(mix[2]["corpus"], errs)
     ddp = ddp_world_of_one()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_3d_") as tmp:
+        *e3d, rows3d = eval3d(Path(tmp), errs)
+    rows += rows3d
     paths = {"serve": serve[0], "train": train[0], "held-out eval": heldout[0], "recipe": rec[0],
-             "mixed": mix[0], "ddp": ddp[0]}
-    sampling_only = {"serve", "held-out eval"}  # these launch the forward kernel alone
+             "mixed": mix[0], "ddp": ddp[0], "3D run_3d --evaluate": e3d[2]["cli_launches"],
+             "3D held-out": e3d[0]}
+    # these launch the forward kernel alone
+    sampling_only = {"serve", "held-out eval", "3D run_3d --evaluate", "3D held-out"}
     idle = {path: counts for path, counts in paths.items()
             if any(v == 0 for k, v in counts.items() if path not in sampling_only or k == "masked_attention_fwd")}
     if idle:
         raise AssertionError(f"a kernel of a main path was not launched: {idle}")
-    line = kernel_line(errs, rows, sweep, serve, train, heldout, rec, mix, ddp)
+    line = kernel_line(errs, rows, sweep, serve, train, heldout, rec, mix, ddp, tuple(e3d))
     phase("done")
     print(smi, flush=True)
     print(json.dumps(line), flush=True)

@@ -10,8 +10,10 @@ port's trainer as the JAX ``cli/serve.py`` serves one of its own: the run's
 config, and ``eval_params`` of its latest checkpoint (the EMA where the run
 kept one), or with ``checkpoint_path`` that checkpoint's live params. The
 constructor takes a config and a state_dict (e.g. JAX weights converted with
-``convert.convert_params``), or builds seeded random weights. The JAX
-package's own checkpoints are not read here (ROADMAP Queue 1 item 8).
+``convert.convert_params``, or read by ``convert.load_jax_npz`` from an npz
+such as the committed ``assets/diffusion2d_rot30_ema32000.npz``, which
+``tests/torch_assets.py`` exports from the JAX package's own checkpoint),
+or builds seeded random weights.
 
     python -m diffassemble_tpu_torch.cli.serve --run_dir runs/synthetic-30 --puzzle_size 30
     python -m diffassemble_tpu_torch.cli.serve --config weights/diffusion2d_rot30/config.json --puzzle_size 30

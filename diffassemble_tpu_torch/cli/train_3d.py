@@ -1,0 +1,222 @@
+"""3D Breaking-Bad CLI — port of the JAX package's ``cli/train_3d.py``: the
+SE(3) double-diffusion pipeline with per-category metrics.
+
+The flags are the JAX CLI's, plus ``--device`` (default ``cuda``; the CPU
+only when asked for). This slice evaluates: ``--evaluate true`` runs
+``Trainer.evaluate`` with the fragment adapter over the held-out split,
+``--num_iter`` times (mean and std), with the latest checkpoint's
+``eval_params`` of ``--run_dir`` or, with ``--checkpoint_path``, that
+checkpoint's live params, as the JAX CLI does. Unlike the JAX CLI, the
+model's config is the run's ``config.json`` when the run has one, so the
+widths are the checkpoint's whatever the flags say; the data and evaluation
+flags are always read. Without a checkpoint the model evaluates its seeded
+weights and ``encoder_init``, as the JAX CLI's init does.
+
+    python -m diffassemble_tpu_torch.cli.train_3d --dataset synthetic --evaluate true \\
+        --run_dir runs/3d --test_n 64 --num_points 512 --max_num_part 8 --device cuda
+
+Training (without ``--evaluate``) is ROADMAP Queue 1 item 17, and
+``--export_meshes`` item 11.
+"""
+
+from __future__ import annotations
+
+import argparse
+from pathlib import Path
+
+import numpy as np
+
+from .common import str2bool
+
+
+def add_3d_args(ap: argparse.ArgumentParser) -> None:
+    """The JAX CLI's flag surface, plus ``--device``."""
+    ap.add_argument("--batch_size", type=int, default=8)
+    ap.add_argument("--gpus", type=int, default=1)
+    ap.add_argument("--steps", type=int, default=300)
+    ap.add_argument("--dataset", default="breaking-bad", choices=["breaking-bad", "synthetic"])
+    ap.add_argument("--sampling", default="DDIM", choices=["DDPM", "DDIM"])
+    ap.add_argument("--inference_ratio", type=int, default=10)
+    ap.add_argument("--n_layers", type=int, default=4)
+    ap.add_argument("--lr", type=float, default=1e-4)
+    ap.add_argument("--classifier_free_w", type=float, default=0.2)
+    ap.add_argument("--classifier_free_prob", type=float, default=0.0)
+    ap.add_argument("--checkpoint_path", type=str, default="")
+    ap.add_argument("--run_dir", type=str, default="")
+    ap.add_argument("--noise_weight", type=float, default=0.0)
+    ap.add_argument("--predict_xstart", type=str2bool, default=True)
+    ap.add_argument("--backbone", type=str, default="vn_dgcnn")
+    ap.add_argument("--architecture", type=str, default="transformer")
+    ap.add_argument("--freeze_backbone", type=str2bool, default=False)
+    ap.add_argument("--loss_type", type=str, default="all")
+    ap.add_argument("--category", type=str, default="")
+    ap.add_argument("--evaluate", type=str2bool, default=False)
+    ap.add_argument("--max_steps", type=int, default=100_000)
+    ap.add_argument("--max_num_part", type=int, default=20)
+    ap.add_argument("--min_num_part", type=int, default=2)
+    ap.add_argument("--use_6dof_rot", action="store_true", default=False)
+    ap.add_argument("--use_vn_dgcnn_equiv_inv_mp", action="store_true", default=False,
+                    help="equiv/inv split message passing (not ported yet: ROADMAP Queue 1 item 15)")
+    ap.add_argument("--missing", type=int, default=0)
+    ap.add_argument("--num_iter", type=int, default=1)
+    ap.add_argument("--export_meshes", action="store_true", default=False)
+    ap.add_argument("--compute_dtype", type=str, default="bfloat16")
+    ap.add_argument("--aux_pose_weight", type=float, default=0.0)
+    ap.add_argument("--rot_pt_l2_weight", type=float, default=0.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--data_dir", type=str, default=None)
+    ap.add_argument("--encoder_init", type=str, default="",
+                    help="pose-pretrained point-encoder npz (the JAX package's flattened parameter tree)")
+    ap.add_argument("--synthetic_canonical", type=float, default=0.6,
+                    help="weight of the fixed canonical deformation field in SyntheticFractures")
+    ap.add_argument("--synthetic_voronoi", type=str2bool, default=True,
+                    help="connected Voronoi-cell parts (True) vs plane-cut unions (False)")
+    ap.add_argument("--train_n", type=int, default=512)
+    ap.add_argument("--test_n", type=int, default=64)
+    ap.add_argument("--rel_pose_weight", type=float, default=0.0)
+    ap.add_argument("--rel_condition", type=str2bool, default=False)
+    ap.add_argument("--contact_thresh", type=float, default=0.1)
+    ap.add_argument("--wall_detail", type=float, default=0.0,
+                    help="corrugation amplitude of synthetic fracture walls")
+    ap.add_argument("--wall_boost", type=int, default=1,
+                    help="wall point-density multiplier in SyntheticFractures")
+    ap.add_argument("--wall_surface", type=str2bool, default=False,
+                    help="project wall samples onto the shared Voronoi sheet")
+    ap.add_argument("--wall_freq", type=float, default=14.0, help="wall corrugation frequency")
+    ap.add_argument("--num_points", type=int, default=1000, help="points sampled per part")
+    ap.add_argument("--ema_decay", type=float, default=0.0,
+                    help="EMA of params for eval (0 = off, reference parity)")
+    ap.add_argument("--warmup_steps", type=int, default=500, help="linear LR warmup")
+    ap.add_argument("--deadline_margin", type=float, default=None,
+                    help="wind down this many seconds before the round's cutoff (utils/deadline.py)")
+    ap.add_argument("--device", type=str, default="cuda",
+                    help="torch device; the CPU runs only when asked for (--device cpu)")
+
+
+def config_from_args(args):
+    from ..models.diffusion_3d import Diffusion3DConfig
+
+    return Diffusion3DConfig(
+        steps=args.steps,
+        sampling=args.sampling.lower(),
+        inference_ratio=args.inference_ratio,
+        mean_type="xstart" if args.predict_xstart else "epsilon",
+        noise_weight=args.noise_weight,
+        loss_type=args.loss_type,
+        backbone=args.backbone,
+        architecture=args.architecture,
+        n_layers=args.n_layers,
+        max_num_part=args.max_num_part,
+        use_6dof=bool(args.use_6dof_rot),
+        equiv_inv_mp=bool(args.use_vn_dgcnn_equiv_inv_mp),
+        freeze_backbone=bool(args.freeze_backbone),
+        aux_pose_weight=args.aux_pose_weight,
+        rot_pt_l2_weight=args.rot_pt_l2_weight,
+        encoder_init=args.encoder_init,
+        compute_dtype=args.compute_dtype,
+        rel_pose_weight=args.rel_pose_weight,
+        rel_condition=bool(args.rel_condition),
+        contact_thresh=args.contact_thresh,
+        warmup_steps=args.warmup_steps,
+    )
+
+
+def build_3d(args, config=None):
+    """(model, train set, test set, category names); the model from
+    ``config`` (a ``Diffusion3DConfig``) or, without one, from the flags."""
+    from ..data.breaking_bad import get_dataset_3d
+    from ..models.diffusion_3d import Diffusion3D
+
+    model = Diffusion3D(config or config_from_args(args), device=args.device, seed=args.seed)
+    train_ds, test_ds, cats = get_dataset_3d(
+        args.dataset,
+        data_dir=args.data_dir,
+        category=args.category,
+        num_points=args.num_points,
+        min_num_part=args.min_num_part,
+        max_num_part=args.max_num_part,
+        train_n=args.train_n,
+        test_n=args.test_n,
+        seed=args.seed,
+        canonical=args.synthetic_canonical,
+        voronoi=args.synthetic_voronoi,
+        wall_detail=args.wall_detail,
+        wall_boost=args.wall_boost,
+        wall_surface=args.wall_surface,
+        wall_freq=args.wall_freq,
+    )
+    return model, train_ds, test_ds, cats
+
+
+def saved_config(path: str):
+    """The ``config.json`` near a run dir or checkpoint path as a
+    ``Diffusion3DConfig``, or None."""
+    from ..models.diffusion_3d import Diffusion3DConfig
+    from ..train.checkpoint import load_config_near
+
+    try:
+        return Diffusion3DConfig(**load_config_near(path))
+    except FileNotFoundError:
+        return None
+
+
+def run_3d(args) -> dict[str, tuple[float, float]]:
+    """Evaluate (``--evaluate true``): the per-category metrics' mean and std
+    over ``--num_iter`` evaluations, printed and returned."""
+    import torch
+
+    from ..parallel.distributed import initialize
+    from ..train.checkpoint import restore_explicit
+    from ..train.train_state import TrainState, eval_params
+    from ..train.trainer import Trainer, fragment_adapter
+
+    if args.export_meshes:
+        raise NotImplementedError("--export_meshes (fragment trajectories) is not ported yet: ROADMAP Queue 1 item 11")
+    if not args.evaluate:
+        raise NotImplementedError("3D training is not ported yet (pass --evaluate true): ROADMAP Queue 1 item 17")
+    initialize(device=args.device)  # no-op for a single process
+    run_dir = args.run_dir or f"runs/3d-{args.dataset}-{args.backbone}"
+    model, _, test_ds, cats = build_3d(args, saved_config(args.checkpoint_path or run_dir))
+    trainer = Trainer(
+        model,
+        run_dir=run_dir,
+        max_steps=args.max_steps,
+        batch_size=args.batch_size,
+        seed=args.seed,
+        monitor="rmse_t_AVG",
+        monitor_mode="min",
+        adapter=fragment_adapter(args.max_num_part, cats, missing_perc=args.missing, seed=args.seed),
+        deadline_margin=args.deadline_margin,
+        ema_decay=args.ema_decay or None,
+    )
+    # the JAX CLI collates one sample to initialise its model: the same draw
+    # keeps the adapter's rng in step with it
+    trainer.adapter.collate([test_ds[0]], args.max_num_part)
+    template = TrainState(dict(model.named_parameters()), {}, 0,
+                          torch.Generator(device=model.device).manual_seed(args.seed))
+    if args.checkpoint_path:
+        params = restore_explicit(args.checkpoint_path, template).params
+    else:
+        restored = trainer.ckpt.restore(template)
+        if restored is None:
+            print(f"no checkpoint under {Path(run_dir) / 'checkpoints'}: evaluating the seeded weights", flush=True)
+            model.init(args.seed)
+            params = template.params
+        else:
+            params = eval_params(restored)
+    runs = [trainer.evaluate(params, test_ds, tag=f"test_{it}") for it in range(args.num_iter)]
+    agg = {k: (float(np.mean([r[k] for r in runs])), float(np.std([r[k] for r in runs]))) for k in runs[0]}
+    print({k: f"{m:.4f}±{s:.4f}" for k, (m, s) in agg.items()}, flush=True)
+    return agg
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    add_3d_args(ap)
+    args = ap.parse_args()
+    print(args)
+    run_3d(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,22 +1,30 @@
 """Weight bridge: the JAX package's parameter tree → this package's state_dict.
 
 The input is the nested dict of numpy arrays that the JAX package's
-``Diffusion2D.init`` (or a restored checkpoint's ``params``) holds, converted
-to numpy by the caller, so this module needs no JAX:
+``Diffusion2D.init`` or ``Diffusion3D.init`` (or a restored checkpoint's
+``params``) holds, converted to numpy by the caller, so this module needs no
+JAX:
 
-    {"encoder": {...}, "denoiser": {...}}
+    {"encoder": {...}, "denoiser": {...}}               the 2D models
+    {"encoder": {...}, "relpose": {...}, "denoiser": {...}}  the 3D model
 
 ``load_jax_npz`` reads such a tree from an npz with ``a/b/c`` keys, and any
-other arrays stored beside it. Leaf rules: a Dense kernel (in, out) becomes a Linear weight (out, in); a conv
-kernel HWIO becomes OIHW (a depthwise (kh, kw, 1, C) kernel becomes
-(C, 1, kh, kw)); Embed tables, LayerNorm and BatchNorm2D scales become
-``weight``; biases and the Exophormer's ``virt_embedding`` carry over. Module
-names follow the port's (``Exophormer_0`` → ``gnn``, ``layer_3`` →
-``layers.3``, ``blocks_2_1`` → ``blocks.2.1``, ...). The denoiser's
-Dense→GELU→Dense heads are ``Sequential``s built inside its compact
-method, so their layers sit at the denoiser's top level as ``Dense_0`` ...
-in creation order: the position MLP, then ``final`` (or ``final_t`` and
-``final_r`` with two heads).
+other arrays stored beside it. Leaf rules: a Dense kernel (in, out) becomes a
+Linear weight (out, in), and so does a VN linear's bias-free channel mix (C,
+D); a conv kernel HWIO becomes OIHW (a depthwise (kh, kw, 1, C) kernel
+becomes (C, 1, kh, kw)); Embed tables, LayerNorm, BatchNorm2D and VNNorm
+scales become ``weight``; biases, the Exophormer's ``virt_embedding`` and the
+relative-pose head's raw projections ``U`` and ``V`` (C, k) carry over as
+they are. Module names follow the port's (``Exophormer_0`` → ``gnn``,
+``layer_3`` → ``layers.3``, ``blocks_2_1`` → ``blocks.2.1``,
+``VNLinearLeakyReLU_4`` → ``layers.4``, ``VNNorm_0`` → ``norm``,
+``VNStdFeature_0`` → ``std_feature``, ``VNLinear_0`` → ``frame``,
+``relpose`` → ``rel_head``, ...). The denoiser's Dense→GELU→Dense heads are
+``Sequential``s built inside its compact method, so their layers sit at the
+denoiser's top level as ``Dense_0`` ... in creation order: the position MLP,
+then ``final`` (or ``final_t`` and ``final_r`` with two heads) in the 2D
+denoiser. The caller names the heads of any other denoiser: the 3D one's
+are ``HEADS_3D``.
 """
 
 from __future__ import annotations
@@ -34,7 +42,15 @@ _SEGMENT_RULES = (
     (re.compile(r"^blocks_(\d+)_(\d+)$"), r"blocks.\1.\2"),
     (re.compile(r"^Dense_0$"), "fc1"),
     (re.compile(r"^Dense_1$"), "fc2"),
+    (re.compile(r"^VNLinearLeakyReLU_(\d+)$"), r"layers.\1"),
+    (re.compile(r"^VNNorm_0$"), "norm"),
+    (re.compile(r"^VNStdFeature_0$"), "std_feature"),
+    (re.compile(r"^VNLinear_0$"), "frame"),
+    (re.compile(r"^relpose$"), "rel_head"),
 )
+# the 2D denoiser's heads, by its number of Dense layers
+_HEADS_2D = {4: ("pos_mlp", "final"), 6: ("pos_mlp", "final_t", "final_r")}
+HEADS_3D = ("pos_mlp", "mlp_t", "mlp_r")
 
 
 def _rename(segment: str) -> str:
@@ -53,7 +69,7 @@ def _leaf(name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
         raise ValueError(f"unexpected kernel rank {arr.ndim}")
     if name in ("scale", "embedding"):
         return "weight", arr
-    if name in ("bias", "virt_embedding"):
+    if name in ("bias", "virt_embedding", "U", "V"):
         return name, arr
     raise ValueError(f"unknown parameter leaf {name!r}")
 
@@ -66,37 +82,43 @@ def _flatten(tree: dict, prefix: tuple[str, ...] = ()):
             yield prefix + (key,), val
 
 
-def _denoiser_heads(denoiser: dict) -> dict:
-    """Regroup the denoiser's top-level ``Dense_i`` into its named heads."""
+def _denoiser_heads(denoiser: dict, heads: tuple[str, ...] | None) -> dict:
+    """Regroup the denoiser's top-level ``Dense_i`` into its named heads
+    (``heads``, or the 2D denoiser's when None)."""
     dense = sorted((k for k in denoiser if re.match(r"^Dense_\d+$", k)), key=lambda k: int(k[6:]))
-    heads = {4: ("pos_mlp", "final"), 6: ("pos_mlp", "final_t", "final_r")}.get(len(dense))
     if heads is None:
-        raise ValueError(f"unexpected denoiser Dense layers {dense}")
+        heads = _HEADS_2D.get(len(dense))
+    if heads is None or len(dense) != 2 * len(heads):
+        raise ValueError(f"unexpected denoiser Dense layers {dense} for heads {heads}")
     out = {k: v for k, v in denoiser.items() if k not in dense}
     for i, head in enumerate(heads):
         out[head] = {"0": denoiser[dense[2 * i]], "2": denoiser[dense[2 * i + 1]]}
     return out
 
 
-def load_jax_npz(path) -> tuple[dict[str, torch.Tensor], dict[str, np.ndarray]]:
-    """An npz of a flattened parameter tree → (``Diffusion2D`` state_dict, extras).
+def load_jax_npz(path, heads: tuple[str, ...] | None = None) -> tuple[dict[str, torch.Tensor], dict[str, np.ndarray]]:
+    """An npz of a flattened parameter tree → (``Diffusion2D`` or ``Diffusion3D`` state_dict, extras).
 
     Keys with a ``/`` are ``a/b/c`` paths into the JAX package's tree
     (``encoder/...``, ``denoiser/...``); they are rebuilt into the nested tree
-    and converted by ``convert_params``. Every other key is returned as it is
-    in ``extras``."""
+    and converted by ``convert_params`` with the denoiser's ``heads``. Every
+    other key is returned as it is in ``extras``."""
     tree = load_params(path)
     extras = {k: tree.pop(k) for k in list(tree) if not isinstance(tree[k], dict)}
-    return convert_params(tree), extras
+    return convert_params(tree, heads), extras
 
 
-def convert_params(params: dict) -> dict[str, torch.Tensor]:
-    """Nested numpy parameter dict → ``Diffusion2D`` state_dict (float32).
+def convert_params(params: dict, heads: tuple[str, ...] | None = None) -> dict[str, torch.Tensor]:
+    """Nested numpy parameter dict → ``Diffusion2D`` or ``Diffusion3D``
+    state_dict (float32).
 
     Each top-level key becomes the state_dict prefix (``encoder.``,
-    ``denoiser.``), so a single module's subtree converts on its own too."""
+    ``rel_head.``, ``denoiser.``), so a single module's subtree converts on
+    its own too. ``heads`` names the denoiser's Dense→GELU→Dense heads in
+    creation order (``HEADS_3D`` for the 3D model); None takes the 2D
+    denoiser's."""
     if "denoiser" in params:
-        params = {**params, "denoiser": _denoiser_heads(params["denoiser"])}
+        params = {**params, "denoiser": _denoiser_heads(params["denoiser"], heads)}
     out = {}
     for path, arr in _flatten(params):
         name, value = _leaf(path[-1], np.asarray(arr, dtype=np.float32))

@@ -1,5 +1,7 @@
-"""Host-side input pipeline (numpy): patchify, expander topologies, batching."""
+"""Host-side input pipeline (numpy): patchify, expander topologies, batching,
+and the 3D fractured-object datasets."""
 
-from .batch import PuzzleBatch, collate_puzzles  # noqa: F401
+from .batch import FragmentBatch, PuzzleBatch, collate_puzzles  # noqa: F401
+from .breaking_bad import SyntheticFractures, collate_fragments, get_dataset_3d  # noqa: F401
 from .expander import expander_mask, parse_degree  # noqa: F401
 from .patchify import ROT_VECTORS, grid_positions, make_puzzle, patchify, rotate_patches  # noqa: F401

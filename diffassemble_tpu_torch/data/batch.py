@@ -1,8 +1,14 @@
-"""Padded puzzle batches — port of the JAX package's ``data/batch.py``.
+"""Padded batches — port of the JAX package's ``data/batch.py``.
 
-Every puzzle is padded to a bucket size N_max with a validity mask, so shapes
-are static per bucket. ``collate_puzzles`` builds the batch in numpy (the same
-bytes as the JAX package's); ``PuzzleBatch.to`` moves it onto a torch device.
+Every puzzle (or fractured object) is padded to a bucket size with a validity
+mask, so shapes are static per bucket:
+
+    PuzzleBatch:   (B, N, …) 2D puzzles  — patches, poses, adjacency mask
+    FragmentBatch: (B, P, …) 3D fragments — point clouds, [quat‖trans] poses
+
+``collate_puzzles`` (and ``data/breaking_bad.py:collate_fragments``) build the
+batch in numpy (the same bytes as the JAX package's); ``.to`` moves it onto a
+torch device.
 """
 
 from __future__ import annotations
@@ -27,6 +33,21 @@ class PuzzleBatch(NamedTuple):
     def to(self, device: torch.device | str) -> "PuzzleBatch":
         """Same batch as torch tensors on ``device``."""
         return PuzzleBatch(*[torch.as_tensor(np.asarray(a)).to(device) for a in self])
+
+
+class FragmentBatch(NamedTuple):
+    """One padded batch of 3D fractured objects (numpy arrays or torch tensors)."""
+
+    pcds: np.ndarray      # (B, P, n_points, 3) float32, part point clouds
+    x0: np.ndarray        # (B, P, 7) [quat(wxyz) ‖ trans]
+    adj: np.ndarray       # (B, P, P) bool
+    node_mask: np.ndarray  # (B, P) bool — the reference's `part_valids`
+    category: np.ndarray  # (B,) int32 category id
+    index: np.ndarray     # (B,) int32
+
+    def to(self, device: torch.device | str) -> "FragmentBatch":
+        """Same batch as torch tensors on ``device``."""
+        return FragmentBatch(*[torch.as_tensor(np.asarray(a)).to(device) for a in self])
 
 
 def collate_puzzles(samples: list[dict], n_max: int, adj_template: np.ndarray | None = None) -> PuzzleBatch:

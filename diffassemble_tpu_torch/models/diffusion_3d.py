@@ -1,0 +1,274 @@
+"""SE(3) double diffusion for 3D fragment reassembly — port of the evaluation
+half of the JAX package's ``models/diffusion_3d.py``.
+
+An R³ Gaussian chain for translations and an SO(3) chain for rotations; the
+reverse process is DDIM: the state splits into [quat (4) ‖ trans (3)], the
+translation takes the Euclidean update and the rotation the Lie-group update
+(geodesic scaling through ``so3_scale``). Sampling starts rotations at the
+identity and translations at ``noise_weight``·N(0, 1), computes the point
+features once per batch and, with ``rel_condition``, the pairwise head's
+outputs once, then runs the steps as a Python loop. Metrics per object:
+rmse_t, rmse_r (euler degrees), gd_r (radians) and part_acc (per-part
+CD < 0.01).
+
+Training (``loss``, ``q_sample_rot`` with the IGSO3 table, the optimizer)
+is ROADMAP Queue 1 item 17.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from .. import convert
+from ..data.batch import FragmentBatch
+from ..nn.denoiser import GraphDenoiser3D
+from ..nn.layers import init_weights
+from ..nn.pointnet import make_point_encoder
+from ..nn.relpose import RelPoseHead, rel_consensus, split_equiv_inv
+from ..ops import so3
+from ..ops.gaussian import SampleLoopResult
+from ..ops.schedules import DiffusionSchedule, extract
+from ..utils.device import resolve_device
+from ..utils.params import load_params
+from . import losses_3d
+
+_TRAINING = "3D training is not ported yet: ROADMAP Queue 1 item 17"
+
+
+@dataclasses.dataclass(frozen=True)
+class Diffusion3DConfig:
+    """The JAX package's config, field for field, so that a run's
+    ``config.json`` loads unchanged. ``attention_impl`` and ``remat`` are
+    carried but not read: the port dispatches attention by device."""
+
+    steps: int = 300
+    sampling: str = "ddim"
+    inference_ratio: int = 10
+    mean_type: str = "xstart"
+    scheduler: str = "linear"
+    noise_weight: float = 0.0
+    loss_type: str = "all"
+    backbone: str = "vn_dgcnn"
+    architecture: str = "transformer"
+    n_layers: int = 4
+    virt_nodes: int = 8
+    hidden_dim: int = 256
+    heads: int = 8
+    max_num_part: int = 20
+    use_6dof: bool = False
+    equiv_inv_mp: bool = False
+    freeze_backbone: bool = False
+    diffuse_rotation: bool = True
+    diffuse_translation: bool = True
+    learning_rate: float = 1e-4
+    aux_pose_weight: float = 0.0
+    rot_pt_l2_weight: float = 0.0
+    encoder_init: str = ""
+    rel_pose_weight: float = 0.0
+    rel_condition: bool = False
+    contact_thresh: float = 0.1
+    rel_k: int = 16
+    compute_dtype: str = "float32"
+    warmup_steps: int = 0
+    attention_impl: str = "auto"
+    remat: bool = False
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
+
+
+class Diffusion3D(nn.Module):
+    """Point encoder + relative-pose head + denoiser + sampler.
+
+    Built with seeded random weights (``seed``) on ``device``; load converted
+    JAX weights with
+    ``load_state_dict(convert.convert_params(params, convert.HEADS_3D))``.
+    The constructor reads no file: ``init`` loads the ``encoder_init`` npz,
+    so a model given its weights never reads it.
+    """
+
+    def __init__(self, config: Diffusion3DConfig, device: torch.device | str = "cuda", seed: int = 0):
+        super().__init__()
+        if config.sampling != "ddim":
+            raise ValueError("Diffusion3D is DDIM-only, as the reference's 3D model is")
+        device = resolve_device(device)
+        self.cfg = config
+        self.sched = DiffusionSchedule.create(config.steps, config.scheduler, device)
+        backbone = config.backbone
+        self.use_rel = config.rel_pose_weight > 0 or config.rel_condition
+        if config.equiv_inv_mp or self.use_rel:
+            if backbone not in ("vn_dgcnn", "vn_dgcnn_equiv_inv", "vn_dgcnn_rich"):
+                raise ValueError("equiv_inv_mp / rel_pose pathways require backbone='vn_dgcnn' or "
+                                 "'vn_dgcnn_rich' (the relative-rotation head is built on VN-equivariant features)")
+            if backbone == "vn_dgcnn":
+                backbone = "vn_dgcnn_equiv_inv"  # [equiv(768) ‖ inv(256)]
+        # the [equiv ‖ inv] split point of the both=True layouts
+        self.equiv_dim = 1536 if backbone == "vn_dgcnn_rich" else 768
+        self.encoder, self.feat_dim = make_point_encoder(backbone, dtype=config.dtype)
+        self.rel_head = (RelPoseHead(self.equiv_dim // 3, self.feat_dim - self.equiv_dim, k=config.rel_k)
+                         if self.use_rel else None)
+        self.denoiser = GraphDenoiser3D(
+            steps=config.steps,
+            input_channels=13 if config.use_6dof else 7,
+            feature_dim=self.feat_dim,
+            n_layers=config.n_layers,
+            architecture=config.architecture,
+            virt_nodes=config.virt_nodes,
+            hidden_dim=config.hidden_dim,
+            heads=config.heads,
+            use_6dof=config.use_6dof,
+            equiv_inv_mp=config.equiv_inv_mp,
+            rel_channels=13 if config.rel_condition else 0,
+            dtype=config.dtype,
+        )
+        init_weights(self, torch.Generator().manual_seed(seed))
+        self.to(device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.sched.betas.device
+
+    @torch.no_grad()
+    def init(self, seed: int = 0) -> None:
+        """Fresh seeded weights, then the ``encoder_init`` npz if the config
+        names one (its ``encoder`` subtree, and its ``relpose`` subtree when
+        this model has the pairwise head), as the JAX ``init`` does."""
+        init_weights(self, torch.Generator().manual_seed(seed))
+        if not self.cfg.encoder_init:
+            return
+        pretrained = load_params(self.cfg.encoder_init)
+        parts = [("encoder", "encoder", self.encoder)]
+        if self.use_rel and "relpose" in pretrained:
+            parts.append(("relpose", "rel_head", self.rel_head))
+        for name, prefix, module in parts:
+            loaded = convert.convert_params({name: pretrained[name]})
+            own = {f"{prefix}.{k}": v for k, v in module.state_dict().items()}
+            if loaded.keys() != own.keys() or any(loaded[k].shape != own[k].shape for k in own):
+                raise ValueError(f"encoder_init {self.cfg.encoder_init!r}: its {name} does not match this model's")
+            module.load_state_dict({k[len(prefix) + 1:]: v for k, v in loaded.items()})
+
+    # ------------------------------------------------------------ features
+
+    def pcd_features(self, pcds: torch.Tensor) -> torch.Tensor:
+        """(B, P, N, 3) → (B, P, F), once per batch."""
+        b, p = pcds.shape[:2]
+        feats = self.encoder(pcds.reshape(b * p, *pcds.shape[2:]))
+        if self.cfg.freeze_backbone:
+            feats = feats.detach()
+        return feats.reshape(b, p, -1)
+
+    def denoise(self, x_t, t, feats, adj, node_mask, rel_ctx=None) -> torch.Tensor:
+        return self.denoiser(x_t, t, feats, adj, node_mask, rel_ctx=rel_ctx).float()
+
+    def rel_outputs(self, feats):
+        """(rot_raw, offset, conf) of the pairwise head."""
+        g, inv = split_equiv_inv(feats.float(), self.equiv_dim)
+        return self.rel_head(g, inv)
+
+    def _rel_ctx(self, rel, x, node_mask):
+        """The consensus vector from the current pose estimate x (B, P, ≥7)."""
+        rot_raw, offset, conf = rel
+        return rel_consensus(rot_raw, offset, conf, x[..., :4], x[..., 4:7], node_mask)
+
+    # --------------------------------------------------- training (not ported)
+
+    def loss(self, *args, **kwargs):
+        raise NotImplementedError(_TRAINING)
+
+    def q_sample_rot(self, *args, **kwargs):
+        raise NotImplementedError(_TRAINING)
+
+    def make_optimizer(self):
+        raise NotImplementedError(_TRAINING)
+
+    # ------------------------------------------------------------ sampling
+
+    def _predict_eps_rot(self, x_quat, t, x0_quat):
+        """The Lie-group ε̂ (the reference's _predict_eps_from_xstart_rot)."""
+        s_recip = self.sched.sqrt_recip_alphas_cumprod[t.long()]
+        s_recipm1 = self.sched.sqrt_recipm1_alphas_cumprod[t.long()]
+        x_term = so3.so3_scale(so3.quaternion_to_matrix(x_quat), s_recip / s_recipm1)
+        x0_term = so3.so3_scale(so3.quaternion_to_matrix(x0_quat), 1.0 / s_recipm1)
+        return so3._mm(x_term, x0_term.transpose(-1, -2))
+
+    def ddim_step_se3(self, x, t, model_out, ratio: int):
+        """One split DDIM update (the reference's p_sample_ddim)."""
+        cfg, s = self.cfg, self.sched
+        t_prev = t - ratio
+        alpha_prod = extract(s.alphas_cumprod, t)
+        alpha_prod_prev = torch.where(t_prev[..., None] >= 0, extract(s.alphas_cumprod, torch.clamp(t_prev, min=0)),
+                                      torch.ones_like(alpha_prod))
+        beta = 1 - alpha_prod
+        x0 = model_out if cfg.mean_type == "xstart" else (x - torch.sqrt(beta) * model_out) / torch.sqrt(alpha_prod)
+
+        x0_q, x0_t = x0[..., :4], x0[..., 4:7]
+        if cfg.use_6dof:
+            x0_q = so3.matrix_to_quaternion(so3.sixdof_to_matrix(model_out[..., 7:13]))
+        x_q, x_tr = x[..., :4], x[..., 4:7]
+
+        # translation: Euclidean DDIM
+        eps_tr = (extract(s.sqrt_recip_alphas_cumprod, t) * x_tr - x0_t) / extract(s.sqrt_recipm1_alphas_cumprod, t)
+        prev_tr = torch.sqrt(alpha_prod_prev) * x0_t + torch.sqrt(1 - alpha_prod_prev) * eps_tr
+
+        # rotation: geodesic DDIM
+        eps_rot = self._predict_eps_rot(x_q, t, x0_q)
+        sqrt_prev = torch.sqrt(alpha_prod_prev)[..., 0]
+        dir_rot = so3.so3_scale(eps_rot, torch.sqrt(torch.clamp(1 - alpha_prod_prev[..., 0], min=0.0)))
+        prev_rot = so3._mm(so3.so3_scale(so3.quaternion_to_matrix(x0_q), sqrt_prev), dir_rot)
+        out = torch.cat([so3.matrix_to_quaternion(prev_rot), prev_tr], dim=-1)
+        if cfg.use_6dof:
+            out = torch.cat([out, so3.matrix_to_sixdof(prev_rot)], dim=-1)
+        return out
+
+    @torch.no_grad()
+    def sample(self, batch: FragmentBatch, generator: torch.Generator | None = None,
+               keep_trajectory: bool = False) -> SampleLoopResult:
+        """The reverse process; ``batch`` holds tensors on the model's device.
+        Returns SampleLoopResult with final (B, P, 7) f32 (13 with 6-DoF)."""
+        cfg = self.cfg
+        b, p = batch.x0.shape[:2]
+        ratio = cfg.inference_ratio
+        dev = self.device
+        tr0 = torch.randn((b, p, 3), generator=generator, device=dev) * cfg.noise_weight
+        q0 = torch.tensor([1.0, 0, 0, 0], device=dev).expand(b, p, 4)
+        x = torch.cat([q0, tr0], dim=-1)
+        if cfg.use_6dof:
+            x = torch.cat([x, torch.tensor([1.0, 0, 0, 0, 1.0, 0], device=dev).expand(b, p, 6)], dim=-1)
+
+        feats = self.pcd_features(batch.pcds)
+        # the pairwise head reads only the features: once per batch
+        rel = self.rel_outputs(feats) if self.use_rel else None
+        traj = []
+        for t_scalar in self.sched.timesteps(ratio):
+            t = torch.full((b, p), int(t_scalar), dtype=torch.long, device=dev)
+            rel_ctx = self._rel_ctx(rel, x, batch.node_mask) if cfg.rel_condition else None
+            out = self.denoise(x, t, feats, batch.adj, batch.node_mask, rel_ctx=rel_ctx)
+            x = self.ddim_step_se3(x, t, out, ratio)
+            if keep_trajectory:
+                traj.append(x)
+        return SampleLoopResult(x, torch.stack(traj) if keep_trajectory else None)
+
+    # ---------------------------------------------------------- evaluation
+
+    @torch.no_grad()
+    def evaluate(self, batch: FragmentBatch, generator: torch.Generator | None = None) -> dict:
+        return self.metrics_from_final(self.sample(batch, generator).final, batch)
+
+    @torch.no_grad()
+    def metrics_from_final(self, final: torch.Tensor, batch: FragmentBatch) -> dict:
+        """Per-object rmse_t, rmse_r, gd_r and part_acc, each (B,)."""
+        pred_q, pred_t = final[..., :4], final[..., 4:7]
+        if self.cfg.use_6dof:
+            pred_q = so3.matrix_to_quaternion(so3.sixdof_to_matrix(final[..., 7:13]))
+        gt_q, gt_t = batch.x0[..., :4], batch.x0[..., 4:7]
+        v = batch.node_mask
+        return {
+            "rmse_t": losses_3d.trans_rmse(pred_t, gt_t, v),
+            "rmse_r": losses_3d.rot_euler_rmse(pred_q, gt_q, v),
+            "gd_r": losses_3d.rot_geodesic(pred_q, gt_q, v),
+            "part_acc": losses_3d.part_accuracy(batch.pcds, pred_t, gt_t, pred_q, gt_q, v),
+        }

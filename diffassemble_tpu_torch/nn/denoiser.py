@@ -1,28 +1,40 @@
-"""2D graph-attention denoiser — port of the JAX package's ``nn/denoiser.py:34-183``
-(continuous mode).
+"""Graph-attention denoisers — port of the JAX package's ``nn/denoiser.py``.
 
-Per node: [visual features ‖ pos-MLP(x_t) (32) ‖ time embedding (32)] → fusion
-MLP → graph attention backbone → residual + final MLP → output channels.
+- ``GraphDenoiser2D`` (continuous mode): per node [visual features ‖
+  pos-MLP(x_t) (32) ‖ time embedding (32)] → fusion MLP → graph attention
+  backbone → residual + final MLP → output channels.
+- ``GraphDenoiser3D``: the same over point-cloud features, with a LeakyReLU
+  fusion MLP, a translation head and an exp-map rotation head (3-vector →
+  rotation matrix → unit quaternion, in f32).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from ..ops import so3
 from .gnn import make_gnn
 from .layers import Dense, Embed, LayerNorm, gelu
 
 
 class FusionMLP(nn.Module):
-    """Dense → GELU → Dense."""
+    """Dense → GELU → Dense, or, with ``activation="leaky_relu"`` (the 3D
+    model's), Dense → LeakyReLU(0.2) → Dense → LeakyReLU(0.2)."""
 
-    def __init__(self, in_features: int, hidden: int, out: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, in_features: int, hidden: int, out: int, dtype: torch.dtype = torch.float32,
+                 activation: str = "gelu"):
         super().__init__()
+        if activation not in ("gelu", "leaky_relu"):
+            raise ValueError(f"unknown activation {activation!r}")
+        self.activation = activation
         self.fc1 = Dense(in_features, hidden, dtype=dtype)
         self.fc2 = Dense(hidden, out, dtype=dtype)
 
     def forward(self, x):
+        if self.activation == "leaky_relu":
+            return F.leaky_relu(self.fc2(F.leaky_relu(self.fc1(x), 0.2)), 0.2)
         return self.fc2(gelu(self.fc1(x)))
 
 
@@ -108,3 +120,59 @@ class GraphDenoiser2D(nn.Module):
         if return_attentions:
             return out, attentions
         return out
+
+
+class GraphDenoiser3D(nn.Module):
+    """SE(3) fragment-pose denoiser.
+
+    Inputs: x_t (B, P, 7) [quat ‖ trans] (13 with ``use_6dof``), t (B, P) int,
+            feats (B, P, F) point-cloud features, adj (B, P, P) bool,
+            node_mask (B, P), and with ``rel_channels`` the consensus vector
+            rel_ctx (B, P, rel_channels).
+    Output: (B, P, 7) f32 [unit quat ‖ trans] (13 with ``use_6dof``: the
+            translation head carries [trans (3) ‖ 6-DoF (6)]).
+    """
+
+    def __init__(
+        self,
+        steps: int,
+        input_channels: int = 7,
+        feature_dim: int = 768,
+        n_layers: int = 4,
+        architecture: str = "transformer",
+        virt_nodes: int = 8,
+        hidden_dim: int = 256,
+        heads: int = 8,
+        use_6dof: bool = False,
+        equiv_inv_mp: bool = False,
+        rel_channels: int = 0,
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        if equiv_inv_mp:
+            raise NotImplementedError("equiv_inv_mp (DualStreamGraphTransformer) is not ported yet: "
+                                      "ROADMAP Queue 1 item 15")
+        self.rel_channels = rel_channels
+        combined_dim = feature_dim + 32 + 32
+        self.time_emb = Embed(steps, 32, dtype=dtype)
+        # a wider pose MLP when the 13-channel consensus vector rides along
+        self.pos_mlp = _head(input_channels + rel_channels, 48 if rel_channels else 16, 32, dtype)
+        self.fusion = FusionMLP(combined_dim, 256, combined_dim, dtype, activation="leaky_relu")
+        self.gnn = make_gnn(architecture, combined_dim, combined_dim, n_layers, hidden_dim, heads,
+                            virt_nodes, dtype)
+        self.mlp_t = _head(combined_dim, 256, 9 if use_6dof else 3, dtype)
+        self.mlp_r = _head(combined_dim, 256, 3, dtype)
+
+    def forward(self, x_t, t, feats, adj, node_mask, rel_ctx=None, return_attentions: bool = False):
+        time_feats = self.time_emb(t)
+        if self.rel_channels:
+            x_t = torch.cat([x_t, rel_ctx.to(x_t.dtype)], dim=-1)
+        pos_feats = self.pos_mlp(x_t)
+        combined = self.fusion(torch.cat([feats.to(time_feats.dtype), pos_feats, time_feats], dim=-1))
+        h, attentions = self.gnn(combined, adj, node_mask, return_weights=return_attentions)
+        resid = h + combined
+        t_pred = self.mlp_t(resid)
+        r_vec = self.mlp_r(resid)
+        r_quat = so3.matrix_to_quaternion(so3.rotvec_to_rmat(r_vec.float()))
+        out = torch.cat([r_quat, t_pred.float()], dim=-1)
+        return (out, attentions) if return_attentions else out

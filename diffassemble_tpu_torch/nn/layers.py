@@ -77,7 +77,8 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
 
     Dense and conv kernels get lecun-normal weights (std 1/√fan_in) and zero
     biases; embedding tables std 1/√features; norms ones and zeros; other
-    parameters (the virtual-node table) a unit normal. Draws are made on the
+    parameters (the virtual-node table) a unit normal; a module with a
+    ``reference_init(normal)`` method draws its own parameters. Draws are made on the
     CPU from ``generator`` in module order, so the same seed gives the same
     weights on every device.
     """
@@ -94,6 +95,10 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
             normal(m.weight, 1.0 / math.sqrt(m.embedding_dim))
         elif isinstance(m, (nn.LayerNorm, BatchNorm2D)):
             m.weight.fill_(1.0)
+        elif hasattr(m, "reference_init"):  # a module with parameters of its own kind (nn/vn.py, nn/relpose.py)
+            m.reference_init(normal)
+            done.update(id(p) for p in m.parameters(recurse=False))
+            continue
         else:
             continue
         if getattr(m, "bias", None) is not None:

@@ -1,7 +1,9 @@
 """Checkpointing and config serialization — the torch-native counterpart of the
-JAX package's ``train/checkpoint.py``, in a format of the port's own; the
-JAX package's checkpoints are not read here (that bridge is ROADMAP Queue 1
-item 8).
+JAX package's ``train/checkpoint.py``, in a format of the port's own. The
+JAX package's own checkpoints are not read here: their parameters reach
+the port as an npz of the flattened tree (``convert.load_jax_npz``; the
+committed ``assets/*.npz`` are exported so by ``tests/torch_assets.py``),
+which a model loads and this module can then save as a port run.
 
 Each checkpoint is ``<directory>/<step>/state.pt`` (``torch.save`` of the
 parameters, the optimizer state, the step, the generator's state and the

@@ -1,9 +1,10 @@
-"""Metric aggregation keyed per puzzle size — port of the JAX package's
-``train/metrics.py`` (numpy only; the 2D part).
+"""Metric aggregation keyed per puzzle size or category — port of the JAX
+package's ``train/metrics.py`` (numpy only).
 
 2D: ``{(H, W)}_acc``, ``{(H, W)}__piece_acc``, ``{(H, W)}_nImages`` plus
-``overall_*`` roll-ups. Device code emits per-sample values; this host-side
-accumulator does the keyed running means.
+``overall_*`` roll-ups; 3D: ``rmse_t_{cat}``, ``rmse_r_{cat}``,
+``gd_r_{cat}``, ``part_acc_{cat}`` plus ``_AVG``. Device code emits
+per-sample values; this host-side accumulator does the keyed running means.
 """
 
 from __future__ import annotations
@@ -67,3 +68,19 @@ def update_puzzle_metrics(
         metrics.update_mean("overall__piece_acc", piece_acc[i])
         metrics.update_sum("overall_nImages", 1)
 
+
+
+def update_fragment_metrics(
+    metrics: MeanMetrics,
+    batch_metrics: dict,
+    categories: np.ndarray,
+    category_names: list[str],
+) -> None:
+    """Fold one 3D eval batch into per-category + AVG metrics."""
+    for name in ("rmse_t", "rmse_r", "gd_r", "part_acc"):
+        vals = np.asarray(batch_metrics[name])
+        cats = np.asarray(categories)
+        for i in range(len(vals)):
+            cat = category_names[cats[i]] if cats[i] < len(category_names) else str(cats[i])
+            metrics.update_mean(f"{name}_{cat}", vals[i])
+            metrics.update_mean(f"{name}_AVG", vals[i])

@@ -1,4 +1,5 @@
-"""Training loop — port of the JAX package's ``train/trainer.py`` (the puzzle task).
+"""Training loop — port of the JAX package's ``train/trainer.py`` (the puzzle
+task, and the fragment task's evaluation: ``fragment_adapter``).
 
 - the train step of ``train_state.py`` over the data-parallel mesh
   (``parallel/mesh.py``: each process takes its slice of the global batch,
@@ -26,6 +27,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import time
 from pathlib import Path
@@ -34,13 +36,14 @@ from typing import Any, Callable, Iterable
 import numpy as np
 import torch
 
-from ..data.batch import PuzzleBatch, collate_puzzles
+from ..data.batch import FragmentBatch, PuzzleBatch, collate_puzzles
+from ..data.breaking_bad import collate_fragments
 from ..data.prefetch import prefetch
 from ..parallel.distributed import PreemptionGuard, is_main_process
 from ..parallel.mesh import Mesh, auto_mesh, data_parallel_loss, shard_batch
 from ..utils.deadline import time_left as _deadline_time_left
 from .checkpoint import CheckpointManager
-from .metrics import MeanMetrics, update_puzzle_metrics
+from .metrics import MeanMetrics, update_fragment_metrics, update_puzzle_metrics
 from .train_state import TrainState, create_train_state, eval_params, make_train_step
 
 
@@ -109,6 +112,21 @@ def puzzle_adapter() -> TaskAdapter:
     )
 
 
+def fragment_adapter(
+    max_num_part: int, category_names: list[str], missing_perc: int = 0, seed: int = 0
+) -> TaskAdapter:
+    """The 3D task: ``collate_fragments`` (its part dropout drawn from one
+    ``default_rng(seed)`` for the adapter's life, as the JAX package's is),
+    metrics folded per category and ``_AVG``."""
+    rng = np.random.default_rng(seed)
+    return TaskAdapter(
+        collate=lambda samples, n_max: collate_fragments(samples, n_max, missing_perc=missing_perc, rng=rng),
+        batch_cls=FragmentBatch,
+        max_nodes=lambda ds: max_num_part,
+        fold_metrics=lambda agg, bm, nb: update_fragment_metrics(agg, bm, nb.category, category_names),
+    )
+
+
 @contextlib.contextmanager
 def swapped_params(model: torch.nn.Module, params: dict[str, torch.Tensor]):
     """Run the model with ``params`` (e.g. the EMA average) and put its own back after."""
@@ -138,6 +156,8 @@ class Trainer:
         eval_every: int = 1000,
         checkpoint_every: int = 1000,
         accumulate: int = 1,
+        monitor: str = "overall_acc",
+        monitor_mode: str = "max",
         seed: int = 0,
         adapter: TaskAdapter | None = None,
         ema_decay: float | None = None,
@@ -155,14 +175,12 @@ class Trainer:
         self.seed = seed
         self.adapter = adapter or puzzle_adapter()
         self.logger = JsonlLogger(self.run_dir)
-        # top-k by overall_acc (max) plus the latest
-        self.ckpt = CheckpointManager(self.run_dir / "checkpoints")
+        # top-k by the monitored metric plus the latest
+        self.ckpt = CheckpointManager(self.run_dir / "checkpoints", monitor, monitor_mode)
         self.ema_decay = ema_decay
-        self.optimizer = model.make_optimizer()
+        self.accumulate = accumulate
         self.mesh = mesh if mesh is not None else auto_mesh(batch_size)
         self.main = is_main_process()
-        self.train_step = make_train_step(data_parallel_loss(model, self.mesh), self.optimizer, accumulate,
-                                          ema_decay=ema_decay)
         # round-deadline guard (utils/deadline.py): wind down this many
         # seconds before the round's cutoff (None = no guard)
         self.deadline_margin = deadline_margin
@@ -170,6 +188,17 @@ class Trainer:
         # for this many CONSECUTIVE steps aborts the run with a checkpoint
         # instead of stepping in place; 0/None disables it
         self.dead_grad_patience = dead_grad_patience
+
+    # the optimizer and the train step are made when first used, so that a
+    # model that only evaluates (the 3D model) needs neither
+    @functools.cached_property
+    def optimizer(self):
+        return self.model.make_optimizer()
+
+    @functools.cached_property
+    def train_step(self):
+        return make_train_step(data_parallel_loss(self.model, self.mesh), self.optimizer, self.accumulate,
+                               ema_decay=self.ema_decay)
 
     def _device_batch(self, np_batch):
         return self.adapter.batch_cls(*np_batch).to(self.device)

@@ -69,3 +69,44 @@ def test_collate_identical_and_to_device():
         assert x.dtype == y.dtype and np.array_equal(x, y)
     t = b.to("cpu")
     assert all(np.array_equal(x.numpy(), y) for x, y in zip(t, b))
+
+
+# the 3D data: the port's copy of breaking_bad.py and FragmentBatch
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(canonical=0.9, wall_detail=0.08, wall_boost=3),  # the trained checkpoint's corpus
+    dict(canonical=0.6, voronoi=False),
+    dict(canonical=0.6, wall_surface=True, wall_freq=5.0),
+])
+def test_synthetic_fractures_identical(kwargs):
+    from diffassemble_tpu.data import breaking_bad as jbb
+    from diffassemble_tpu_torch.data import breaking_bad as tbb
+
+    a = jbb.SyntheticFractures(3, 64, 2, 6, seed=5, **kwargs)
+    b = tbb.SyntheticFractures(3, 64, 2, 6, seed=5, **kwargs)
+    assert a.category_names == b.category_names and len(a) == len(b)
+    for i in range(len(a)):
+        sa, sb = a[i], b[i]
+        assert sa.keys() == sb.keys()
+        for key in sa:
+            x, y = np.asarray(sa[key]), np.asarray(sb[key])
+            assert x.dtype == y.dtype and np.array_equal(x, y), key
+
+
+@pytest.mark.parametrize("missing", [0, 40])
+def test_collate_fragments_identical_and_to_device(missing):
+    from diffassemble_tpu.data import breaking_bad as jbb
+    from diffassemble_tpu_torch.data import breaking_bad as tbb
+
+    _, test_a, cats_a = jbb.get_dataset_3d("synthetic", num_points=32, max_num_part=8, train_n=2, test_n=4, seed=3)
+    _, test_b, cats_b = tbb.get_dataset_3d("synthetic", num_points=32, max_num_part=8, train_n=2, test_n=4, seed=3)
+    assert cats_a == cats_b
+    samples = [test_b[i] for i in range(4)]
+    a = jbb.collate_fragments(samples, 8, missing_perc=missing, rng=np.random.default_rng(1))
+    b = tbb.collate_fragments(samples, 8, missing_perc=missing, rng=np.random.default_rng(1))
+    assert type(b).__name__ == type(a).__name__ == "FragmentBatch" and a._fields == b._fields
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype and np.array_equal(x, y)
+    t = b.to("cpu")
+    assert isinstance(t, tdata.FragmentBatch) and all(np.array_equal(x.numpy(), y) for x, y in zip(t, b))

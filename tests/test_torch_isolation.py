@@ -17,7 +17,7 @@ PORT = ROOT / "diffassemble_tpu_torch"
 _REFUSE = textwrap.dedent(
     """
     import importlib, pkgutil, sys
-    BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "chex", "PIL", "diffassemble_tpu")
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "chex", "PIL", "trimesh", "diffassemble_tpu")
 
     def blocked(name):
         return name.split(".")[0] in BLOCKED
@@ -71,12 +71,16 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
 
 
 @pytest.mark.parametrize("module", ["parallel", "parallel.distributed", "parallel.mesh", "parallel.dryrun",
-                                    "utils.deadline", "utils.profiling", "utils.viz", "cli.train_device"])
+                                    "utils.deadline", "utils.profiling", "utils.viz", "cli.train_device",
+                                    "data.breaking_bad", "ops.so3", "ops.knn", "nn.vn", "nn.pointnet",
+                                    "nn.relpose", "models.diffusion_3d", "models.losses_3d", "train.heldout3d",
+                                    "cli.train_3d"])
 def test_training_path_modules_import_alone_without_jax_or_pil(module):
-    """Each module of the device-resident training path and of data-parallel
-    training, imported alone in a fresh process, loads nothing of JAX, its
-    relatives, PIL or the JAX package (``utils.viz`` imports PIL when it
-    draws, never at import)."""
+    """Each module of the device-resident training path, of data-parallel
+    training and of the 3D evaluation path, imported alone in a fresh
+    process, loads nothing of JAX, its relatives, PIL, trimesh or the JAX
+    package (``utils.viz`` imports PIL when it draws, never at import; the
+    real Breaking-Bad loader imports trimesh when it reads a mesh)."""
     child = _REFUSE + textwrap.dedent(
         f"""
         importlib.import_module("diffassemble_tpu_torch.{module}")
