@@ -7,6 +7,7 @@
     python3 chip_smoke.py --profile eval   # one held-out call of 32 puzzles, trained weights
     python3 chip_smoke.py --profile train-device  # one step of the device-resident recipe
     python3 chip_smoke.py --profile eval3d  # one 3D held-out call of 16 objects, trained weights
+    python3 chip_smoke.py --profile train3d  # one full-width 3D train step
 
 Phases, each ending in a line with the elapsed seconds:
 
@@ -98,10 +99,32 @@ Phases, each ending in a line with the elapsed seconds:
    n_parts is 318, every metric is finite, and rmse_t, rmse_r and
    part_acc@0.05 lie within 0.005, 2° and 0.03 of the JAX package's CPU
    run of the protocol in bf16; the TPU's figures
-   (``results/diagnostics/eval3d_easy12k.json``) are printed beside, ungated.
+   (``results/diagnostics/eval3d_easy12k.json``) are printed beside, ungated;
+13. 3D training, the seventh main path: the configuration of
+   ``weights/diffusion3d_easy`` with its run's flags (``TRAIN3D_FLAGS``:
+   vn_dgcnn_rich from ``weights/vn_dgcnn_rich_rel3d_512.npz``, relative-pose
+   conditioning and losses, aux-pose and rot-pt-l2 losses, bf16, batch 16 of
+   512 points and 2–8 parts). First dQ and dK/dV (after the forward) against
+   their plain versions on the masks of the run's first batch (B = 16, N =
+   8, padding parts with empty rows and unattended keys) at Dh 32 (tensor
+   cores) and 264 (CUDA cores) in bf16 and f32, with exact zeros, then
+   timed beside their bound over the attended pairs and one SDPA backward;
+   the trained weights' training loss on that batch with numpy draws, in
+   bf16 and f32, against the JAX package's CPU values (``JAX_CPU_LOSS_3D``,
+   ``TOL_LOSS_3D``); one f32 step's gradients with the kernels against plain
+   attention. Then ``run_3d`` without ``--evaluate`` on a corpus cut to 48
+   training and 16 held-out objects: a sanity evaluation, 4 steps with an
+   evaluation and a checkpoint at step 4, a resume to step 6. Every step
+   has exactly 8 launches of each kernel (the denoiser runs twice, its
+   diffusion pass and the aux-pose pass), 6 on the tensor cores and 2 on the
+   CUDA cores, finite losses and nonzero gradients in the encoder, the
+   pairwise head and the denoiser; every evaluation call 120 forward
+   launches and no backward. It prints s/step by host clock and CUDA events
+   and the peak memory.
 
 ``python3 chip_smoke.py --profile train-device`` profiles one step of the
-recipe instead, ``--profile eval3d`` one 3D held-out call of 16 objects.
+recipe instead, ``--profile eval3d`` one 3D held-out call of 16 objects,
+``--profile train3d`` one 3D train step.
 
 The last three lines are the nvidia-smi line, a JSON object describing the
 kernels, and ``{"ok": true, "device": {...}}``. Any failure raises, and the
@@ -189,6 +212,38 @@ TOL_3D = {"rmse_t": 0.005, "rmse_r": 2.0, "part_acc@0.05": 0.03}
 # the TPU's figures (results/diagnostics/eval3d_easy12k.json), printed beside the card's, ungated
 TPU_3D = {"rmse_t": 0.10167788807302713, "rmse_r": 32.314783960580826, "gd_r": 0.8866940140724182,
           "part_acc@0.01": 0.0220125786163522, "part_acc@0.05": 0.46855345911949686}
+
+# the 3D training run: weights/diffusion3d_easy's flags (scripts/tpu_queue_r5e.sh:150-158 with NPTS=512
+# and WBOOST=3 at :121) at full width, its corpus cut to 48 training and 16 held-out objects; 4 steps
+# with an evaluation at step 4, then a resume to step 6
+TRAIN3D_FLAGS = [
+    "--dataset", "synthetic", "--backbone", "vn_dgcnn_rich", "--batch_size", "16", "--num_points", "512",
+    "--max_num_part", "8", "--min_num_part", "2", "--rel_pose_weight", "0.5", "--rel_condition", "1",
+    "--contact_thresh", "0.1", "--aux_pose_weight", "0.5", "--rot_pt_l2_weight", "1.0", "--wall_detail", "0.08",
+    "--wall_boost", "3", "--synthetic_canonical", "0.9", "--encoder_init", "weights/vn_dgcnn_rich_rel3d_512.npz",
+    "--train_n", "48", "--test_n", "16", "--device", "cuda",
+]
+TRAIN3D_STEPS, TRAIN3D_RESUME_TO = 4, 6
+LOSS3D_SEED = 0  # the numpy seed of the trained-weights loss check's draws
+
+# the JAX package's training loss dict of the same trained weights on the CPU, on the 3D run's first
+# batch with the check's draws (tests/torch_assets.py:jax_loss_3d); the card's must lie within
+# TOL_LOSS_3D (relative: each term, the total) of the same type's, fixed before the first card run
+# from the CPU's port-vs-JAX spread (PERF.md §6): bf16 4.5% on a term, 0.93% on the total; f32
+# 2.1e-4 and 1.2e-5
+JAX_CPU_LOSS_3D = {
+    "bfloat16": {"trans_loss": 0.004710462410002947, "rot_pt_cd_loss": 0.010998780839145184,
+                 "transform_pt_cd_loss": 0.007798135746270418, "rot_loss": 0.006374541204422712,
+                 "rot_pt_l2_loss": 0.013815953396260738, "aux_pose_loss": 0.024139009416103363,
+                 "rel_rot_loss": 0.18721681833267212, "rel_off_loss": 0.18264563381671906,
+                 "rel_conf_loss": 0.4371764063835144, "loss": 0.5133715867996216},
+    "float32": {"trans_loss": 0.004836279898881912, "rot_pt_cd_loss": 0.010646283626556396,
+                "transform_pt_cd_loss": 0.007700525224208832, "rot_loss": 0.005979315843433142,
+                "rot_pt_l2_loss": 0.013255426660180092, "aux_pose_loss": 0.02350827120244503,
+                "rel_rot_loss": 0.1891193836927414, "rel_off_loss": 0.1852894127368927,
+                "rel_conf_loss": 0.4237699508666992, "loss": 0.507136344909668},
+}
+TOL_LOSS_3D = {"bfloat16": (0.1, 0.02), "float32": (2e-3, 2e-4)}
 
 _T0 = time.perf_counter()
 
@@ -1355,11 +1410,8 @@ def mixed_kernels(corpus: Path, max_err: dict[str, float]) -> list[dict]:
     """The three kernels on the mixed corpus's masks: against their plain
     versions (bf16 on the tensor cores, f32 on the CUDA cores, at Dh 32 and
     144, the same tolerances and exact zeros as every other mask), then timed
-    beside their plain versions, the bound over the mask's attended pairs and
-    ``scaled_dot_product_attention`` with the same boolean mask."""
+    (``time_on_masks``)."""
     import torch
-
-    from diffassemble_tpu_torch.ops import cuda_attention as ca
 
     label, mask = mixed_masks(corpus)
     b, n, _ = mask.shape
@@ -1370,9 +1422,27 @@ def mixed_kernels(corpus: Path, max_err: dict[str, float]) -> list[dict]:
     for dh in MAIN_HEAD_DIMS:
         for dtype in (torch.bfloat16, torch.float32):
             _check_kernels(label, mask, dh, dtype, gen, max_err)
+    rows = time_on_masks(mask, label, [dh for dh, _ in STEP_LAUNCHES], gen)
+    for r in rows:
+        r["launches_per_step"] = dict(STEP_LAUNCHES)[r["dh"]]
+    return rows
+
+
+def time_on_masks(mask, label: str, widths, gen) -> list[dict]:
+    """The three kernels timed on ``mask`` at each head width in bf16, beside
+    their plain versions, the bound over the mask's attended pairs and
+    ``scaled_dot_product_attention`` with the same boolean mask (its forward,
+    and one backward for dQ, dK and dV together). One row a kernel and
+    width; the caller adds its launches."""
+    import torch
+
+    from diffassemble_tpu_torch.ops import cuda_attention as ca
+
+    b, n, _ = mask.shape
+    pairs = int(mask.sum())
     rows = []
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for dh, count in STEP_LAUNCHES:
+    for dh in widths:
         q, k, v, dout = (torch.randn((b, n, HEADS, dh), generator=gen, device="cuda").to(torch.bfloat16)
                          for _ in range(4))
         o, lse = ca.masked_attention_fwd(q, k, v, mask)
@@ -1385,6 +1455,7 @@ def mixed_kernels(corpus: Path, max_err: dict[str, float]) -> list[dict]:
         out_t = sdpa(qt, kt, vt, attn_mask=sdpa_mask)
         dout_t = dout.transpose(1, 2).contiguous()
         lib_bwd = cuda_ms(lambda: torch.autograd.grad(out_t, (qt, kt, vt), dout_t, retain_graph=True))
+        here = []
         for kernel, fn, plain, library_ms in (
                 ("masked_attention_fwd", lambda: ca.masked_attention_fwd(q, k, v, mask),
                  lambda: ca.masked_attention_fwd_plain(q, k, v, mask), lib_fwd),
@@ -1395,12 +1466,17 @@ def mixed_kernels(corpus: Path, max_err: dict[str, float]) -> list[dict]:
             ms, plain_ms = cuda_ms(fn), cuda_ms(plain)
             bound, bound_by = bound_ms(kernel, b, n, HEADS, dh, 2, pairs=pairs)
             route = ca.route(kernel, *args)
-            rows.append({"kernel": kernel, "b": b, "n": n, "dh": dh, "route": route, "main_path": True,
-                         "mask": label, "launches_per_step": count, "ms": ms, "plain_ms": plain_ms,
-                         "library_ms": library_ms, "bound_ms": bound, "bound_by": bound_by})
+            here.append({"kernel": kernel, "b": b, "n": n, "dh": dh, "route": route, "main_path": True,
+                         "mask": label, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                         "bound_ms": bound, "bound_by": bound_by})
             phase(f"timing {kernel:25s} B={b} N={n} H={HEADS} Dh={dh:3d} bf16 {route:12s} ({label}): kernel "
                   f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
-                  f"bound {bound:.5f} ms ({bound_by})")
+                  f"bound {bound:.6f} ms ({bound_by})")
+        pair = here[1]["ms"] + here[2]["ms"]
+        phase(f"timing backward pair          B={b} N={n} H={HEADS} Dh={dh:3d} bf16 {here[1]['route']:12s}: "
+              f"dQ + dK/dV {pair:.4f} ms against one SDPA backward {lib_bwd:.4f} ms ({pair / lib_bwd:.2f}x), "
+              f"{pair / (here[1]['bound_ms'] + here[2]['bound_ms']):.0f}x their bound")
+        rows += here
         del out_t, qt, kt, vt
     return rows
 
@@ -1646,6 +1722,296 @@ def eval3d(workdir: Path, max_err: dict[str, float]) -> tuple[dict, dict, dict, 
     return counts, routes, out, rows
 
 
+def train3d_args(run_dir: str, *extra: str):
+    """``cli/train_3d.py``'s arguments for the 3D training run
+    (``TRAIN3D_FLAGS``) in ``run_dir``, the encoder_init in this checkout."""
+    import argparse
+
+    from diffassemble_tpu_torch.cli import train_3d
+
+    ap = argparse.ArgumentParser()
+    train_3d.add_3d_args(ap)
+    args = ap.parse_args([*TRAIN3D_FLAGS, "--run_dir", run_dir, *extra])
+    args.encoder_init = str(ROOT / args.encoder_init)
+    return args
+
+
+def loss_inputs_3d():
+    """The trained-weights loss check's inputs on the host: the 3D run's first
+    training batch as ``Trainer.fit`` draws it (16 objects, 8 parts of 512
+    points), and the loss's draws, numpy from ``LOSS3D_SEED`` in this order:
+    t (16,), the translation noise (16, 8, 3), the IGSO3 quantiles (16, 8)
+    and axes (16, 8, 3)."""
+    import numpy as np
+
+    from diffassemble_tpu_torch.cli import train_3d
+    from diffassemble_tpu_torch.train.trainer import batch_iterator, fragment_adapter
+
+    args = train3d_args("")
+    train_ds, _, cats = train_3d.datasets_3d(args)
+    adapter = fragment_adapter(args.max_num_part, cats, seed=args.seed)
+    adapter.collate([train_ds[0]], args.max_num_part)  # as fit does first
+    nb = next(iter(batch_iterator(train_ds, args.batch_size, args.max_num_part, np.random.default_rng(args.seed),
+                                  collate=adapter.collate)))
+    rng = np.random.default_rng(LOSS3D_SEED)
+    b, p = nb.x0.shape[:2]
+    draws = {"t_graph": rng.integers(0, 300, b), "noise_tr": rng.standard_normal((b, p, 3), dtype=np.float32),
+             "rot_u": rng.random((b, p), dtype=np.float32),
+             "rot_axes": rng.standard_normal((b, p, 3), dtype=np.float32)}
+    return nb, draws
+
+
+def trained_loss_3d(compute_dtype: str, device: str = "cuda") -> dict[str, float]:
+    """The loss dict of the trained 3D weights (``ASSET_3D``) in
+    ``compute_dtype`` on ``loss_inputs_3d``."""
+    import torch
+
+    from diffassemble_tpu_torch.train.heldout3d import model_from_asset
+
+    nb, draws = loss_inputs_3d()
+    model, _, _, _ = model_from_asset(ASSET_3D, device, compute_dtype)
+    with torch.no_grad():
+        _, out = model.loss(nb.to(device), **{k: torch.as_tensor(v, device=device) for k, v in draws.items()})
+    return {k: float(v) for k, v in out.items()}
+
+
+def train3d_kernels(nb, widths: tuple[int, int], max_err: dict[str, float]) -> list[dict]:
+    """The three kernels on the 3D training masks (the run's first batch: B =
+    16, N = 8, padding parts with empty query rows and unattended keys): dQ
+    and dK/dV, after the forward, against their plain versions at the
+    denoiser's head widths, Dh 32 (tensor cores) and 264 (CUDA cores), in
+    bf16 and f32 with phase 3's tolerances, exact zeros and routes; then all
+    three timed (``time_on_masks``)."""
+    import torch
+
+    mask = torch.as_tensor(nb.adj).cuda().contiguous()
+    b, n, _ = mask.shape
+    pairs = int(mask.sum())
+    label = "3D training, first batch"
+    phase(f"3D training masks: B={b} N={n}, {int((~mask.any(-1)).sum())} empty query rows, "
+          f"{int((~mask.any(-2)).sum())} unattended keys (padding parts), {pairs} attended pairs "
+          f"({pairs / mask.numel():.3f} of B·N²)")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for dh in widths:
+        for dtype in (torch.bfloat16, torch.float32):
+            _check_kernels(label, mask, dh, dtype, gen, max_err)
+    return time_on_masks(mask, label, widths, gen)
+
+
+def trained_loss_check() -> dict[str, dict[str, float]]:
+    """The training loss of the trained 3D weights on the card, in bf16 and
+    f32, on the 3D run's first batch with the numpy draws
+    (``loss_inputs_3d``), against the JAX package's CPU values for the same
+    inputs (``JAX_CPU_LOSS_3D``): every term within ``TOL_LOSS_3D``'s
+    relative tolerance of its type, the total within the tighter one."""
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        got, ref = trained_loss_3d(dtype), JAX_CPU_LOSS_3D[dtype]
+        term_tol, total_tol = TOL_LOSS_3D[dtype]
+        rel = {k: abs(got[k] - ref[k]) / abs(ref[k]) for k in ref}
+        worst = max(rel[k] / (total_tol if k == "loss" else term_tol) for k in ref)
+        phase(f"3D loss on the trained weights, {dtype}: total {got['loss']!r} (JAX CPU {ref['loss']!r}); "
+              f"largest relative error {max(rel.values()):.2e} ({max(rel, key=rel.get)}), worst err/tol {worst:.3f}")
+        if set(got) != set(ref) or not all(math.isfinite(v) for v in got.values()) or worst > 1.0:
+            raise AssertionError(f"3D loss {dtype}: card {got} against JAX CPU {ref} (relative {rel})")
+        out[dtype] = got
+    return out
+
+
+def gradient_parity_3d(nb, draws) -> None:
+    """One full-width f32 loss and backward of the trained 3D weights on the
+    run's first batch and the check's draws, with the kernels (8 launches of
+    each) and with plain attention (none): every gradient finite and within
+    1e-3 of its parameter's largest entry plus 1e-6 of the model's of the
+    plain one (sums in another order through the denoiser's two passes), and
+    every query, key and value weight, the encoder and the relative-pose
+    head with a nonzero gradient."""
+    import torch
+
+    from diffassemble_tpu_torch.ops import attention
+    from diffassemble_tpu_torch.train.heldout3d import model_from_asset
+
+    model, cfg, _, _ = model_from_asset(ASSET_3D, "cuda", "float32")
+    batch = nb.to("cuda")
+    draws = {k: torch.as_tensor(v, device="cuda") for k, v in draws.items()}
+    grads = []
+    for swap in (False, True):
+        model.zero_grad(set_to_none=True)
+        ctx = mock.patch.object(attention, "MaskedAttention", PlainAttention) if swap else contextlib.nullcontext()
+        with ctx:
+            before = read_counts()
+            loss, _ = model.loss(batch, **draws)
+            loss.backward()
+            torch.cuda.synchronize()
+            launched = {k: v - before[k] for k, v in read_counts().items()}
+        if launched != dict.fromkeys(KERNEL_SOURCES, 0 if swap else 2 * cfg.n_layers):
+            raise AssertionError(f"3D gradients: launches {launched} (plain attention: {swap})")
+        missing = [k for k, p in model.named_parameters() if p.grad is None]
+        if missing:
+            raise AssertionError(f"3D gradients: no gradient reached {missing}")
+        grads.append({k: p.grad.detach().clone() for k, p in model.named_parameters()})
+    kern, plain = grads
+    gmax = max(float(g.abs().max()) for g in plain.values())
+    worst = 0.0
+    for name, g in plain.items():
+        err = float((kern[name] - g).abs().max())
+        tol = 1e-3 * float(g.abs().max()) + 1e-6 * gmax
+        worst = max(worst, err / tol)
+        if not (bool(torch.isfinite(kern[name]).all()) and err <= tol):
+            raise AssertionError(f"3D {name}: kernel gradient differs from plain by {err:.3e} (tol {tol:.3e})")
+    qkv = [f"denoiser.gnn.layers.{i}.{p}.weight" for i in range(cfg.n_layers) for p in ("query", "key", "value")]
+    smallest = min(float(kern[n].abs().max()) for n in qkv)
+    groups = {g: max(float(v.abs().max()) for k, v in kern.items() if k.startswith(g + "."))
+              for g in ("encoder", "rel_head", "denoiser")}
+    if not (smallest > 0 and all(v > 0 for v in groups.values())):
+        raise AssertionError(f"3D gradients: a zero gradient (query/key/value {smallest}, groups {groups})")
+    phase(f"3D gradient parity f32, B={batch.x0.shape[0]} full width, trained weights: kernels vs plain attention, "
+          f"worst err/tol {worst:.3f} over {len(plain)} parameters; all finite, {len(qkv)} query/key/value weights "
+          f"nonzero (smallest max|g| {smallest:.3e}), max|g| by part {groups}")
+
+
+def train3d(workdir: Path, max_err: dict[str, float]) -> tuple[dict[str, int], dict[str, dict[str, int]], dict,
+                                                                 list[dict]]:
+    """The seventh main path: 3D training. First (a) the backward kernels on
+    the run's first batch's masks (``train3d_kernels``), (b) the trained
+    weights' loss against the JAX package's CPU values, (c) kernel against
+    plain-attention gradients. Then ``run_3d`` without ``--evaluate`` on the
+    easy run's flags (``TRAIN3D_FLAGS``: vn_dgcnn_rich from its encoder_init,
+    relative-pose conditioning, aux-pose and rot-pt-l2 losses, bf16, batch
+    16, 512 points, up to 8 parts) from seeded weights: a sanity
+    evaluation, 4 steps with an evaluation and a checkpoint at step 4, then a
+    resume to step 6. Gates: every step exactly 8 launches of each kernel, 6
+    on the tensor cores (Dh 32) and 2 on the CUDA cores (Dh 264), finite
+    losses and gradient norms, nonzero gradients in the encoder, the pairwise
+    head and the denoiser; every evaluation 120 forward launches a call of 16
+    objects and no backward; the checkpoints and the resume. Returns the
+    run's launches, by kernel and by route, its result and the kernel rows."""
+    import torch
+
+    from diffassemble_tpu_torch.cli import train_3d
+    from diffassemble_tpu_torch.train import trainer as trainer_mod
+
+    start = time.perf_counter()
+    nb, draws = loss_inputs_3d()
+    cfg = train_3d.config_from_args(train3d_args(""))
+    feat_dim = 2048  # vn_dgcnn_rich: [equivariant 1536 ‖ invariant 512]
+    widths = (cfg.hidden_dim // cfg.heads, (feat_dim + 64) // cfg.heads)
+    phase(f"3D training batch and draws made in {time.perf_counter() - start:.2f} s; head widths {widths}")
+    rows = train3d_kernels(nb, widths, max_err)
+    losses = trained_loss_check()
+    gradient_parity_3d(nb, draws)
+
+    steps, evals = [], []
+    make_step = trainer_mod.make_train_step
+    per_call = cfg.n_layers * (cfg.steps // cfg.inference_ratio)
+
+    def counted_make_train_step(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def counted(state, batch):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            t0, before, before_routes = time.perf_counter(), read_counts(), read_routes()
+            ev[0].record()
+            new, aux = step(state, batch)
+            ev[1].record()
+            torch.cuda.synchronize()
+            rec = {"step": new.step, "seconds": time.perf_counter() - t0, "ms": ev[0].elapsed_time(ev[1]),
+                   "launches": {k: v - before[k] for k, v in read_counts().items()},
+                   "routes": routes_since(before_routes), **{k: float(v) for k, v in aux.items()}}
+            steps.append(rec)
+            phase(f"3D train step {rec['step']}: {rec['seconds']:.3f} s host, {rec['ms']:.2f} ms CUDA events, "
+                  f"launches {rec['launches']}, loss {rec['loss']:.4f}, grad_norm {rec['grad_norm']:.4f} (encoder "
+                  f"{rec['grad_norm/encoder']:.4f}, rel_head {rec['grad_norm/rel_head']:.4f}, denoiser "
+                  f"{rec['grad_norm/denoiser']:.4f})")
+            return new, aux
+
+        return counted
+
+    class EvaluatedTrainer(trainer_mod.Trainer):
+        """The CLI's ``Trainer``, evaluating every ``TRAIN3D_STEPS`` steps
+        (the CLI's is every 1000), each evaluation timed and counted."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.eval_every = TRAIN3D_STEPS
+
+        def evaluate(self, params, eval_ds, max_batches=None, tag="val", step=0):
+            torch.cuda.synchronize()
+            t0, before, before_routes = time.perf_counter(), read_counts(), read_routes()
+            metrics = super().evaluate(params, eval_ds, max_batches=max_batches, tag=tag, step=step)
+            torch.cuda.synchronize()
+            calls = min(max_batches or len(eval_ds), len(eval_ds) // self.batch_size)
+            rec = {"tag": tag, "step": step, "calls": calls, "seconds": time.perf_counter() - t0,
+                   "launches": {k: v - before[k] for k, v in read_counts().items()},
+                   "routes": routes_since(before_routes), "rmse_t_AVG": metrics["rmse_t_AVG"]}
+            evals.append(rec)
+            phase(f"3D {tag} evaluation at step {step}: {calls} call(s) of {self.batch_size} objects, "
+                  f"{rec['seconds']:.3f} s, launches {rec['launches']}, rmse_t_AVG {rec['rmse_t_AVG']!r}")
+            return metrics
+
+    run_dir = workdir / "train3d"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start = time.perf_counter()
+    with mock.patch.object(trainer_mod, "make_train_step", counted_make_train_step), \
+            mock.patch.object(trainer_mod, "Trainer", EvaluatedTrainer):
+        train_3d.run_3d(train3d_args(str(run_dir), "--max_steps", str(TRAIN3D_STEPS)))
+        first_run = len(steps)
+        first_ckpts = sorted(int(p.name) for p in (run_dir / "checkpoints").iterdir() if p.name.isdigit())
+        train_3d.run_3d(train3d_args(str(run_dir), "--max_steps", str(TRAIN3D_RESUME_TO)))
+    seconds = time.perf_counter() - start
+    counts, routes = read_counts(), read_routes()
+    peak = torch.cuda.max_memory_allocated()
+    ckpts = sorted(int(p.name) for p in (run_dir / "checkpoints").iterdir() if p.name.isdigit())
+
+    step_want = dict.fromkeys(KERNEL_SOURCES, 2 * cfg.n_layers)
+    route_want = dict.fromkeys(KERNEL_SOURCES, {"tensor_cores": 2 * (cfg.n_layers - 1), "cuda_cores": 2})
+    if first_run != TRAIN3D_STEPS or [s["step"] for s in steps] != list(range(1, TRAIN3D_RESUME_TO + 1)):
+        raise AssertionError(f"3D training: steps {[s['step'] for s in steps]}, the first run {first_run}")
+    for s in steps:
+        if s["launches"] != step_want or s["routes"] != route_want:
+            raise AssertionError(f"3D train step {s['step']}: launches {s['launches']} by route {s['routes']}, "
+                                 f"expected {step_want}, {route_want}")
+        if not (all(math.isfinite(v) for k, v in s.items() if isinstance(v, float)) and s["grad_nonfinite"] == 0
+                and min(s["grad_norm/encoder"], s["grad_norm/rel_head"], s["grad_norm/denoiser"]) > 0):
+            raise AssertionError(f"3D train step {s['step']}: bad loss or gradient norms {s}")
+    for e in evals:
+        n = per_call * e["calls"]
+        if (e["calls"] != 1 or e["launches"] != {"masked_attention_fwd": n, "masked_attention_bwd_dq": 0,
+                                                 "masked_attention_bwd_dkv": 0}
+                or e["routes"]["masked_attention_fwd"] != {"tensor_cores": n * 3 // 4, "cuda_cores": n // 4}):
+            raise AssertionError(f"3D evaluation: {e}, expected {per_call} forward launches a call (3/4 on the "
+                                 f"tensor cores) and no backward")
+    if [(e["tag"], e["step"]) for e in evals] != [("sanity", 0), ("val", TRAIN3D_STEPS), ("sanity", 0)]:
+        raise AssertionError(f"3D evaluations {[(e['tag'], e['step']) for e in evals]}")
+    if first_ckpts != [TRAIN3D_STEPS] or ckpts != [TRAIN3D_STEPS, TRAIN3D_RESUME_TO]:
+        raise AssertionError(f"3D checkpoints {first_ckpts}, then {ckpts}")
+    for kernel in KERNEL_SOURCES:
+        if len({r["route"] for r in rows if r["kernel"] == kernel}) != len(widths):
+            raise AssertionError(f"3D training: {kernel} at the head widths {widths} shares a route, so its "
+                                 f"launches do not split by width")
+    for r in rows:  # each head width takes its own route: each step's launches on that route
+        r["launches_per_step"] = [s["routes"][r["kernel"]][r["route"]] for s in steps]
+    saved = json.loads((run_dir / "checkpoints" / "config.json").read_text())
+    if saved["backbone"] != "vn_dgcnn_rich" or not saved["rel_condition"] or saved["hidden_dim"] != 256:
+        raise AssertionError(f"3D config.json {saved}")
+    steady = [s for i, s in enumerate(steps) if i not in (0, first_run)]
+    result = {"seconds": seconds, "steady_host_s": [s["seconds"] for s in steady],
+              "steady_cuda_ms": [s["ms"] for s in steady], "first_step_s": [steps[0]["seconds"],
+                                                                            steps[first_run]["seconds"]],
+              "max_memory_allocated": peak, "checkpoints": ckpts, "losses": [s["loss"] for s in steps],
+              "eval_seconds": [e["seconds"] for e in evals], "rmse_t_AVG": [e["rmse_t_AVG"] for e in evals],
+              "trained_loss": losses}
+    phase(f"3D training: {len(steps)} steps in two runs, {seconds:.1f} s with evaluations and checkpoints; steady "
+          f"s/step by host clock {_spread(result['steady_host_s'])}, by CUDA events (ms) "
+          f"{_spread(result['steady_cuda_ms'])}; first steps {[round(x, 3) for x in result['first_step_s']]} s; "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB; checkpoints {first_ckpts} then {ckpts}; losses "
+          f"{[round(x, 4) for x in result['losses']]}; launches {counts}, by route {routes}")
+    return counts, routes, result, rows
+
+
 def _family(kernel_name: str) -> str:
     name = kernel_name.lower()
     for family, keys in (("masked_attention_bwd (this port)", ("masked_attention_bwd",)),
@@ -1792,18 +2158,44 @@ def profile_eval3d_call() -> None:
     phase(f"profile: max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
+def profile_train3d_step() -> None:
+    """One step of the 3D run at full width (its flags, seeded weights and
+    encoder_init, batch 16 of 512 points and up to 8 parts: the run's first
+    batch)."""
+    import torch
+
+    from diffassemble_tpu_torch.cli import train_3d
+    from diffassemble_tpu_torch.models import Diffusion3D
+    from diffassemble_tpu_torch.train.train_state import create_train_state, make_train_step
+
+    args = train3d_args("")
+    model = Diffusion3D(train_3d.config_from_args(args), device="cuda", seed=args.seed)
+    model.init(args.seed)
+    batch = loss_inputs_3d()[0].to("cuda")
+    opt = model.make_optimizer()
+    holder = [create_train_state(model, opt, torch.Generator(device="cuda").manual_seed(0))]
+    step = make_train_step(model.loss, opt)
+
+    def one_step():
+        holder[0], _ = step(holder[0], batch)
+
+    torch.cuda.reset_peak_memory_stats()
+    _profile(one_step, "3D train step")
+    phase(f"profile: max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
 def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, train: tuple, heldout: tuple,
-                recipe_: tuple, mixed_: tuple, ddp: tuple, eval3d_: tuple) -> dict:
+                recipe_: tuple, mixed_: tuple, ddp: tuple, eval3d_: tuple, train3d_: tuple) -> dict:
     """The kernels' JSON line; ``serve`` and ``train`` are (launches,
     launches by route, seconds per request or per steady step), ``heldout``,
-    ``recipe_``, ``mixed_`` and ``eval3d_`` (launches, launches by route, the
-    phase's result), ``ddp`` (launches, launches by route)."""
+    ``recipe_``, ``mixed_``, ``eval3d_`` and ``train3d_`` (launches, launches
+    by route, the phase's result), ``ddp`` (launches, launches by route)."""
     from diffassemble_tpu_torch import REFERENCE_PACKAGE
     from diffassemble_tpu_torch.ops import cuda_attention
 
     cli3d = (eval3d_[2]["cli_launches"], eval3d_[2]["cli_routes"])
     paths = {"serve": serve, "train": train, "heldout_eval": heldout, "recipe": recipe_, "mixed": mixed_,
-             "ddp": ddp, "eval3d_cli": cli3d, "eval3d_heldout": eval3d_}
+             "ddp": ddp, "eval3d_cli": cli3d, "eval3d_heldout": eval3d_, "train3d": train3d_}
     out = []
     for kernel, source in KERNEL_SOURCES.items():
         # the forward kernel's figures are per denoiser step at the serving
@@ -1840,6 +2232,7 @@ def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, t
     out[1]["recipe"] = recipe_[2]
     out[1]["mixed"] = {k: v for k, v in mixed_[2].items() if k != "corpus"}
     out[0]["eval3d"] = {k: v for k, v in eval3d_[2].items() if k not in ("cli_launches", "cli_routes")}
+    out[1]["train3d"] = train3d_[2]
     return {"kernels": out}
 
 
@@ -1848,17 +2241,18 @@ def main() -> None:
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
     ap.add_argument("--profile", nargs="?", const="serve",
-                    choices=["serve", "train", "eval", "train-device", "eval3d"],
+                    choices=["serve", "train", "eval", "train-device", "eval3d", "train3d"],
                     help="instead of the smoke run, profile one serving request (default), one train step, "
                          "one held-out call of 32 puzzles with the trained weights, one step of the "
-                         "device-resident recipe, or one 3D held-out call of 16 objects")
+                         "device-resident recipe, one 3D held-out call of 16 objects, or one 3D train step")
     args = ap.parse_args()
 
     smi, name, count = environment()
     build()
     if args.profile:
         {"serve": profile_request, "train": profile_train_step, "eval": profile_heldout_call,
-         "train-device": profile_device_train_step, "eval3d": profile_eval3d_call}[args.profile]()
+         "train-device": profile_device_train_step, "eval3d": profile_eval3d_call,
+         "train3d": profile_train3d_step}[args.profile]()
         print(smi, flush=True)
         return
     errs = kernels_vs_plain()
@@ -1877,17 +2271,18 @@ def main() -> None:
     ddp = ddp_world_of_one()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_3d_") as tmp:
         *e3d, rows3d = eval3d(Path(tmp), errs)
-    rows += rows3d
+        *t3d, rows_t3d = train3d(Path(tmp), errs)
+    rows += rows3d + rows_t3d
     paths = {"serve": serve[0], "train": train[0], "held-out eval": heldout[0], "recipe": rec[0],
              "mixed": mix[0], "ddp": ddp[0], "3D run_3d --evaluate": e3d[2]["cli_launches"],
-             "3D held-out": e3d[0]}
+             "3D held-out": e3d[0], "3D train": t3d[0]}
     # these launch the forward kernel alone
     sampling_only = {"serve", "held-out eval", "3D run_3d --evaluate", "3D held-out"}
     idle = {path: counts for path, counts in paths.items()
             if any(v == 0 for k, v in counts.items() if path not in sampling_only or k == "masked_attention_fwd")}
     if idle:
         raise AssertionError(f"a kernel of a main path was not launched: {idle}")
-    line = kernel_line(errs, rows, sweep, serve, train, heldout, rec, mix, ddp, tuple(e3d))
+    line = kernel_line(errs, rows, sweep, serve, train, heldout, rec, mix, ddp, tuple(e3d), tuple(t3d))
     phase("done")
     print(smi, flush=True)
     print(json.dumps(line), flush=True)

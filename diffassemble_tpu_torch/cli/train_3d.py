@@ -1,22 +1,31 @@
 """3D Breaking-Bad CLI — port of the JAX package's ``cli/train_3d.py``: the
-SE(3) double-diffusion pipeline with per-category metrics.
+SE(3) double-diffusion pipeline with per-category metrics and the rmse_t_AVG
+checkpoint monitor (mode min).
 
 The flags are the JAX CLI's, plus ``--device`` (default ``cuda``; the CPU
-only when asked for). This slice evaluates: ``--evaluate true`` runs
-``Trainer.evaluate`` with the fragment adapter over the held-out split,
-``--num_iter`` times (mean and std), with the latest checkpoint's
+only when asked for). Without ``--evaluate`` it trains: the model is built
+from the flags, as the JAX CLI builds it, and ``Trainer.fit`` runs with the
+fragment adapter (a sanity evaluation of one batch, an evaluation and a
+checkpoint every 1000 steps, the latest checkpoint at the end, resume from
+the run's latest checkpoint, EMA with ``--ema_decay``, the dead-gradient
+tripwire). ``--evaluate true`` runs ``Trainer.evaluate`` over the held-out
+split, ``--num_iter`` times (mean and std), with the latest checkpoint's
 ``eval_params`` of ``--run_dir`` or, with ``--checkpoint_path``, that
-checkpoint's live params, as the JAX CLI does. Unlike the JAX CLI, the
-model's config is the run's ``config.json`` when the run has one, so the
-widths are the checkpoint's whatever the flags say; the data and evaluation
-flags are always read. Without a checkpoint the model evaluates its seeded
-weights and ``encoder_init``, as the JAX CLI's init does.
+checkpoint's live params, as the JAX CLI does; unlike the JAX CLI, the model
+is then the run's ``config.json`` when the run has one, so the widths are
+the checkpoint's whatever the flags say (the data and evaluation flags are
+always read). Without a checkpoint it evaluates the seeded weights and
+``encoder_init``, as the JAX CLI's init does.
 
-    python -m diffassemble_tpu_torch.cli.train_3d --dataset synthetic --evaluate true \\
-        --run_dir runs/3d --test_n 64 --num_points 512 --max_num_part 8 --device cuda
+    python -m diffassemble_tpu_torch.cli.train_3d --dataset synthetic --run_dir runs/3d \
+        --backbone vn_dgcnn_rich --batch_size 16 --num_points 512 --max_num_part 8 \
+        --rel_pose_weight 0.5 --rel_condition 1 --aux_pose_weight 0.5 --rot_pt_l2_weight 1.0 \
+        --encoder_init weights/vn_dgcnn_rich_rel3d_512.npz --device cuda
 
-Training (without ``--evaluate``) is ROADMAP Queue 1 item 17, and
-``--export_meshes`` item 11.
+Not ported: training over ``--gpus`` > 1 (ROADMAP Queue 1 item 19: the JAX
+step's batch means and the relative-pose loss's contact counts are global
+over the mesh, and DDP needs them made global by hand) and
+``--export_meshes`` (item 11).
 """
 
 from __future__ import annotations
@@ -121,14 +130,11 @@ def config_from_args(args):
     )
 
 
-def build_3d(args, config=None):
-    """(model, train set, test set, category names); the model from
-    ``config`` (a ``Diffusion3DConfig``) or, without one, from the flags."""
+def datasets_3d(args):
+    """(train set, test set, category names) of the flags."""
     from ..data.breaking_bad import get_dataset_3d
-    from ..models.diffusion_3d import Diffusion3D
 
-    model = Diffusion3D(config or config_from_args(args), device=args.device, seed=args.seed)
-    train_ds, test_ds, cats = get_dataset_3d(
+    return get_dataset_3d(
         args.dataset,
         data_dir=args.data_dir,
         category=args.category,
@@ -145,7 +151,15 @@ def build_3d(args, config=None):
         wall_surface=args.wall_surface,
         wall_freq=args.wall_freq,
     )
-    return model, train_ds, test_ds, cats
+
+
+def build_3d(args, config=None):
+    """(model, train set, test set, category names); the model from
+    ``config`` (a ``Diffusion3DConfig``) or, without one, from the flags."""
+    from ..models.diffusion_3d import Diffusion3D
+
+    model = Diffusion3D(config or config_from_args(args), device=args.device, seed=args.seed)
+    return (model, *datasets_3d(args))
 
 
 def saved_config(path: str):
@@ -160,23 +174,27 @@ def saved_config(path: str):
         return None
 
 
-def run_3d(args) -> dict[str, tuple[float, float]]:
-    """Evaluate (``--evaluate true``): the per-category metrics' mean and std
-    over ``--num_iter`` evaluations, printed and returned."""
+def run_3d(args) -> dict[str, tuple[float, float]] | None:
+    """Train, or evaluate (``--evaluate true``): then the per-category
+    metrics' mean and std over ``--num_iter`` evaluations, printed and
+    returned."""
     import torch
 
     from ..parallel.distributed import initialize
     from ..train.checkpoint import restore_explicit
     from ..train.train_state import TrainState, eval_params
     from ..train.trainer import Trainer, fragment_adapter
+    from .common import device_count
 
     if args.export_meshes:
         raise NotImplementedError("--export_meshes (fragment trajectories) is not ported yet: ROADMAP Queue 1 item 11")
-    if not args.evaluate:
-        raise NotImplementedError("3D training is not ported yet (pass --evaluate true): ROADMAP Queue 1 item 17")
     initialize(device=args.device)  # no-op for a single process
+    if not args.evaluate and (args.gpus > 1 or device_count() > 1):
+        raise NotImplementedError("3D training over more than one device (--gpus > 1) is not ported yet: "
+                                  "ROADMAP Queue 1 item 19")
     run_dir = args.run_dir or f"runs/3d-{args.dataset}-{args.backbone}"
-    model, _, test_ds, cats = build_3d(args, saved_config(args.checkpoint_path or run_dir))
+    config = saved_config(args.checkpoint_path or run_dir) if args.evaluate else None
+    model, train_ds, test_ds, cats = build_3d(args, config)
     trainer = Trainer(
         model,
         run_dir=run_dir,
@@ -189,6 +207,9 @@ def run_3d(args) -> dict[str, tuple[float, float]]:
         deadline_margin=args.deadline_margin,
         ema_decay=args.ema_decay or None,
     )
+    if not args.evaluate:
+        trainer.fit(train_ds, test_ds)
+        return None
     # the JAX CLI collates one sample to initialise its model: the same draw
     # keeps the adapter's rng in step with it
     trainer.adapter.collate([test_ds[0]], args.max_num_part)

@@ -1,5 +1,5 @@
-"""SE(3) double diffusion for 3D fragment reassembly — port of the evaluation
-half of the JAX package's ``models/diffusion_3d.py``.
+"""SE(3) double diffusion for 3D fragment reassembly — port of the JAX
+package's ``models/diffusion_3d.py``.
 
 An R³ Gaussian chain for translations and an SO(3) chain for rotations; the
 reverse process is DDIM: the state splits into [quat (4) ‖ trans (3)], the
@@ -11,8 +11,12 @@ outputs once, then runs the steps as a Python loop. Metrics per object:
 rmse_t, rmse_r (euler degrees), gd_r (radians) and part_acc (per-part
 CD < 0.01).
 
-Training (``loss``, ``q_sample_rot`` with the IGSO3 table, the optimizer)
-is ROADMAP Queue 1 item 17.
+Training: ``q_sample_tr`` (Gaussian) and ``q_sample_rot`` (the clean
+rotation scaled by √ᾱ_t through ``so3_scale``, then right-multiplied by an
+IGSO3(√(1 − ᾱ_t)) draw from the per-step inverse-CDF table of
+``ops/igso3.py``); ``loss`` (the five-term dict or the ``split`` pair, the
+aux-pose pass at t = 0, the relative-pose losses); ``make_optimizer``
+(Adafactor with the HF relative schedule, as the 2D model's).
 """
 
 from __future__ import annotations
@@ -30,12 +34,12 @@ from ..nn.pointnet import make_point_encoder
 from ..nn.relpose import RelPoseHead, rel_consensus, split_equiv_inv
 from ..ops import so3
 from ..ops.gaussian import SampleLoopResult
+from ..ops.igso3 import build_igso3_inverse_cdf, igso3_draws, igso3_sample
 from ..ops.schedules import DiffusionSchedule, extract
+from ..train.adafactor import Adafactor, hf_relative_schedule, reference_layouts
 from ..utils.device import resolve_device
 from ..utils.params import load_params
 from . import losses_3d
-
-_TRAINING = "3D training is not ported yet: ROADMAP Queue 1 item 17"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,6 +129,11 @@ class Diffusion3D(nn.Module):
             rel_channels=13 if config.rel_condition else 0,
             dtype=config.dtype,
         )
+        # the IGSO3 inverse-CDF table for eps_t = √(1 − ᾱ_t), one row per step:
+        # a buffer, so it follows ``.to()``, kept out of the state_dict
+        self.register_buffer("igso3_table", torch.as_tensor(
+            build_igso3_inverse_cdf(self.sched.sqrt_one_minus_alphas_cumprod.cpu().numpy()), device=device),
+            persistent=False)
         init_weights(self, torch.Generator().manual_seed(seed))
         self.to(device)
 
@@ -174,16 +183,133 @@ class Diffusion3D(nn.Module):
         rot_raw, offset, conf = rel
         return rel_consensus(rot_raw, offset, conf, x[..., :4], x[..., 4:7], node_mask)
 
-    # --------------------------------------------------- training (not ported)
+    # ------------------------------------------------------- forward chain
 
-    def loss(self, *args, **kwargs):
-        raise NotImplementedError(_TRAINING)
+    def q_sample_tr(self, x_tr, t, noise):
+        s = self.sched
+        return extract(s.sqrt_alphas_cumprod, t) * x_tr + extract(s.sqrt_one_minus_alphas_cumprod, t) * noise
 
-    def q_sample_rot(self, *args, **kwargs):
-        raise NotImplementedError(_TRAINING)
+    def q_sample_rot(self, rot_mat, t, generator: torch.Generator | None = None,
+                     u: torch.Tensor | None = None, axes: torch.Tensor | None = None):
+        """R_t = so3_scale(R₀, √ᾱ_t) · IGSO3(√(1 − ᾱ_t)); the IGSO3 draws u
+        and axes come from ``generator`` unless given."""
+        noise = igso3_sample(self.igso3_table, t, generator, u, axes)
+        blended = so3.so3_scale(rot_mat, self.sched.sqrt_alphas_cumprod[t.long()])
+        return so3._mm(blended, noise)
 
-    def make_optimizer(self):
-        raise NotImplementedError(_TRAINING)
+    # ------------------------------------------------------------ training
+
+    def loss_draws(self, b: int, x_shape: tuple[int, ...], generator: torch.Generator | None,
+                   device: torch.device) -> dict[str, torch.Tensor]:
+        """The loss's random draws for ``b`` objects of ``x_shape[1]`` parts,
+        in the loss's order: t (b,), the translation noise (b, P, 3), and the
+        IGSO3 quantiles u (b, P) and axes (b, P, 3). All are drawn whatever
+        the config diffuses."""
+        p = x_shape[1]
+        t_graph = torch.randint(0, self.cfg.steps, (b,), generator=generator, device=device)
+        noise_tr = torch.randn((b, p, 3), generator=generator, device=device)
+        rot_u, rot_axes = igso3_draws((b, p), generator, device)
+        return {"t_graph": t_graph, "noise_tr": noise_tr, "rot_u": rot_u, "rot_axes": rot_axes}
+
+    def loss(
+        self,
+        batch: FragmentBatch,
+        generator: torch.Generator | None = None,
+        t_graph: torch.Tensor | None = None,
+        noise_tr: torch.Tensor | None = None,
+        rot_u: torch.Tensor | None = None,
+        rot_axes: torch.Tensor | None = None,
+    ) -> tuple[torch.Tensor, dict]:
+        """Training loss (the JAX ``loss``, the reference's p_losses): one t
+        per object, translations noised by ``q_sample_tr`` and rotations by
+        ``q_sample_rot``, one denoiser pass, then the ``split`` pair (trans
+        L2, rot L2) or the five-term dict weighted by
+        ``DEFAULT_LOSS_WEIGHTS`` (``rot_pt_l2_weight`` overrides its weight;
+        terms of weight 0 are computed and logged all the same). With
+        ``aux_pose_weight`` a second pass denoises the identity pose at t = 0
+        (its own consensus vector with ``rel_condition``) and adds its cosine,
+        per-point L2 and translation losses; with ``rel_pose_weight`` the
+        pairwise head's losses on the ground truth's contact pairs.
+
+        The draws (``loss_draws``) come from ``generator`` unless all are
+        given (the tests feed the JAX package's). Returns (total, the loss
+        dict with ``loss`` the total), 0-dim tensors."""
+        cfg = self.cfg
+        b, p = batch.x0.shape[:2]
+        dev = batch.x0.device
+        if t_graph is None:
+            draws = self.loss_draws(b, batch.x0.shape, generator, dev)
+            t_graph, noise_tr, rot_u, rot_axes = (draws[k] for k in ("t_graph", "noise_tr", "rot_u", "rot_axes"))
+        t = t_graph[:, None].expand(b, p)
+        v = batch.node_mask
+
+        gt_q, gt_t = batch.x0[..., :4], batch.x0[..., 4:7]
+        gt_rot = so3.quaternion_to_matrix(gt_q)
+        x_tr = self.q_sample_tr(gt_t, t, noise_tr) if cfg.diffuse_translation else gt_t
+        if cfg.diffuse_rotation:
+            x_rot = self.q_sample_rot(gt_rot, t, u=rot_u, axes=rot_axes)
+        else:
+            x_rot = torch.eye(3, device=dev).expand(gt_rot.shape)
+        x_quat = so3.matrix_to_quaternion(x_rot)
+        x_noisy = torch.cat([x_quat, x_tr], dim=-1)
+        if cfg.use_6dof:
+            x_noisy = torch.cat([x_noisy, so3.matrix_to_sixdof(so3.quaternion_to_matrix(x_quat))], dim=-1)
+
+        feats = self.pcd_features(batch.pcds)
+        rel = rel_ctx = None
+        if self.use_rel:
+            rel = self.rel_outputs(feats)
+            if cfg.rel_condition:
+                rel_ctx = self._rel_ctx(rel, x_noisy, v)
+        pred = self.denoise(x_noisy, t, feats, batch.adj, v, rel_ctx=rel_ctx)
+        pred_q, pred_t = self._pose(pred)
+
+        if cfg.loss_type == "split":
+            loss_dict = {"trans_loss": losses_3d.trans_l2_loss(pred_t, gt_t, v).mean(),
+                         "rot_loss": losses_3d.rot_l2_loss(pred_q, gt_q, v).mean()}
+            total = loss_dict["trans_loss"] + loss_dict["rot_loss"]
+        else:
+            loss_dict = losses_3d.reassembly_loss_dict(batch.pcds, pred_t, gt_t, pred_q, gt_q, v)
+            w = dict(losses_3d.DEFAULT_LOSS_WEIGHTS)
+            if cfg.rot_pt_l2_weight:
+                w["rot_pt_l2_loss"] = cfg.rot_pt_l2_weight
+            total = sum(loss_dict[k] * w[k] for k in loss_dict)
+        if cfg.aux_pose_weight > 0:
+            # feature-only deep supervision: the identity pose denoised at t = 0
+            x_id = torch.cat([torch.tensor([1.0, 0, 0, 0], device=dev).expand(gt_q.shape),
+                              torch.zeros_like(gt_t)], dim=-1)
+            if cfg.use_6dof:
+                x_id = torch.cat([x_id, torch.tensor([1.0, 0, 0, 0, 1.0, 0], device=dev).expand(b, p, 6)], dim=-1)
+            rel_ctx0 = self._rel_ctx(rel, x_id, v) if cfg.rel_condition else None
+            pred0 = self.denoise(x_id, torch.zeros_like(t), feats, batch.adj, v, rel_ctx=rel_ctx0)
+            p0_q, p0_t = self._pose(pred0)
+            aux = (losses_3d.rot_cosine_loss(p0_q, gt_q, v).mean()
+                   + losses_3d.rot_points_l2_loss(batch.pcds, p0_q, gt_q, v).mean()
+                   + losses_3d.trans_l2_loss(p0_t, gt_t, v).mean())
+            loss_dict["aux_pose_loss"] = aux
+            total = total + cfg.aux_pose_weight * aux
+        if self.use_rel and cfg.rel_pose_weight > 0:
+            contact = losses_3d.contact_matrix(batch.pcds, gt_q, gt_t, v, thresh=cfg.contact_thresh)
+            rel_losses = losses_3d.relative_pose_loss(*rel, gt_q, gt_t, contact, v)
+            loss_dict.update(rel_losses)
+            total = total + cfg.rel_pose_weight * sum(rel_losses.values())
+        loss_dict["loss"] = total
+        return total, loss_dict
+
+    def _pose(self, out: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(quaternion, translation) of a denoiser output."""
+        q = out[..., :4]
+        if self.cfg.use_6dof:
+            q = so3.matrix_to_quaternion(so3.sixdof_to_matrix(out[..., 7:13]))
+        return q, out[..., 4:7]
+
+    def make_optimizer(self) -> Adafactor:
+        """Adafactor with HF-style relative step sizes (the JAX
+        ``make_optimizer``, the 2D model's): lr_t = min(1e-2, 1/√t) ×
+        min(1, t/warmup), scaled by each parameter's RMS, factored over the
+        same two dimensions as optax factors the JAX package's layout of each
+        parameter."""
+        return Adafactor(hf_relative_schedule(self.cfg.warmup_steps), reference_layouts(self))
 
     # ------------------------------------------------------------ sampling
 
@@ -226,12 +352,13 @@ class Diffusion3D(nn.Module):
 
     @torch.no_grad()
     def sample(self, batch: FragmentBatch, generator: torch.Generator | None = None,
-               keep_trajectory: bool = False) -> SampleLoopResult:
-        """The reverse process; ``batch`` holds tensors on the model's device.
-        Returns SampleLoopResult with final (B, P, 7) f32 (13 with 6-DoF)."""
+               keep_trajectory: bool = False, inference_ratio: int | None = None) -> SampleLoopResult:
+        """The reverse process at ``inference_ratio`` (default: the config's);
+        ``batch`` holds tensors on the model's device. Returns
+        SampleLoopResult with final (B, P, 7) f32 (13 with 6-DoF)."""
         cfg = self.cfg
         b, p = batch.x0.shape[:2]
-        ratio = cfg.inference_ratio
+        ratio = inference_ratio or cfg.inference_ratio
         dev = self.device
         tr0 = torch.randn((b, p, 3), generator=generator, device=dev) * cfg.noise_weight
         q0 = torch.tensor([1.0, 0, 0, 0], device=dev).expand(b, p, 4)
@@ -261,9 +388,7 @@ class Diffusion3D(nn.Module):
     @torch.no_grad()
     def metrics_from_final(self, final: torch.Tensor, batch: FragmentBatch) -> dict:
         """Per-object rmse_t, rmse_r, gd_r and part_acc, each (B,)."""
-        pred_q, pred_t = final[..., :4], final[..., 4:7]
-        if self.cfg.use_6dof:
-            pred_q = so3.matrix_to_quaternion(so3.sixdof_to_matrix(final[..., 7:13]))
+        pred_q, pred_t = self._pose(final)
         gt_q, gt_t = batch.x0[..., :4], batch.x0[..., 4:7]
         v = batch.node_mask
         return {

@@ -220,7 +220,9 @@ class VN_DGCNN(nn.Module):
             n2 = _sum(h * h, -1)  # (B, N, 2·feat)
             n2c = n2 - _mean(n2, 1, keepdim=True)
             var = _mean(n2c * n2c, 1, keepdim=True)
-            w = _softmax(5.0 * (n2c * torch.rsqrt(var + 1e-12)), dim=1)
+            # no gradient through the normaliser, as in the JAX package: its
+            # derivative grows as var^-1.5 on channels of near-zero variance
+            w = _softmax(5.0 * (n2c * torch.rsqrt(var + 1e-12).detach()), dim=1)
             with f32_matmuls():
                 sel = torch.einsum("bnc,bncv->bcv", w.float(), h.float()).to(h.dtype)
             pooled = torch.cat([pooled, sel], dim=-2)  # (B, 4·feat, 3)

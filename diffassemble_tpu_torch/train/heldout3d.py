@@ -39,28 +39,31 @@ PERCENTILES = (5, 10, 25, 50, 75, 90)
 
 
 def protocol_dataset(test_n: int = 64, num_points: int = 1000, max_num_part: int = 20, min_num_part: int = 2,
-                     wall_detail: float = 0.0, wall_boost: int = 1, canonical: float = 0.6, seed: int = 0):
+                     wall_detail: float = 0.0, wall_boost: int = 1, canonical: float = 0.6, seed: int = 0,
+                     wall_surface: bool = False, wall_freq: float = 14.0):
     """The script's held-out split: ``get_dataset_3d("synthetic", ...)``'s test
-    set (Voronoi parts, walls not projected, the script's wall frequency)."""
+    set (Voronoi parts) with the script's arguments and defaults."""
     _, test_ds, _ = get_dataset_3d(
         "synthetic", train_n=4, test_n=test_n, max_num_part=max_num_part, min_num_part=min_num_part,
         num_points=num_points, seed=seed, canonical=canonical, voronoi=True, wall_detail=wall_detail,
-        wall_boost=wall_boost, wall_surface=False, wall_freq=14.0)
+        wall_boost=wall_boost, wall_surface=bool(wall_surface), wall_freq=wall_freq)
     return test_ds
 
 
 @torch.no_grad()
-def heldout3d_eval(model, test_ds, batch: int = 16, max_num_part: int = 20, seed: int = 0) -> dict:
-    """The script's metrics of ``model`` (a ``Diffusion3D``) over ``test_ds``.
-    The sampler's initial noise comes from torch's default generator; the
-    model scales it by its ``noise_weight`` (0 in the trained configs) and
-    runs DDIM without eta, as the script's fixed key changes nothing there."""
+def heldout3d_eval(model, test_ds, batch: int = 16, max_num_part: int = 20, seed: int = 0,
+                   ratio: int | None = None) -> dict:
+    """The script's metrics of ``model`` (a ``Diffusion3D``) over ``test_ds``,
+    sampled at the inference ``ratio`` (default: the config's). The
+    sampler's initial noise comes from torch's default generator; the model
+    scales it by its ``noise_weight`` (0 in the trained configs) and runs
+    DDIM without eta, as the script's fixed key changes nothing there."""
     rng = np.random.default_rng(seed)
     cds, gds, rts, rrs = [], [], [], []
     for lo in range(0, len(test_ds), batch):
         samples = [test_ds[i] for i in range(lo, min(lo + batch, len(test_ds)))]
         nb = collate_fragments(samples, max_num_part, rng=rng).to(model.device)
-        final = model.sample(nb).final
+        final = model.sample(nb, inference_ratio=ratio).final
         pred_q, pred_t = final[..., :4], final[..., 4:7]
         gt_q, gt_t = nb.x0[..., :4], nb.x0[..., 4:7]
         v = nb.node_mask
@@ -94,13 +97,17 @@ def model_from_asset(path=ASSET, device: torch.device | str = "cuda", compute_dt
 
 
 def run_protocol(model, protocol: dict, test_n: int | None = None) -> dict:
-    """``heldout3d_eval`` over the protocol's corpus (its first ``test_n`` objects)."""
+    """``heldout3d_eval`` over the protocol's corpus (its first ``test_n``
+    objects) at the protocol's ratio; ``wall_surface`` and ``wall_freq``
+    default to the script's (0 and 14.0) where the protocol leaves them out."""
     p = protocol
     test_ds = protocol_dataset(test_n=test_n or p["test_n"], num_points=p["num_points"],
                                max_num_part=p["max_num_part"], min_num_part=p["min_num_part"],
                                wall_detail=p["wall_detail"], wall_boost=p["wall_boost"],
-                               canonical=p["canonical"], seed=p["seed"])
-    return heldout3d_eval(model, test_ds, batch=p["batch"], max_num_part=p["max_num_part"], seed=p["seed"])
+                               canonical=p["canonical"], seed=p["seed"],
+                               wall_surface=p.get("wall_surface", False), wall_freq=p.get("wall_freq", 14.0))
+    return heldout3d_eval(model, test_ds, batch=p["batch"], max_num_part=p["max_num_part"], seed=p["seed"],
+                          ratio=p.get("ratio"))
 
 
 def main() -> None:

@@ -1,5 +1,5 @@
-"""Training loop — port of the JAX package's ``train/trainer.py`` (the puzzle
-task, and the fragment task's evaluation: ``fragment_adapter``).
+"""Training loop — port of the JAX package's ``train/trainer.py``, for both
+tasks: puzzles (``puzzle_adapter``) and fragments (``fragment_adapter``).
 
 - the train step of ``train_state.py`` over the data-parallel mesh
   (``parallel/mesh.py``: each process takes its slice of the global batch,
@@ -189,8 +189,8 @@ class Trainer:
         # instead of stepping in place; 0/None disables it
         self.dead_grad_patience = dead_grad_patience
 
-    # the optimizer and the train step are made when first used, so that a
-    # model that only evaluates (the 3D model) needs neither
+    # the optimizer and the train step are made when first used, so that an
+    # evaluation needs neither
     @functools.cached_property
     def optimizer(self):
         return self.model.make_optimizer()
@@ -215,6 +215,9 @@ class Trainer:
         """Train from fresh weights, or resume from the run's latest checkpoint."""
         n_max = self.adapter.max_nodes(train_ds)
         host_rng = np.random.default_rng(self.seed)
+        # the JAX fit collates one sample to initialise its model: the same
+        # draw keeps a fragment adapter's part-dropout rng in step with it
+        self.adapter.collate([train_ds[0]], n_max)
         state = self.new_state()
         restored = self.ckpt.restore(state)
         if restored is not None:
@@ -295,8 +298,9 @@ class Trainer:
 
     def evaluate(self, params: dict[str, torch.Tensor], eval_ds, max_batches: int | None = None,
                  tag: str = "val", step: int = 0) -> dict:
-        """Sample every eval batch and fold the greedy-assignment metrics per
-        puzzle size; the model runs with ``params`` and gets its own back.
+        """Sample every eval batch and fold the model's metrics as the adapter
+        does (per puzzle size, or per category and ``_AVG``); the model runs
+        with ``params`` and gets its own back.
         Other ranks than the main one return {} at once."""
         if not self.main:
             return {}

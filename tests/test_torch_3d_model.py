@@ -136,10 +136,11 @@ def test_small_model_samples_three_steps_as_the_jax_package(monkeypatch):
 
 
 def test_training_entry_points_raise_naming_the_roadmap_item():
-    tm = Diffusion3D(Diffusion3DConfig(**SMALL), device="cpu")
-    for fn in (tm.loss, tm.q_sample_rot, tm.make_optimizer):
-        with pytest.raises(NotImplementedError, match="item 17"):
-            fn()
+    """What of the 3D model is still not ported raises and names its ROADMAP
+    item: the split equivariant/invariant message passing (item 15); DDPM
+    sampling raises as the JAX package's does."""
+    with pytest.raises(NotImplementedError, match="item 15"):
+        Diffusion3D(Diffusion3DConfig(**{**SMALL, "equiv_inv_mp": True}), device="cpu")
     with pytest.raises(ValueError, match="DDIM"):
         Diffusion3D(Diffusion3DConfig(**{**SMALL, "sampling": "ddpm"}), device="cpu")
 
@@ -153,7 +154,7 @@ def test_heldout3d_metrics_are_the_scripts(monkeypatch):
     rng = np.random.default_rng(4)
     finals = []
 
-    def fake_sample(batch, generator=None):
+    def fake_sample(batch, generator=None, inference_ratio=None):
         gt = batch.x0.numpy()
         q = gt[..., :4] + 0.1 * rng.standard_normal(gt[..., :4].shape).astype(np.float32)
         q /= np.linalg.norm(q, axis=-1, keepdims=True)
@@ -308,10 +309,16 @@ def test_run_3d_takes_the_ema_of_the_latest_checkpoint_or_an_explicit_checkpoint
 
 
 def test_run_3d_refuses_training_and_mesh_export(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 17"):
-        train_3d.run_3d(_args(tmp_path))
+    """Training over more than one device (item 19) and the mesh export
+    (item 11) raise before anything is built; one device trains
+    (``tests/test_torch_3d_cli.py``), and several evaluate."""
+    with pytest.raises(NotImplementedError, match="item 19"):
+        train_3d.run_3d(_args(tmp_path, "--gpus", "2"))
     with pytest.raises(NotImplementedError, match="item 11"):
         train_3d.run_3d(_args(tmp_path, "--evaluate", "true", "--export_meshes"))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        train_3d.run_3d(_args(tmp_path, "--export_meshes"))
+    assert not (tmp_path / "checkpoints").exists()
 
 
 def test_fragment_adapter_and_metrics_match_the_jax_trainer():

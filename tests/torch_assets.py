@@ -307,3 +307,119 @@ def knn_agreement_3d(n_objects: int = PROTOCOL_3D["batch"], compute_dtype: str =
         same = tknn(torch.tensor(np.asarray(ja.astype(jnp.float32))).to(tm.compute_dtype), tm.n_knn)
         out[f"layer{layer}"] = {"end_to_end": differ(tknn(ta, tm.n_knn), want), "same_input": differ(same, want)}
     return out
+
+
+def jax_loss_3d(compute_dtype: str = "bfloat16") -> dict[str, float]:
+    """The JAX package's training loss dict of the 3D checkpoint (the asset's
+    params) in ``compute_dtype`` on the batch and draws of
+    ``chip_smoke.loss_inputs_3d``: the 3D training run's first batch and
+    numpy draws, handed to the JAX loss in place of its own
+    (``jax.random.randint``, ``normal`` and ``uniform`` give them in the
+    order the loss draws). ``chip_smoke.JAX_CPU_LOSS_3D`` holds the values.
+
+        JAX_PLATFORMS=cpu python -c "from tests.torch_assets import jax_loss_3d; print(jax_loss_3d('bfloat16'))"
+    """
+    import dataclasses
+    import json
+
+    import jax
+    import jax.numpy as jnp
+
+    import chip_smoke
+    from diffassemble_tpu.data.batch import FragmentBatch
+    from diffassemble_tpu.models.diffusion_3d import Diffusion3D, Diffusion3DConfig
+    from diffassemble_tpu_torch.utils.params import load_params
+
+    nb, draws = chip_smoke.loss_inputs_3d()
+    tree = load_params(ASSET_3D)
+    cfg = dataclasses.replace(Diffusion3DConfig(**json.loads(str(tree["config"]))), compute_dtype=compute_dtype,
+                              encoder_init="")
+    params = jax.tree.map(jnp.asarray, {k: v for k, v in tree.items() if isinstance(v, dict)})
+    model = Diffusion3D(cfg)
+    queue = {"randint": [draws["t_graph"].astype(np.int32)], "normal": [draws["noise_tr"], draws["rot_axes"]],
+             "uniform": [draws["rot_u"]]}
+
+    def given(name):
+        return lambda *args, **kwargs: jnp.asarray(queue[name].pop(0))
+
+    with mock.patch.object(jax.random, "randint", given("randint")), \
+            mock.patch.object(jax.random, "normal", given("normal")), \
+            mock.patch.object(jax.random, "uniform", given("uniform")):
+        _, out = jax.jit(model.loss)(params, FragmentBatch(*[jnp.asarray(a) for a in nb]), jax.random.PRNGKey(0))
+    assert not any(queue.values()), "the JAX loss drew other values than the given draws"
+    return {k: float(v) for k, v in out.items()}
+
+
+def vn_dgcnn_conditioning(draws: int = 60) -> dict:
+    """How far the seeded narrow VN-DGCNN of
+    ``tests/test_torch_3d.py::test_vn_dgcnn_matches[kwargs0]`` (both,
+    mean_maxnorm; its points, weights and 1e-3 tolerance) is from the JAX
+    package's, and why it is fragile, on this CPU:
+
+    - ``err_by_threads``: the port's largest error over the JAX output's
+      largest entry at 1, 2, 4 and 8 torch threads, and whether those outputs
+      are bit-identical (``threads_bit_identical``);
+    - ``ulp_moves``: over ``draws`` draws of one-ulp noise (each coordinate
+      times 1 + {-1, 0, 1}·2⁻²³), how far the port's output moves, over its
+      largest entry: median, max and the share above the test's 1e-3;
+    - ``norm_gain``: for the draw of median move, each VNNorm's output move
+      over its input's (both over their largest entry), layer by layer.
+
+        JAX_PLATFORMS=cpu python -c "import sys; sys.path.insert(0, 'tests'); from torch_assets import vn_dgcnn_conditioning; print(vn_dgcnn_conditioning())"
+    """
+    import jax.numpy as jnp
+    import torch
+
+    from diffassemble_tpu_torch.nn.vn import VN_DGCNN
+    from test_torch_3d import JVN, _init_shapes, _load, seeded_tree
+
+    kwargs = dict(feat_dim=16, n_knn=8, both=True, pool="mean_maxnorm")
+    pts = np.random.default_rng(3).standard_normal((3, 64, 3)).astype(np.float32)
+    jm = JVN(**kwargs)
+    params = seeded_tree(_init_shapes(jm, jnp.asarray(pts)), 4)
+    want = np.asarray(jm.apply({"params": params}, jnp.asarray(pts)))
+    tm = VN_DGCNN(**kwargs)
+    _load(tm, params, "encoder")
+    seen = {}
+
+    def keep(i):
+        def hook(module, inputs, output):
+            seen[i, "in"], seen[i, "out"] = (t.detach().double().clone() for t in (inputs[0], output))
+        return hook
+
+    for i, layer in enumerate(tm.layers):
+        layer.norm.register_forward_hook(keep(i))
+
+    def forward(p):
+        seen.clear()
+        with torch.no_grad():
+            return tm(torch.tensor(p)).numpy(), dict(seen)
+
+    threads, outs = torch.get_num_threads(), {}
+    try:
+        for n in (1, 2, 4, 8):
+            torch.set_num_threads(n)
+            outs[n] = forward(pts)[0]
+    finally:
+        torch.set_num_threads(threads)
+    scale = np.abs(want).max()
+    base, base_seen = forward(pts)
+    moves, runs = [], []
+    for s in range(draws):
+        noise = np.random.default_rng(1000 + s).choice([-1, 0, 1], size=pts.shape)
+        out, got = forward(pts * (1 + 2.0**-23 * noise).astype(np.float32))
+        moves.append(float(np.abs(out - base).max() / scale))
+        runs.append(got)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    mid = runs[int(np.argsort(moves)[len(moves) // 2])]
+    return {
+        "err_by_threads": {n: float(np.abs(o - want).max() / scale) for n, o in outs.items()},
+        "threads_bit_identical": all(np.array_equal(o, outs[1]) for o in outs.values()),
+        "ulp_moves": {"median": float(np.median(moves)), "max": max(moves),
+                      "share_above_1e-3": float(np.mean(np.array(moves) > 1e-3))},
+        "norm_gain": {i: rel(mid[i, "out"], base_seen[i, "out"]) / max(rel(mid[i, "in"], base_seen[i, "in"]), 1e-30)
+                      for i in range(len(tm.layers))},
+    }
