@@ -27,7 +27,8 @@ Phases, each ending in a line with the elapsed seconds:
    route than its type and width call for fails. bf16 inputs 2 bytes off a
    16-byte boundary run all three on the CUDA-core route on the B = 1
    expander. Then all three kernels at the other head widths they take, 20,
-   104 and 264, in both types, on the B = 1 expander and the
+   24, 40, 104, 136, 264 and 271 (odd: each bf16 head starts 2 bytes off a
+   4-byte boundary), in both types, on the B = 1 expander and the
    padded/empty-rows masks; a head of 296 must raise;
 4. timing of the three kernels, their plain versions and the PyTorch calls
    (``scaled_dot_product_attention`` forward, and one backward of it, which
@@ -98,8 +99,10 @@ Phases, each ending in a line with the elapsed seconds:
    cores (Dh 264, ROADMAP K3), and no backward launch. It fails unless
    n_parts is 318, every metric is finite, and rmse_t, rmse_r and
    part_acc@0.05 lie within 0.005, 2° and 0.03 of the JAX package's CPU
-   run of the protocol in bf16; the TPU's figures
-   (``results/diagnostics/eval3d_easy12k.json``) are printed beside, ungated;
+   run of the protocol in bf16, and the metric's calibration scores the
+   true poses at part_acc 1.0; the gauge-aligned diagnostic and the TPU's
+   figures (``results/diagnostics/eval3d_easy12k.json``) are printed
+   beside, ungated;
 13. 3D training, the seventh main path: the configuration of
    ``weights/diffusion3d_easy`` with its run's flags (``TRAIN3D_FLAGS``:
    vn_dgcnn_rich from ``weights/vn_dgcnn_rich_rel3d_512.npz``, relative-pose
@@ -120,7 +123,34 @@ Phases, each ending in a line with the elapsed seconds:
    CUDA cores, finite losses and nonzero gradients in the encoder, the
    pairwise head and the denoiser; every evaluation call 120 forward
    launches and no backward. It prints s/step by host clock and CUDA events
-   and the peak memory.
+   and the peak memory;
+14. the three kernels at every head width of the 3D family (32 and the
+   widths of phase 3) against their plain versions in bf16 and f32, with
+   exact zeros and routes, on the 3D protocols' own masks: N = 8
+   (``diffusion3d_easy``'s first call) and N = 20 (``diffusion3d_vndgcnn``'s,
+   mostly padding rows); then timed at N = 20 at Dh 24, 32, 40, 104, 136 and
+   271 and at N = 8 at Dh 136 beside their bound over the attended pairs and
+   SDPA;
+15. the other trained 3D checkpoints, the eighth main path: ``_relpose`` and
+   ``_wallsurf`` (the latter refined by multiview ICP too) at ratio 10, and
+   ``_vndgcnn`` (N = 20, its last layer Dh 104) at ratios 10 and 2, each
+   through ``run_3d --evaluate`` and ``heldout3d``'s protocol, as phase 12:
+   the forward launches a call on their routes (the two head widths on two
+   routes), n_parts 318, the calibration, and each row's rmse_t, rmse_r and
+   part_acc@0.05 (and the refined row's) within ``TOL_3D_ASSETS`` of the JAX
+   package's CPU run in bf16 (``JAX_CPU_3D_ASSETS``); gauge-aligned rows and
+   the TPU's figures printed, ungated;
+16. 3D training with the other encoders and split message passing, the ninth
+   main path, through ``run_3d``: ``pointnet`` at full width (N = 20, batch
+   16 of 1000 points, from ``weights/pointnet_pose3d.npz``), 3 steps with an
+   evaluation and checkpoint, a resume to 4; one step each of
+   ``pointnet_inv`` (Dh 136), ``pointnet_plus`` (Dh 40), ``vnn`` (Dh 271)
+   and ``vn_dgcnn`` with ``--equiv_inv_mp 1`` (Dh 136, keys and values from
+   the invariant stream). Each first holds its f32 loss on the card to the
+   CPU's on the same seeded weights and draws; ``vnn`` and the split message
+   passing hold their f32 gradients with the kernels to those with plain
+   attention. Every step has each kernel once a layer per denoiser pass, one
+   layer on the CUDA cores, finite losses and nonzero gradients.
 
 ``python3 chip_smoke.py --profile train-device`` profiles one step of the
 recipe instead, ``--profile eval3d`` one 3D held-out call of 16 objects,
@@ -192,7 +222,11 @@ MAIN_HEAD_DIMS = (32, 144)
 RECIPE_TRAIN_N, RECIPE_EVAL_N, RECIPE_STEPS, RECIPE_EVAL_EVERY, RECIPE_RESUME_TO = 16, 8, 6, 3, 8
 MIXED_STEPS = 3
 EMA_DECAY = 0.999
-OTHER_HEAD_DIMS = (20, 104, 264)  # not a multiple of 8; the 3D checkpoints' last layers
+# widths off the tensor-core route: 20 is no multiple of 8; the 3D family's last layers (feature
+# width + 64 over 8 heads) are 24 (pointnet), 40 (pointnet_plus), 104 (vn_dgcnn), 136 (pointnet_inv,
+# and vn_dgcnn_equiv_inv under split message passing), 264 (vn_dgcnn_rich) and 271 (vnn: odd, so
+# each bf16 head starts 2 bytes off a 4-byte boundary)
+OTHER_HEAD_DIMS = (20, 24, 40, 104, 136, 264, 271)
 # the 3D held-out protocol: scripts/tpu_eval_3d.py on weights/diffusion3d_easy at step 12000
 # (64 synthetic objects in calls of 16, 512 points, 2-8 parts, ratio 10), its params committed
 # converted with the config and the protocol's arguments
@@ -244,6 +278,105 @@ JAX_CPU_LOSS_3D = {
                 "rel_conf_loss": 0.4237699508666992, "loss": 0.507136344909668},
 }
 TOL_LOSS_3D = {"bfloat16": (0.1, 0.02), "float32": (2e-3, 2e-4)}
+
+# the rest of the 3D family. The other trained checkpoints, each committed converted with its
+# protocol (tests/torch_assets.py:ASSETS_3D): n_parts of the protocol, the JAX package's own run of
+# it on a CPU by ratio and type (tests/torch_assets.py:jax_reference_3d), the gated keys'
+# tolerances, fixed before the first card run from the CPU's port-vs-JAX spread (PERF.md §6), and
+# the TPU's figures where the repo has them, printed beside the card's, ungated
+MORE_ASSETS_3D = ("diffusion3d_relpose", "diffusion3d_wallsurf", "diffusion3d_vndgcnn")
+N_PARTS_3D_ASSETS = {"diffusion3d_easy": N_PARTS_3D, "diffusion3d_relpose": 318, "diffusion3d_wallsurf": 318,
+                     "diffusion3d_vndgcnn": 318}
+JAX_CPU_3D_ASSETS = {
+    "diffusion3d_easy": {10: JAX_CPU_3D},
+    "diffusion3d_relpose": {
+        10: {
+            "bfloat16": {"rmse_t": 0.21026736265048385, "rmse_r": 55.62228138744831, "gd_r": 1.491101861000061,
+                "part_acc@0.01": 0.0, "part_acc@0.05": 0.13522012578616352, "gauge gd_r": 1.2896068096160889,
+                "gauge rmse_t": 0.26787575182970613},
+            "float32": {"rmse_t": 0.2097444036626257, "rmse_r": 56.257983818650246, "gd_r": 1.4934895038604736,
+                "part_acc@0.01": 0.0, "part_acc@0.05": 0.1289308176100629, "gauge gd_r": 1.2921489477157593,
+                "gauge rmse_t": 0.2658515727962367},
+        },
+    },
+    "diffusion3d_wallsurf": {
+        10: {
+            "bfloat16": {"rmse_t": 0.10488867183448747, "rmse_r": 33.67202050238848, "gd_r": 0.9216157793998718,
+                "part_acc@0.01": 0.018867924528301886, "part_acc@0.05": 0.4748427672955975,
+                "gauge gd_r": 0.8661601543426514, "gauge rmse_t": 0.1391138373874128,
+                "refined rmse_t": 0.12798721325816587, "refined rmse_r": 33.59212777763605,
+                "refined gd_r": 0.9173377752304077, "refined part_acc@0.05": 0.3867924528301887},
+            "float32": {"rmse_t": 0.10393720353022218, "rmse_r": 33.61207918822765, "gd_r": 0.9237696528434753,
+                "part_acc@0.01": 0.018867924528301886, "part_acc@0.05": 0.4748427672955975,
+                "gauge gd_r": 0.871688961982727, "gauge rmse_t": 0.13687697605928406,
+                "refined rmse_t": 0.12892981054028496, "refined rmse_r": 33.58056973665953,
+                "refined gd_r": 0.915383517742157, "refined part_acc@0.05": 0.389937106918239},
+        },
+    },
+    "diffusion3d_vndgcnn": {
+        10: {
+            "bfloat16": {"rmse_t": 0.42344477551523596, "rmse_r": 76.63444077968597, "gd_r": 1.9368574619293213,
+                "part_acc@0.01": 0.0, "part_acc@0.05": 0.0, "gauge gd_r": 1.500832200050354,
+                "gauge rmse_t": 0.45080935047008097},
+            "float32": {"rmse_t": 0.4194669909775257, "rmse_r": 76.15445947647095, "gd_r": 1.9357287883758545,
+                "part_acc@0.01": 0.0, "part_acc@0.05": 0.0031446540880503146, "gauge gd_r": 1.500742793083191,
+                "gauge rmse_t": 0.44835506309755147},
+        },
+        2: {
+            "bfloat16": {"rmse_t": 0.4235719779971987, "rmse_r": 76.58183288574219, "gd_r": 1.937819242477417,
+                "part_acc@0.01": 0.0, "part_acc@0.05": 0.0, "gauge gd_r": 1.5026315450668335,
+                "gauge rmse_t": 0.4492489465046674},
+        },
+    },
+}
+TOL_3D_ASSETS = {
+    "diffusion3d_easy": TOL_3D,
+    # the raw rows: the easy checkpoint's (the CPU's port-vs-JAX spread in bf16 is at most 0.00036,
+    # 0.48° and 3 parts of 318); the refined row: wider, the ICP's nearest neighbours and trimming
+    # turn rounding into other matches (the CPU's spread 0.0020, 0.66°, 10 parts of 318)
+    "diffusion3d_relpose": TOL_3D,
+    "diffusion3d_wallsurf": {**TOL_3D, "refined rmse_t": 0.01, "refined rmse_r": 3.0, "refined part_acc@0.05": 0.07},
+    "diffusion3d_vndgcnn": TOL_3D,
+}
+TPU_3D_ASSETS = {
+    "diffusion3d_easy": {10: TPU_3D},
+    # results/diagnostics/eval3d_vndgcnn.json (step 3000)
+    "diffusion3d_vndgcnn": {10: {"rmse_t": 0.42499070800840855, "rmse_r": 76.61813676357269,
+                                 "gd_r": 1.9512873888015747, "part_acc@0.01": 0.0, "part_acc@0.05": 0.0},
+                            2: {"rmse_t": 0.42527247057296336, "rmse_r": 76.57260298728943,
+                                "gd_r": 1.9512617588043213, "part_acc@0.01": 0.0, "part_acc@0.05": 0.0}},
+    # results/diagnostics/eval3d_relpose_fix.json: a hint only, its ckpt names a run directory at step 12000
+    "diffusion3d_relpose": {10: {"rmse_t": 0.21022925659781322, "rmse_r": 55.941426143050194, "gd_r": 1.4961600303649902,
+                                 "part_acc@0.01": 0.0, "part_acc@0.05": 0.1320754716981132,
+                                 "gauge gd_r": 1.2949351072311401, "gauge rmse_t": 0.26829985121730715}},
+}
+# 3D training with the other encoders: the configuration of results/quality-3d-pointnet/config.json
+# (pointnet, N = 20, bf16) at the CLI's 1000 points and batch 16, from the pose-pretrained encoder
+# weights/pointnet_pose3d.npz, its corpus cut to 48 training and 16 held-out objects: 3 steps with an
+# evaluation at step 3, then a resume to step 4
+TRAIN3D_POINTNET_FLAGS = [
+    "--dataset", "synthetic", "--backbone", "pointnet", "--batch_size", "16", "--num_points", "1000",
+    "--max_num_part", "20", "--min_num_part", "2", "--compute_dtype", "bfloat16",
+    "--encoder_init", "weights/pointnet_pose3d.npz", "--train_n", "48", "--test_n", "16", "--device", "cuda",
+]
+TRAIN3D_POINTNET_STEPS, TRAIN3D_POINTNET_RESUME_TO = 3, 4
+_ONE_STEP = ["--train_n", "16", "--test_n", "16", "--device", "cuda"]
+_N20 = ["--dataset", "synthetic", "--batch_size", "16", "--num_points", "1000", "--max_num_part", "20",
+        "--min_num_part", "2", "--compute_dtype", "bfloat16", *_ONE_STEP]
+# one step each, seeded weights: the other encoders at the same widths, and split message passing
+# (vn_dgcnn becomes vn_dgcnn_equiv_inv, [equiv 768 ‖ inv 256]) on the easy run's corpus and losses
+TRAIN3D_ONE_STEP = {
+    "pointnet_inv": ["--backbone", "pointnet_inv", *_N20],
+    "pointnet_plus": ["--backbone", "pointnet_plus", *_N20],
+    "vnn": ["--backbone", "vnn", *_N20],
+    "vn_dgcnn_equiv_inv_mp": [
+        "--dataset", "synthetic", "--backbone", "vn_dgcnn", "--equiv_inv_mp", "1", "--batch_size", "16",
+        "--num_points", "512", "--max_num_part", "8", "--min_num_part", "2", "--aux_pose_weight", "0.5",
+        "--rot_pt_l2_weight", "1.0", "--wall_detail", "0.08", "--wall_boost", "3", "--synthetic_canonical", "0.9",
+        "--compute_dtype", "bfloat16", *_ONE_STEP],
+}
+GRADIENT_PARITY_3D = ("vnn", "vn_dgcnn_equiv_inv_mp")  # kernel vs plain-attention gradients: Dh 271; 136 dual
+LOSS_CPU_OBJECTS = 2  # objects of the first batch in the f32 card-vs-CPU loss check
 
 _T0 = time.perf_counter()
 
@@ -1521,12 +1654,10 @@ def first_batch_3d(protocol: dict):
     import numpy as np
 
     from diffassemble_tpu_torch.data.breaking_bad import collate_fragments
-    from diffassemble_tpu_torch.train.heldout3d import protocol_dataset
+    from diffassemble_tpu_torch.train.heldout3d import protocol_corpus
 
     p = protocol
-    ds = protocol_dataset(test_n=p["batch"], num_points=p["num_points"], max_num_part=p["max_num_part"],
-                          min_num_part=p["min_num_part"], wall_detail=p["wall_detail"],
-                          wall_boost=p["wall_boost"], canonical=p["canonical"], seed=p["seed"])
+    ds = protocol_corpus(p, test_n=p["batch"])
     nb = collate_fragments([ds[i] for i in range(len(ds))], p["max_num_part"], rng=np.random.default_rng(p["seed"]))
     return nb.to("cuda")
 
@@ -1577,81 +1708,50 @@ def _finite(m: dict) -> bool:
         _finite(v) for v in m.values() if isinstance(v, dict))
 
 
-def eval3d(workdir: Path, max_err: dict[str, float]) -> tuple[dict, dict, dict, list[dict]]:
-    """The sixth main path: the trained 3D SE(3) model (``weights/diffusion3d_easy``
-    at step 12000, bf16, committed converted as ``ASSET_3D``) under
-    ``scripts/tpu_eval_3d.py``'s held-out protocol.
-
-    The forward kernel is checked and timed on the protocol's masks first
-    (``kernels_3d``). The asset is written as a run of the port (config.json
-    and a checkpoint of ``train/checkpoint.py``), which ``cli/train_3d.py``'s
-    ``run_3d --evaluate`` evaluates through ``Trainer.evaluate`` with the
-    fragment adapter in calls of 16; then ``heldout3d_eval`` runs the protocol
-    itself over the 64 objects in 4 calls of 16. Each run has its launches
-    counted from 0: exactly 120 forward launches a call (4 layers × 30 steps),
-    90 on the tensor cores (Dh 32) and 30 on the CUDA cores (Dh 264, the
-    tensor-core route for that width is ROADMAP K3), no backward launch. The
-    phase fails unless those hold, n_parts is 318, every metric is finite and
-    rmse_t, rmse_r and part_acc@0.05 lie within ``TOL_3D`` of the JAX
-    package's CPU run in bf16. The TPU's figures are printed beside the
-    card's, ungated. Returns the launches of the protocol run, by kernel and
-    by route, the result, and the kernel rows."""
+def cli_evaluate_3d(run_dir: Path, model, cfg, step: int, protocol: dict):
+    """A trained model written as a run of the port (config.json and a
+    checkpoint of ``train/checkpoint.py``) and evaluated by
+    ``cli/train_3d.py``'s ``run_3d --evaluate`` over the protocol's corpus
+    in calls of its batch: (the CLI's metrics, seconds, launches, launches by
+    route), the launches counted from 0."""
     import argparse
 
     import torch
 
     from diffassemble_tpu_torch.cli import train_3d
     from diffassemble_tpu_torch.train.checkpoint import CheckpointManager
-    from diffassemble_tpu_torch.train.heldout3d import model_from_asset, run_protocol
     from diffassemble_tpu_torch.train.train_state import TrainState
 
-    start = time.perf_counter()
-    model, cfg, protocol, step = model_from_asset(ASSET_3D, "cuda")
-    heads = cfg.heads
-    widths = (cfg.hidden_dim // heads, (model.feat_dim + 64) // heads)
-    rows = kernels_3d(protocol, heads, widths, max_err)
-    per_call = cfg.n_layers * (cfg.steps // cfg.inference_ratio)
-    n_calls = -(-protocol["test_n"] // protocol["batch"])
-    want_routes = {"tensor_cores": (cfg.n_layers - 1) * (cfg.steps // cfg.inference_ratio),
-                   "cuda_cores": cfg.steps // cfg.inference_ratio}
-    phase(f"3D model loaded from {ASSET_3D.name} (step {step}, {sum(v.numel() for v in model.parameters())} "
-          f"parameters, {cfg.compute_dtype}, backbone {cfg.backbone}, head widths {widths}) in "
-          f"{time.perf_counter() - start:.2f} s")
-
-    # the asset as a run of the port, evaluated by the CLI
-    run_dir = workdir / "run3d"
     ckpt = CheckpointManager(run_dir / "checkpoints", monitor="rmse_t_AVG", mode="min")
     ckpt.save_config(cfg)
     ckpt.save(step, TrainState(dict(model.named_parameters()), {}, step,
                                torch.Generator(device="cuda").manual_seed(0)))
     ap = argparse.ArgumentParser()
     train_3d.add_3d_args(ap)
+    p = protocol
     args = ap.parse_args([
         "--dataset", "synthetic", "--evaluate", "true", "--run_dir", str(run_dir),
-        "--test_n", str(protocol["test_n"]), "--batch_size", str(protocol["batch"]),
-        "--num_points", str(protocol["num_points"]), "--max_num_part", str(protocol["max_num_part"]),
-        "--min_num_part", str(protocol["min_num_part"]), "--wall_detail", str(protocol["wall_detail"]),
-        "--wall_boost", str(protocol["wall_boost"]), "--synthetic_canonical", str(protocol["canonical"]),
-        "--seed", str(protocol["seed"]), "--device", "cuda"])
+        "--test_n", str(p["test_n"]), "--batch_size", str(p["batch"]), "--num_points", str(p["num_points"]),
+        "--max_num_part", str(p["max_num_part"]), "--min_num_part", str(p["min_num_part"]),
+        "--wall_detail", str(p["wall_detail"]), "--wall_boost", str(p["wall_boost"]),
+        "--wall_surface", str(int(p.get("wall_surface", 0))), "--wall_freq", str(p.get("wall_freq", 14.0)),
+        "--synthetic_canonical", str(p["canonical"]), "--seed", str(p["seed"]), "--device", "cuda"])
     torch.cuda.synchronize()
     reset_counts()
-    cli_start = time.perf_counter()
+    start = time.perf_counter()
     cli = train_3d.run_3d(args)
     torch.cuda.synchronize()
-    cli_seconds = time.perf_counter() - cli_start
-    cli_counts, cli_routes = read_counts(), read_routes()
-    phase(f"run_3d --evaluate: {cli_seconds:.2f} s, launches {cli_counts}, forward by route "
-          f"{cli_routes['masked_attention_fwd']}; rmse_t_AVG {cli['rmse_t_AVG'][0]!r}, rmse_r_AVG "
-          f"{cli['rmse_r_AVG'][0]!r}, gd_r_AVG {cli['gd_r_AVG'][0]!r}, part_acc_AVG {cli['part_acc_AVG'][0]!r}")
-    if cli_counts != {"masked_attention_fwd": n_calls * per_call, "masked_attention_bwd_dq": 0,
-                      "masked_attention_bwd_dkv": 0}:
-        raise AssertionError(f"run_3d: launches {cli_counts}, expected {n_calls * per_call} forward and no backward")
-    if cli_routes["masked_attention_fwd"] != {r: n_calls * c for r, c in want_routes.items()}:
-        raise AssertionError(f"run_3d: forward launches by route {cli_routes['masked_attention_fwd']}")
-    if not all(math.isfinite(m) for m, _ in cli.values()):
-        raise AssertionError(f"run_3d: a metric is not finite: {cli}")
+    return cli, time.perf_counter() - start, read_counts(), read_routes()
 
-    # the protocol itself, each call timed and its launches counted
+
+def timed_protocol_3d(model, protocol: dict, ratio: int | None = None):
+    """``heldout3d``'s protocol at ``ratio`` with each call timed by CUDA
+    events and the host clock and its launches counted: (the row, the calls,
+    the launches counted from 0, by route, the peak memory)."""
+    import torch
+
+    from diffassemble_tpu_torch.train.heldout3d import run_protocol
+
     calls = []
     sample = model.sample
 
@@ -1675,79 +1775,191 @@ def eval3d(workdir: Path, max_err: dict[str, float]) -> tuple[dict, dict, dict, 
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     try:
-        result = run_protocol(model, protocol)
+        result = run_protocol(model, protocol, ratio=ratio)
     finally:
         model.sample = sample
-    counts, routes = read_counts(), read_routes()
-    peak = torch.cuda.max_memory_allocated()
-    for c in calls:
-        phase(f"3D held-out call of {c['objects']} objects ({c['parts']} parts): {c['ms']:.2f} ms (CUDA events), "
-              f"{c['host_s']:.3f} s host, launches {c['launches']}, forward by route "
-              f"{c['routes']['masked_attention_fwd']}")
-    phase(f"3D held-out: launches {counts}, forward by route {routes['masked_attention_fwd']} (the "
-          f"{want_routes['cuda_cores']} CUDA-core launches a call are the Dh {widths[1]} layer: the tensor-core "
-          f"route for it waits for ROADMAP K3); max_memory_allocated {peak / 2**30:.2f} GiB")
-    for c in calls:
-        if c["launches"] != {"masked_attention_fwd": per_call, "masked_attention_bwd_dq": 0,
-                             "masked_attention_bwd_dkv": 0} or c["routes"]["masked_attention_fwd"] != want_routes:
-            raise AssertionError(f"3D held-out call: launches {c['launches']} by route {c['routes']}, expected "
-                                 f"{per_call} forward ({want_routes}) and no backward")
-    if len(calls) != n_calls:
-        raise AssertionError(f"3D held-out: {len(calls)} calls, expected {n_calls}")
+    return result, calls, read_counts(), read_routes(), torch.cuda.max_memory_allocated()
+
+
+def eval3d(workdir: Path, max_err: dict[str, float]) -> tuple[dict, dict, dict, list[dict]]:
+    """The sixth main path: the trained 3D SE(3) model (``weights/diffusion3d_easy``
+    at step 12000, bf16, committed converted as ``ASSET_3D``) under
+    ``scripts/tpu_eval_3d.py``'s held-out protocol.
+
+    The forward kernel is checked and timed on the protocol's masks first
+    (``kernels_3d``). The asset is written as a run of the port (config.json
+    and a checkpoint of ``train/checkpoint.py``), which ``cli/train_3d.py``'s
+    ``run_3d --evaluate`` evaluates through ``Trainer.evaluate`` with the
+    fragment adapter in calls of 16; then ``heldout3d_eval`` runs the protocol
+    itself over the 64 objects in 4 calls of 16. Each run has its launches
+    counted from 0: exactly 120 forward launches a call (4 layers × 30 steps),
+    90 on the tensor cores (Dh 32) and 30 on the CUDA cores (Dh 264, the
+    tensor-core route for that width is ROADMAP K3), no backward launch. The
+    phase fails unless those hold, n_parts is 318, every metric is finite and
+    rmse_t, rmse_r and part_acc@0.05 lie within ``TOL_3D`` of the JAX
+    package's CPU run in bf16. The TPU's figures are printed beside the
+    card's, ungated. Returns the launches of the protocol run, by kernel and
+    by route, the result, and the kernel rows."""
+    from diffassemble_tpu_torch.train.heldout3d import model_from_asset
+
+    start = time.perf_counter()
+    model, cfg, protocol, step = model_from_asset(ASSET_3D, "cuda")
+    heads = cfg.heads
+    widths = (cfg.hidden_dim // heads, (model.feat_dim + 64) // heads)
+    rows = kernels_3d(protocol, heads, widths, max_err)
+    per_call = cfg.n_layers * (cfg.steps // cfg.inference_ratio)
+    n_calls = -(-protocol["test_n"] // protocol["batch"])
+    want_routes = {"tensor_cores": (cfg.n_layers - 1) * (cfg.steps // cfg.inference_ratio),
+                   "cuda_cores": cfg.steps // cfg.inference_ratio}
+    phase(f"3D model loaded from {ASSET_3D.name} (step {step}, {sum(v.numel() for v in model.parameters())} "
+          f"parameters, {cfg.compute_dtype}, backbone {cfg.backbone}, head widths {widths}) in "
+          f"{time.perf_counter() - start:.2f} s")
+
+    counts, routes, out, calls_by_ratio = protocol_runs_3d(workdir / "run3d", model, cfg, step, protocol,
+                                                           "diffusion3d_easy")
+    calls = calls_by_ratio[protocol["ratio"]]
     if len({r["route"] for r in rows}) != len(rows):
         raise AssertionError(f"3D held-out: the head widths {widths} share a route, so its launches do not split")
     for r in rows:  # each head width takes its own route: the protocol's launches a call on that route
         r["launches_per_3d_call"] = [c["routes"]["masked_attention_fwd"][r["route"]] for c in calls]
-
-    card = {"rmse_t": result["rmse_t"], "rmse_r": result["rmse_r"], "gd_r": result["gd_r"],
-            "part_acc@0.01": result["part_acc"]["0.01"], "part_acc@0.05": result["part_acc"]["0.05"]}
-    ref = JAX_CPU_3D[cfg.compute_dtype]
-    for key in card:
-        phase(f"3D held-out {key:14s}: card {card[key]!r}  JAX CPU {cfg.compute_dtype} {ref[key]!r}  "
-              f"JAX CPU float32 {JAX_CPU_3D['float32'][key]!r}  TPU {TPU_3D[key]!r}"
-              + (f"  |card - JAX CPU| {abs(card[key] - ref[key]):.5f} (tolerance {TOL_3D[key]})"
-                 if key in TOL_3D else ""))
-    phase(f"3D held-out: n_parts {result['n_parts']}, part_acc {result['part_acc']}, CD percentiles "
-          f"{result['cd_percentiles']}; the CLI's rmse_t_AVG {cli['rmse_t_AVG'][0]!r} against the protocol's "
-          f"{result['rmse_t']!r}")
-    within = {key: abs(card[key] - ref[key]) <= tol for key, tol in TOL_3D.items()}
-    if result["n_parts"] != N_PARTS_3D or not _finite(result) or not all(within.values()):
-        raise AssertionError(f"3D held-out gate: n_parts {result['n_parts']} (expected {N_PARTS_3D}), "
-                             f"within tolerance {within}, result {result}")
-    ms = [c["ms"] for c in calls]
-    out = {**result, "calls": calls,
-           "ms_per_call": sum(ms) / len(ms), "max_memory_allocated": peak,
-           "cli": {k: m for k, (m, _) in cli.items()}, "cli_seconds": cli_seconds,
-           "cli_launches": cli_counts, "cli_routes": cli_routes}
     return counts, routes, out, rows
 
 
-def train3d_args(run_dir: str, *extra: str):
-    """``cli/train_3d.py``'s arguments for the 3D training run
-    (``TRAIN3D_FLAGS``) in ``run_dir``, the encoder_init in this checkout."""
+def _headline(row: dict) -> dict[str, float]:
+    """The gated and printed figures of a ``heldout3d`` row, flat."""
+    out = {"rmse_t": row["rmse_t"], "rmse_r": row["rmse_r"], "gd_r": row["gd_r"],
+           "part_acc@0.01": row["part_acc"]["0.01"], "part_acc@0.05": row["part_acc"]["0.05"],
+           "gauge gd_r": row["gauge_aligned"]["gd_r"], "gauge rmse_t": row["gauge_aligned"]["rmse_t"]}
+    if "refined" in row:
+        r = row["refined"]
+        out.update({"refined rmse_t": r["rmse_t"], "refined rmse_r": r["rmse_r"], "refined gd_r": r["gd_r"],
+                    "refined part_acc@0.05": r["part_acc"]["0.05"]})
+    return out
+
+
+def protocol_runs_3d(run_dir: Path, model, cfg, step: int, protocol: dict, name: str):
+    """A trained 3D checkpoint ``name`` through both entry points: the CLI's
+    ``run_3d --evaluate`` (``cli_evaluate_3d``) at its config's ratio, then
+    ``heldout3d``'s protocol at each of its ratios (``timed_protocol_3d``),
+    and the metric's calibration rows. Each run has its launches counted from
+    0: the denoiser's layers × reverse steps forward launches a call, one
+    layer's on the CUDA cores and the others' on the tensor cores, no
+    backward launch. Gates: those launches, n_parts (``N_PARTS_3D_ASSETS``),
+    finite metrics, the zero-noise calibration row at part_acc 1.0, and each
+    key of ``TOL_3D_ASSETS`` that the row has within its tolerance of the
+    JAX package's CPU run in the checkpoint's type (``JAX_CPU_3D_ASSETS``).
+    Returns the protocol runs' launches, by route, the result, and each
+    ratio's calls."""
+    from diffassemble_tpu_torch.train.heldout3d import calibration, protocol_corpus, protocol_ratios
+
+    n_calls = -(-protocol["test_n"] // protocol["batch"])
+
+    def want(ratio):
+        steps = cfg.steps // ratio
+        return cfg.n_layers * steps, {"tensor_cores": (cfg.n_layers - 1) * steps, "cuda_cores": steps}
+
+    per_call, want_routes = want(cfg.inference_ratio)
+    cli, cli_seconds, cli_counts, cli_routes = cli_evaluate_3d(run_dir, model, cfg, step, protocol)
+    phase(f"{name} run_3d --evaluate: {cli_seconds:.2f} s, launches {cli_counts}, forward by route "
+          f"{cli_routes['masked_attention_fwd']}; rmse_t_AVG {cli['rmse_t_AVG'][0]!r}, rmse_r_AVG "
+          f"{cli['rmse_r_AVG'][0]!r}, gd_r_AVG {cli['gd_r_AVG'][0]!r}, part_acc_AVG {cli['part_acc_AVG'][0]!r}")
+    if cli_counts != {"masked_attention_fwd": n_calls * per_call, "masked_attention_bwd_dq": 0,
+                      "masked_attention_bwd_dkv": 0}:
+        raise AssertionError(f"{name} run_3d: launches {cli_counts}, expected {n_calls * per_call} forward and "
+                             f"no backward")
+    if cli_routes["masked_attention_fwd"] != {r: n_calls * c for r, c in want_routes.items()}:
+        raise AssertionError(f"{name} run_3d: forward launches by route {cli_routes['masked_attention_fwd']}")
+    if not all(math.isfinite(m) for m, _ in cli.values()):
+        raise AssertionError(f"{name} run_3d: a metric is not finite: {cli}")
+
+    calib = calibration(protocol_corpus(protocol), protocol["batch"], protocol["max_num_part"], protocol["seed"],
+                        "cuda")
+    phase(f"{name} calibration (true poses under known noise): "
+          + "; ".join(f"{r['rot_deg']}°/{r['trans_sigma']}: part_acc@0.01 {r['part_acc']['0.01']:.4f} "
+                      f"@0.05 {r['part_acc']['0.05']:.4f}, CD median {r['cd_median']:.3e}" for r in calib))
+    if calib[0]["rot_deg"] or calib[0]["trans_sigma"] or set(calib[0]["part_acc"].values()) != {1.0}:
+        raise AssertionError(f"{name} calibration: the true poses do not score part_acc 1.0: {calib[0]}")
+
+    counts = dict.fromkeys(KERNEL_SOURCES, 0)
+    routes = {k: dict.fromkeys(("tensor_cores", "cuda_cores"), 0) for k in KERNEL_SOURCES}
+    out, calls_by_ratio = {"cli": {k: m for k, (m, _) in cli.items()}, "cli_seconds": cli_seconds,
+                           "cli_launches": cli_counts, "cli_routes": cli_routes, "calibration": calib,
+                           "rows": []}, {}
+    for ratio in protocol_ratios(protocol):
+        ratio = ratio or cfg.inference_ratio
+        per_call, want_routes = want(ratio)
+        result, calls, c_counts, c_routes, peak = timed_protocol_3d(model, protocol, ratio)
+        for k in KERNEL_SOURCES:
+            counts[k] += c_counts[k]
+            for r in routes[k]:
+                routes[k][r] += c_routes[k][r]
+        for c in calls:
+            phase(f"{name} held-out call, ratio {ratio}, {c['objects']} objects ({c['parts']} parts): "
+                  f"{c['ms']:.2f} ms (CUDA events), {c['host_s']:.3f} s host, launches {c['launches']}, forward by "
+                  f"route {c['routes']['masked_attention_fwd']}")
+            if c["launches"] != {"masked_attention_fwd": per_call, "masked_attention_bwd_dq": 0,
+                                 "masked_attention_bwd_dkv": 0} or c["routes"]["masked_attention_fwd"] != want_routes:
+                raise AssertionError(f"{name} held-out call: launches {c['launches']} by route {c['routes']}, "
+                                     f"expected {per_call} forward ({want_routes}) and no backward")
+        if len(calls) != n_calls:
+            raise AssertionError(f"{name} held-out: {len(calls)} calls, expected {n_calls}")
+        card = _headline(result)
+        refs = JAX_CPU_3D_ASSETS[name][ratio]  # a ratio without the JAX package's figures fails here
+        ref = refs[cfg.compute_dtype]
+        tpu = TPU_3D_ASSETS.get(name, {}).get(ratio, {})
+        for key, value in card.items():
+            gated = key in TOL_3D_ASSETS[name] and key in ref
+            phase(f"{name} ratio {ratio} {key:22s}: card {value!r}  JAX CPU {cfg.compute_dtype} {ref.get(key)!r}  "
+                  f"JAX CPU float32 {refs.get('float32', {}).get(key)!r}  TPU {tpu.get(key)!r}"
+                  + (f"  |card - JAX CPU| {abs(value - ref[key]):.5f} (tolerance {TOL_3D_ASSETS[name][key]})"
+                     if gated else "  (printed, ungated)"))
+        phase(f"{name} ratio {ratio}: n_parts {result['n_parts']}, part_acc {result['part_acc']}, CD percentiles "
+              f"{result['cd_percentiles']}, gauge-aligned {result['gauge_aligned']}"
+              + (f", refined {result['refined']}" if "refined" in result else "")
+              + f"; max_memory_allocated {peak / 2**30:.2f} GiB")
+        within = {key: abs(card[key] - ref[key]) <= tol for key, tol in TOL_3D_ASSETS[name].items()
+                  if key in card and key in ref}
+        if result["n_parts"] != N_PARTS_3D_ASSETS[name] or not _finite(result) or not all(within.values()):
+            raise AssertionError(f"{name} held-out gate, ratio {ratio}: n_parts {result['n_parts']} (expected "
+                                 f"{N_PARTS_3D_ASSETS[name]}), within tolerance {within}, result {result}")
+        ms = [c["ms"] for c in calls]
+        out["rows"].append({**result, "calls": calls, "ms_per_call": sum(ms) / len(ms), "max_memory_allocated": peak})
+        calls_by_ratio[ratio] = calls
+    out.update({k: v for k, v in out["rows"][0].items()})  # the first ratio's row at the top, as before
+    phase(f"{name}: {sum(len(c) for c in calls_by_ratio.values())} held-out calls, launches {counts}, by route "
+          f"{routes['masked_attention_fwd']}; the CLI's rmse_t_AVG {cli['rmse_t_AVG'][0]!r} against the protocol's "
+          f"{out['rmse_t']!r}")
+    return counts, routes, out, calls_by_ratio
+
+
+def train3d_args(run_dir: str, *extra: str, flags: list[str] = TRAIN3D_FLAGS):
+    """``cli/train_3d.py``'s arguments for a 3D training run (default: the
+    easy run's, ``TRAIN3D_FLAGS``) in ``run_dir``, the encoder_init in this
+    checkout."""
     import argparse
 
     from diffassemble_tpu_torch.cli import train_3d
 
     ap = argparse.ArgumentParser()
     train_3d.add_3d_args(ap)
-    args = ap.parse_args([*TRAIN3D_FLAGS, "--run_dir", run_dir, *extra])
-    args.encoder_init = str(ROOT / args.encoder_init)
+    args = ap.parse_args([*flags, "--run_dir", run_dir, *extra])
+    if args.encoder_init:
+        args.encoder_init = str(ROOT / args.encoder_init)
     return args
 
 
-def loss_inputs_3d():
-    """The trained-weights loss check's inputs on the host: the 3D run's first
-    training batch as ``Trainer.fit`` draws it (16 objects, 8 parts of 512
-    points), and the loss's draws, numpy from ``LOSS3D_SEED`` in this order:
-    t (16,), the translation noise (16, 8, 3), the IGSO3 quantiles (16, 8)
-    and axes (16, 8, 3)."""
+def loss_inputs_3d(args=None):
+    """A loss check's inputs on the host: a 3D run's first training batch as
+    ``Trainer.fit`` draws it (default: the easy run's, 16 objects, 8 parts of
+    512 points), and the loss's draws, numpy from ``LOSS3D_SEED`` in this
+    order: t (16,), the translation noise (16, 8, 3), the IGSO3 quantiles
+    (16, 8) and axes (16, 8, 3)."""
     import numpy as np
 
     from diffassemble_tpu_torch.cli import train_3d
     from diffassemble_tpu_torch.train.trainer import batch_iterator, fragment_adapter
 
-    args = train3d_args("")
+    args = args or train3d_args("")
     train_ds, _, cats = train_3d.datasets_3d(args)
     adapter = fragment_adapter(args.max_num_part, cats, seed=args.seed)
     adapter.collate([train_ds[0]], args.max_num_part)  # as fit does first
@@ -1818,20 +2030,26 @@ def trained_loss_check() -> dict[str, dict[str, float]]:
     return out
 
 
-def gradient_parity_3d(nb, draws) -> None:
-    """One full-width f32 loss and backward of the trained 3D weights on the
-    run's first batch and the check's draws, with the kernels (8 launches of
-    each) and with plain attention (none): every gradient finite and within
-    1e-3 of its parameter's largest entry plus 1e-6 of the model's of the
-    plain one (sums in another order through the denoiser's two passes), and
-    every query, key and value weight, the encoder and the relative-pose
-    head with a nonzero gradient."""
+def gradient_parity_3d(nb, draws, model=None, label: str = "3D") -> None:
+    """One full-width f32 loss and backward of ``model`` (default: the trained
+    3D weights) on the run's first batch and the check's draws, with the
+    kernels (each pass of the denoiser launches each kernel once a layer) and
+    with plain attention (none): every gradient finite and within 1e-3 of its
+    parameter's largest entry plus 1e-6 of the model's of the plain one
+    (sums in another order through the denoiser's passes), and every query,
+    key and value weight, the encoder, the relative-pose head (when the model
+    has one) and the denoiser with a nonzero gradient."""
+    import re
+
     import torch
 
     from diffassemble_tpu_torch.ops import attention
     from diffassemble_tpu_torch.train.heldout3d import model_from_asset
 
-    model, cfg, _, _ = model_from_asset(ASSET_3D, "cuda", "float32")
+    if model is None:
+        model, _, _, _ = model_from_asset(ASSET_3D, "cuda", "float32")
+    cfg = model.cfg
+    passes = 2 if cfg.aux_pose_weight > 0 else 1
     batch = nb.to("cuda")
     draws = {k: torch.as_tensor(v, device="cuda") for k, v in draws.items()}
     grads = []
@@ -1844,30 +2062,104 @@ def gradient_parity_3d(nb, draws) -> None:
             loss.backward()
             torch.cuda.synchronize()
             launched = {k: v - before[k] for k, v in read_counts().items()}
-        if launched != dict.fromkeys(KERNEL_SOURCES, 0 if swap else 2 * cfg.n_layers):
-            raise AssertionError(f"3D gradients: launches {launched} (plain attention: {swap})")
+        if launched != dict.fromkeys(KERNEL_SOURCES, 0 if swap else passes * cfg.n_layers):
+            raise AssertionError(f"{label} gradients: launches {launched} (plain attention: {swap})")
         missing = [k for k, p in model.named_parameters() if p.grad is None]
         if missing:
-            raise AssertionError(f"3D gradients: no gradient reached {missing}")
+            raise AssertionError(f"{label} gradients: no gradient reached {missing}")
         grads.append({k: p.grad.detach().clone() for k, p in model.named_parameters()})
     kern, plain = grads
     gmax = max(float(g.abs().max()) for g in plain.values())
-    worst = 0.0
+    worst, worst_name = 0.0, ""
     for name, g in plain.items():
         err = float((kern[name] - g).abs().max())
         tol = 1e-3 * float(g.abs().max()) + 1e-6 * gmax
-        worst = max(worst, err / tol)
+        if err / tol > worst:
+            worst, worst_name = err / tol, name
         if not (bool(torch.isfinite(kern[name]).all()) and err <= tol):
-            raise AssertionError(f"3D {name}: kernel gradient differs from plain by {err:.3e} (tol {tol:.3e})")
-    qkv = [f"denoiser.gnn.layers.{i}.{p}.weight" for i in range(cfg.n_layers) for p in ("query", "key", "value")]
+            raise AssertionError(f"{label} {name}: kernel gradient differs from plain by {err:.3e} (tol {tol:.3e})")
+    qkv = [n for n in kern if re.fullmatch(r"denoiser\.gnn\.layers\.\d+\.(conv\.)?(query|key|value)\.weight", n)]
+    if len(qkv) != 3 * cfg.n_layers:
+        raise AssertionError(f"{label} gradients: query/key/value weights {qkv}")
     smallest = min(float(kern[n].abs().max()) for n in qkv)
     groups = {g: max(float(v.abs().max()) for k, v in kern.items() if k.startswith(g + "."))
-              for g in ("encoder", "rel_head", "denoiser")}
+              for g in ("encoder", "rel_head", "denoiser") if any(k.startswith(g + ".") for k in kern)}
     if not (smallest > 0 and all(v > 0 for v in groups.values())):
-        raise AssertionError(f"3D gradients: a zero gradient (query/key/value {smallest}, groups {groups})")
-    phase(f"3D gradient parity f32, B={batch.x0.shape[0]} full width, trained weights: kernels vs plain attention, "
-          f"worst err/tol {worst:.3f} over {len(plain)} parameters; all finite, {len(qkv)} query/key/value weights "
-          f"nonzero (smallest max|g| {smallest:.3e}), max|g| by part {groups}")
+        raise AssertionError(f"{label} gradients: a zero gradient (query/key/value {smallest}, groups {groups})")
+    phase(f"{label} gradient parity f32, B={batch.x0.shape[0]} full width: kernels vs plain attention, "
+          f"worst err/tol {worst:.3f} ({worst_name}) over {len(plain)} parameters; all finite, {len(qkv)} "
+          f"query/key/value weights nonzero (smallest max|g| {smallest:.3e}), max|g| by part {groups}")
+
+
+def drive_run_3d(argss: list, eval_every: int, label: str):
+    """``run_3d`` without ``--evaluate`` on each of ``argss`` in turn (a run,
+    then its resumes), every train step and evaluation timed and its launches
+    counted, evaluating every ``eval_every`` steps (the CLI's is every 1000).
+    The launches are counted from 0. Returns (the steps, the evaluations,
+    (steps so far, checkpoints) after each run, seconds, peak memory)."""
+    import torch
+
+    from diffassemble_tpu_torch.cli import train_3d
+    from diffassemble_tpu_torch.train import trainer as trainer_mod
+
+    steps, evals, runs = [], [], []
+    make_step = trainer_mod.make_train_step
+
+    def counted_make_train_step(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def counted(state, batch):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            t0, before, before_routes = time.perf_counter(), read_counts(), read_routes()
+            ev[0].record()
+            new, aux = step(state, batch)
+            ev[1].record()
+            torch.cuda.synchronize()
+            rec = {"step": new.step, "seconds": time.perf_counter() - t0, "ms": ev[0].elapsed_time(ev[1]),
+                   "launches": {k: v - before[k] for k, v in read_counts().items()},
+                   "routes": routes_since(before_routes), **{k: float(v) for k, v in aux.items()}}
+            steps.append(rec)
+            norms = ", ".join(f"{k[len('grad_norm/'):]} {v:.4f}" for k, v in rec.items() if k.startswith("grad_norm/"))
+            phase(f"{label} train step {rec['step']}: {rec['seconds']:.3f} s host, {rec['ms']:.2f} ms CUDA events, "
+                  f"launches {rec['launches']}, loss {rec['loss']:.4f}, grad_norm {rec['grad_norm']:.4f} ({norms})")
+            return new, aux
+
+        return counted
+
+    class EvaluatedTrainer(trainer_mod.Trainer):
+        """The CLI's ``Trainer``, evaluating every ``eval_every`` steps, each
+        evaluation timed and counted."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.eval_every = eval_every
+
+        def evaluate(self, params, eval_ds, max_batches=None, tag="val", step=0):
+            torch.cuda.synchronize()
+            t0, before, before_routes = time.perf_counter(), read_counts(), read_routes()
+            metrics = super().evaluate(params, eval_ds, max_batches=max_batches, tag=tag, step=step)
+            torch.cuda.synchronize()
+            calls = min(max_batches or len(eval_ds), len(eval_ds) // self.batch_size)
+            rec = {"tag": tag, "step": step, "calls": calls, "seconds": time.perf_counter() - t0,
+                   "launches": {k: v - before[k] for k, v in read_counts().items()},
+                   "routes": routes_since(before_routes), "rmse_t_AVG": metrics["rmse_t_AVG"]}
+            evals.append(rec)
+            phase(f"{label} {tag} evaluation at step {step}: {calls} call(s) of {self.batch_size} objects, "
+                  f"{rec['seconds']:.3f} s, launches {rec['launches']}, rmse_t_AVG {rec['rmse_t_AVG']!r}")
+            return metrics
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start = time.perf_counter()
+    with mock.patch.object(trainer_mod, "make_train_step", counted_make_train_step), \
+            mock.patch.object(trainer_mod, "Trainer", EvaluatedTrainer):
+        for args in argss:
+            train_3d.run_3d(args)
+            ckpt_dir = Path(args.run_dir) / "checkpoints"
+            runs.append((len(steps), sorted(int(p.name) for p in ckpt_dir.iterdir() if p.name.isdigit())))
+    return steps, evals, runs, time.perf_counter() - start, torch.cuda.max_memory_allocated()
 
 
 def train3d(workdir: Path, max_err: dict[str, float]) -> tuple[dict[str, int], dict[str, dict[str, int]], dict,
@@ -1886,10 +2178,7 @@ def train3d(workdir: Path, max_err: dict[str, float]) -> tuple[dict[str, int], d
     head and the denoiser; every evaluation 120 forward launches a call of 16
     objects and no backward; the checkpoints and the resume. Returns the
     run's launches, by kernel and by route, its result and the kernel rows."""
-    import torch
-
     from diffassemble_tpu_torch.cli import train_3d
-    from diffassemble_tpu_torch.train import trainer as trainer_mod
 
     start = time.perf_counter()
     nb, draws = loss_inputs_3d()
@@ -1901,69 +2190,13 @@ def train3d(workdir: Path, max_err: dict[str, float]) -> tuple[dict[str, int], d
     losses = trained_loss_check()
     gradient_parity_3d(nb, draws)
 
-    steps, evals = [], []
-    make_step = trainer_mod.make_train_step
     per_call = cfg.n_layers * (cfg.steps // cfg.inference_ratio)
-
-    def counted_make_train_step(*args, **kwargs):
-        step = make_step(*args, **kwargs)
-
-        def counted(state, batch):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            torch.cuda.synchronize()
-            t0, before, before_routes = time.perf_counter(), read_counts(), read_routes()
-            ev[0].record()
-            new, aux = step(state, batch)
-            ev[1].record()
-            torch.cuda.synchronize()
-            rec = {"step": new.step, "seconds": time.perf_counter() - t0, "ms": ev[0].elapsed_time(ev[1]),
-                   "launches": {k: v - before[k] for k, v in read_counts().items()},
-                   "routes": routes_since(before_routes), **{k: float(v) for k, v in aux.items()}}
-            steps.append(rec)
-            phase(f"3D train step {rec['step']}: {rec['seconds']:.3f} s host, {rec['ms']:.2f} ms CUDA events, "
-                  f"launches {rec['launches']}, loss {rec['loss']:.4f}, grad_norm {rec['grad_norm']:.4f} (encoder "
-                  f"{rec['grad_norm/encoder']:.4f}, rel_head {rec['grad_norm/rel_head']:.4f}, denoiser "
-                  f"{rec['grad_norm/denoiser']:.4f})")
-            return new, aux
-
-        return counted
-
-    class EvaluatedTrainer(trainer_mod.Trainer):
-        """The CLI's ``Trainer``, evaluating every ``TRAIN3D_STEPS`` steps
-        (the CLI's is every 1000), each evaluation timed and counted."""
-
-        def __init__(self, *args, **kwargs):
-            super().__init__(*args, **kwargs)
-            self.eval_every = TRAIN3D_STEPS
-
-        def evaluate(self, params, eval_ds, max_batches=None, tag="val", step=0):
-            torch.cuda.synchronize()
-            t0, before, before_routes = time.perf_counter(), read_counts(), read_routes()
-            metrics = super().evaluate(params, eval_ds, max_batches=max_batches, tag=tag, step=step)
-            torch.cuda.synchronize()
-            calls = min(max_batches or len(eval_ds), len(eval_ds) // self.batch_size)
-            rec = {"tag": tag, "step": step, "calls": calls, "seconds": time.perf_counter() - t0,
-                   "launches": {k: v - before[k] for k, v in read_counts().items()},
-                   "routes": routes_since(before_routes), "rmse_t_AVG": metrics["rmse_t_AVG"]}
-            evals.append(rec)
-            phase(f"3D {tag} evaluation at step {step}: {calls} call(s) of {self.batch_size} objects, "
-                  f"{rec['seconds']:.3f} s, launches {rec['launches']}, rmse_t_AVG {rec['rmse_t_AVG']!r}")
-            return metrics
-
     run_dir = workdir / "train3d"
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    start = time.perf_counter()
-    with mock.patch.object(trainer_mod, "make_train_step", counted_make_train_step), \
-            mock.patch.object(trainer_mod, "Trainer", EvaluatedTrainer):
-        train_3d.run_3d(train3d_args(str(run_dir), "--max_steps", str(TRAIN3D_STEPS)))
-        first_run = len(steps)
-        first_ckpts = sorted(int(p.name) for p in (run_dir / "checkpoints").iterdir() if p.name.isdigit())
-        train_3d.run_3d(train3d_args(str(run_dir), "--max_steps", str(TRAIN3D_RESUME_TO)))
-    seconds = time.perf_counter() - start
+    steps, evals, runs, seconds, peak = drive_run_3d(
+        [train3d_args(str(run_dir), "--max_steps", str(TRAIN3D_STEPS)),
+         train3d_args(str(run_dir), "--max_steps", str(TRAIN3D_RESUME_TO))], TRAIN3D_STEPS, "3D")
+    first_run, first_ckpts = runs[0]
     counts, routes = read_counts(), read_routes()
-    peak = torch.cuda.max_memory_allocated()
     ckpts = sorted(int(p.name) for p in (run_dir / "checkpoints").iterdir() if p.name.isdigit())
 
     step_want = dict.fromkeys(KERNEL_SOURCES, 2 * cfg.n_layers)
@@ -2010,6 +2243,235 @@ def train3d(workdir: Path, max_err: dict[str, float]) -> tuple[dict[str, int], d
           f"max_memory_allocated {peak / 2**30:.2f} GiB; checkpoints {first_ckpts} then {ckpts}; losses "
           f"{[round(x, 4) for x in result['losses']]}; launches {counts}, by route {routes}")
     return counts, routes, result, rows
+
+
+def asset_protocol_3d(name: str) -> dict:
+    """A committed 3D asset's protocol, read without building its model."""
+    import numpy as np
+
+    from diffassemble_tpu_torch.train.heldout3d import ASSETS
+
+    with np.load(ASSETS[name]) as z:
+        return json.loads(str(z["protocol"]))
+
+
+def kernels_3d_widths(max_err: dict[str, float]) -> list[dict]:
+    """All three kernels at every head width the 3D family gives them, on the
+    3D protocols' own masks: N = 8 (``diffusion3d_easy``'s first call, 2–8
+    parts) and N = 20 (``diffusion3d_vndgcnn``'s, 2–20 parts: most rows are
+    padding, with empty query rows and unattended keys), against their plain
+    versions in bf16 and f32 with phase 3's tolerances, exact zeros and
+    routes; then timed in bf16 where a main path launches them
+    (``time_on_masks``): at N = 20 Dh 32 (every N = 20 path), 24
+    (``pointnet``), 40 (``pointnet_plus``), 104 (``diffusion3d_vndgcnn``),
+    136 (``pointnet_inv``) and 271 (``vnn``), at N = 8 Dh 136 (split message
+    passing). Returns the timed rows, each with its mask's N."""
+    import torch
+
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for name, timed in (("diffusion3d_easy", (136,)), ("diffusion3d_vndgcnn", (24, 32, 40, 104, 136, 271))):
+        mask = first_batch_3d(asset_protocol_3d(name)).adj.contiguous()
+        b, n, _ = mask.shape
+        label = f"3D protocol {name}, first call"
+        phase(f"3D masks, {name}: B={b} N={n}, {int((~mask.any(-1)).sum())} empty query rows, "
+              f"{int((~mask.any(-2)).sum())} unattended keys, {int(mask.sum())} attended pairs")
+        for dh in (32, *OTHER_HEAD_DIMS):
+            for dtype in (torch.bfloat16, torch.float32):
+                _check_kernels(label, mask, dh, dtype, gen, max_err)
+        rows += time_on_masks(mask, label, timed, gen)
+    return rows
+
+
+def eval3d_more(workdir: Path) -> dict[str, tuple]:
+    """The eighth main path: the three other trained 3D checkpoints
+    (``MORE_ASSETS_3D``) through ``run_3d --evaluate`` and ``heldout3d``'s
+    protocol (``protocol_runs_3d``): ``diffusion3d_relpose`` and
+    ``diffusion3d_wallsurf`` (its refined row too) at ratio 10,
+    ``diffusion3d_vndgcnn`` (N = 20, Dh 104 on the CUDA cores) at ratios 10
+    and 2. Each checkpoint's two head widths must take two routes. Returns,
+    by asset, (launches, by route, the result, the calls by ratio, the head
+    widths, N)."""
+    from diffassemble_tpu_torch.ops import cuda_attention as ca
+    from diffassemble_tpu_torch.train.heldout3d import model_from_asset
+
+    import torch
+
+    out = {}
+    for name in MORE_ASSETS_3D:
+        start = time.perf_counter()
+        model, cfg, protocol, step = model_from_asset(name, "cuda")
+        widths = (cfg.hidden_dim // cfg.heads, (model.feat_dim + 64) // cfg.heads)
+        probe = [torch.zeros((1, cfg.max_num_part, cfg.heads, w), dtype=torch.bfloat16, device="cuda")
+                 for w in widths]
+        mask = torch.ones((1, cfg.max_num_part, cfg.max_num_part), dtype=torch.bool, device="cuda")
+        routes_of = {ca.route("masked_attention_fwd", t, t, t, mask) for t in probe}
+        phase(f"{name} loaded (step {step}, {sum(v.numel() for v in model.parameters())} parameters, "
+              f"{cfg.compute_dtype}, backbone {cfg.backbone}, N {cfg.max_num_part}, head widths {widths} on "
+              f"{sorted(routes_of)}) in {time.perf_counter() - start:.2f} s")
+        if len(routes_of) != len(widths):
+            raise AssertionError(f"{name}: the head widths {widths} share a route, so its launches do not split")
+        counts, routes, result, calls = protocol_runs_3d(workdir / f"run_{name}", model, cfg, step, protocol, name)
+        out[name] = (counts, routes, result, calls, widths, cfg.max_num_part)
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def card_vs_cpu_loss_3d(args, nb, draws, label: str) -> dict[str, float]:
+    """The f32 loss dict of the configuration's seeded weights (with its
+    encoder_init) on the card and on the CPU, on the first ``LOSS_CPU_OBJECTS``
+    objects of the batch with the same draws: each term within
+    ``TOL_LOSS_3D["float32"]``'s relative tolerance, the total within the
+    tighter one. Returns the card's dict."""
+    import dataclasses
+
+    import torch
+
+    from diffassemble_tpu_torch.cli import train_3d
+    from diffassemble_tpu_torch.models import Diffusion3D
+
+    cfg = dataclasses.replace(train_3d.config_from_args(args), compute_dtype="float32")
+    small = type(nb)(*[a[:LOSS_CPU_OBJECTS] for a in nb])
+    got = {}
+    for device in ("cpu", "cuda"):
+        model = Diffusion3D(cfg, device=device, seed=args.seed)
+        model.init(args.seed)
+        with torch.no_grad():
+            _, out = model.loss(small.to(device), **{k: torch.as_tensor(v[:LOSS_CPU_OBJECTS], device=device)
+                                                     for k, v in draws.items()})
+        got[device] = {k: float(v) for k, v in out.items()}
+    term_tol, total_tol = TOL_LOSS_3D["float32"]
+    card, cpu = got["cuda"], got["cpu"]
+    rel = {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-12) for k in cpu}
+    worst = max(rel[k] / (total_tol if k == "loss" else term_tol) for k in cpu)
+    phase(f"{label} loss f32, card vs CPU, {LOSS_CPU_OBJECTS} objects, seeded weights: total {card['loss']!r} vs "
+          f"{cpu['loss']!r}; largest relative error {max(rel.values()):.2e} ({max(rel, key=rel.get)}), worst "
+          f"err/tol {worst:.3f}")
+    if set(card) != set(cpu) or not all(math.isfinite(v) for v in card.values()) or worst > 1.0:
+        raise AssertionError(f"{label} loss f32: card {card} against CPU {cpu} (relative {rel})")
+    return card
+
+
+def _check_steps_3d(label: str, cfg, steps: list[dict], evals: list[dict], width: int) -> None:
+    """Each step: the denoiser's passes × layers launches of each kernel,
+    one layer's (head width ``width``) on the CUDA cores and the others' on
+    the tensor cores; finite losses and gradient norms, every group's
+    gradient nonzero. Each evaluation: one call, the layers × reverse steps
+    forward launches, no backward."""
+    passes = 2 if cfg.aux_pose_weight > 0 else 1
+    step_want = dict.fromkeys(KERNEL_SOURCES, passes * cfg.n_layers)
+    route_want = dict.fromkeys(KERNEL_SOURCES, {"tensor_cores": passes * (cfg.n_layers - 1), "cuda_cores": passes})
+    for s in steps:
+        if s["launches"] != step_want or s["routes"] != route_want:
+            raise AssertionError(f"{label} step {s['step']}: launches {s['launches']} by route {s['routes']}, "
+                                 f"expected {step_want}, {route_want} (Dh {width} on the CUDA cores)")
+        norms = [v for k, v in s.items() if k.startswith("grad_norm/")]
+        if not (all(math.isfinite(v) for v in s.values() if isinstance(v, float)) and s["grad_nonfinite"] == 0
+                and len(norms) >= 2 and min(norms) > 0):
+            raise AssertionError(f"{label} step {s['step']}: bad loss or gradient norms {s}")
+    reverse = cfg.steps // cfg.inference_ratio
+    per_call = cfg.n_layers * reverse
+    for e in evals:
+        if (e["calls"] != 1 or e["launches"] != {"masked_attention_fwd": per_call, "masked_attention_bwd_dq": 0,
+                                                 "masked_attention_bwd_dkv": 0}
+                or e["routes"]["masked_attention_fwd"] != {"tensor_cores": (cfg.n_layers - 1) * reverse,
+                                                           "cuda_cores": reverse}):
+            raise AssertionError(f"{label} evaluation: {e}, expected {per_call} forward launches a call")
+
+
+def train3d_more(workdir: Path) -> dict[str, tuple]:
+    """The ninth main path: 3D training with the other encoders and split
+    message passing, through ``run_3d`` without ``--evaluate``. First the
+    full-width ``pointnet`` run (``TRAIN3D_POINTNET_FLAGS``: the
+    configuration of ``results/quality-3d-pointnet``, N = 20, batch 16 of
+    1000 points, from ``weights/pointnet_pose3d.npz``): 3 steps with an
+    evaluation and a checkpoint at step 3, then a resume to step 4. Then one
+    step each of ``TRAIN3D_ONE_STEP``: ``pointnet_inv``, ``pointnet_plus`` and
+    ``vnn`` at the same widths, and ``vn_dgcnn`` with ``--equiv_inv_mp 1`` on
+    the easy run's corpus (N = 8). For each configuration, before its run,
+    the f32 loss of its seeded weights on the card against the CPU
+    (``card_vs_cpu_loss_3d``), and for ``vnn`` (Dh 271) and the split
+    message passing (Dh 136, keys and values from the second stream) the
+    f32 gradients with the kernels against plain attention. Gates
+    (``_check_steps_3d``): launches by route, finite losses and gradient
+    norms, the checkpoints and the resume. Returns, by configuration,
+    (launches, by route, the result, the two head widths, N)."""
+    import dataclasses
+
+    import torch
+
+    from diffassemble_tpu_torch.cli import train_3d
+    from diffassemble_tpu_torch.models import Diffusion3D
+
+    out = {}
+    for label, flags in {"pointnet": TRAIN3D_POINTNET_FLAGS, **TRAIN3D_ONE_STEP}.items():
+        run_dir = workdir / f"train_{label}"
+        args = train3d_args(str(run_dir), flags=flags)
+        cfg = train_3d.config_from_args(args)
+        start = time.perf_counter()
+        nb, draws = loss_inputs_3d(args)
+        model = Diffusion3D(cfg, device="cuda", seed=args.seed)
+        width = (model.feat_dim + 64) // cfg.heads
+        phase(f"{label}: first batch (B={nb.x0.shape[0]}, N={nb.x0.shape[1]}, {nb.pcds.shape[2]} points) and draws "
+              f"made in {time.perf_counter() - start:.2f} s; backbone {model.cfg.backbone}, feature width "
+              f"{model.feat_dim}, head widths ({cfg.hidden_dim // cfg.heads}, {width}), split message passing "
+              f"{cfg.equiv_inv_mp}")
+        losses = card_vs_cpu_loss_3d(args, nb, draws, label)
+        if label in GRADIENT_PARITY_3D:
+            f32 = Diffusion3D(dataclasses.replace(cfg, compute_dtype="float32"), device="cuda", seed=args.seed)
+            f32.init(args.seed)
+            gradient_parity_3d(nb, draws, f32, label)
+            del f32
+        del model
+        torch.cuda.empty_cache()
+        if label == "pointnet":
+            argss = [train3d_args(str(run_dir), "--max_steps", str(TRAIN3D_POINTNET_STEPS), flags=flags),
+                     train3d_args(str(run_dir), "--max_steps", str(TRAIN3D_POINTNET_RESUME_TO), flags=flags)]
+        else:
+            argss = [train3d_args(str(run_dir), "--max_steps", "1", flags=flags)]
+        steps, evals, runs, seconds, peak = drive_run_3d(argss, TRAIN3D_POINTNET_STEPS, label)
+        counts, routes = read_counts(), read_routes()
+        _check_steps_3d(label, cfg, steps, evals, width)
+        last = argss[-1].max_steps
+        if [s["step"] for s in steps] != list(range(1, last + 1)) or runs[-1][1] != sorted(
+                {*([TRAIN3D_POINTNET_STEPS] if label == "pointnet" else []), last}):
+            raise AssertionError(f"{label}: steps {[s['step'] for s in steps]}, checkpoints after each run {runs}")
+        saved = json.loads((run_dir / "checkpoints" / "config.json").read_text())
+        if saved["backbone"] != cfg.backbone or saved["equiv_inv_mp"] != cfg.equiv_inv_mp:
+            raise AssertionError(f"{label}: config.json {saved}")
+        result = {"seconds": seconds, "max_memory_allocated": peak, "losses": [s["loss"] for s in steps],
+                  "host_s": [s["seconds"] for s in steps], "cuda_ms": [s["ms"] for s in steps],
+                  "evals": [(e["tag"], e["step"], e["rmse_t_AVG"]) for e in evals], "checkpoints": runs[-1][1],
+                  "loss_f32_card": losses, "launches_per_step": [s["routes"] for s in steps]}
+        phase(f"{label} training: {len(steps)} step(s) in {len(argss)} run(s), {seconds:.1f} s with evaluations and "
+              f"checkpoints; s/step by host clock {[round(x, 3) for x in result['host_s']]}, CUDA events (ms) "
+              f"{[round(x, 2) for x in result['cuda_ms']]}; max_memory_allocated {peak / 2**30:.2f} GiB; checkpoints "
+              f"{runs[-1][1]}; losses {[round(x, 4) for x in result['losses']]}; launches {counts}, by route {routes}")
+        out[label] = (counts, routes, result, (cfg.hidden_dim // cfg.heads, width), cfg.max_num_part)
+    return out
+
+
+def attach_launches_3d(rows: list[dict], e_more: dict, t_more: dict) -> list[dict]:
+    """Each timed row of ``kernels_3d_widths`` gets ``launches_by_path``: for
+    every main path of ``eval3d_more`` and ``train3d_more`` that runs its
+    kernel at its head width and N, the launches on its route in each call
+    or step (each width of a path takes its own route); a row that no main
+    path runs gets ``main_path`` False."""
+    for r in rows:
+        kernel, route, by_path = r["kernel"], r["route"], {}
+        for name, (_, _, _, calls, widths, n) in e_more.items():
+            if kernel == "masked_attention_fwd" and n == r["n"] and r["dh"] in widths:
+                for ratio, cs in calls.items():
+                    by_path[f"eval3d_{name}_ratio{ratio}"] = [c["routes"][kernel][route] for c in cs]
+        for label, (_, _, result, widths, n) in t_more.items():
+            if n == r["n"] and r["dh"] in widths:
+                by_path[f"train3d_{label}"] = [st[kernel][route] for st in result["launches_per_step"]]
+        # the backward at Dh 104 runs on no main path (its checkpoint only evaluates): timed, not counted
+        r["main_path"], r["launches_by_path"] = bool(by_path), by_path
+    if not all(r["main_path"] for r in rows if r["kernel"] == "masked_attention_fwd"):
+        raise AssertionError(f"a timed forward width runs on no main path: {[r for r in rows if not r['main_path']]}")
+    return rows
 
 
 def _family(kernel_name: str) -> str:
@@ -2185,17 +2647,23 @@ def profile_train3d_step() -> None:
 
 
 def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, train: tuple, heldout: tuple,
-                recipe_: tuple, mixed_: tuple, ddp: tuple, eval3d_: tuple, train3d_: tuple) -> dict:
+                recipe_: tuple, mixed_: tuple, ddp: tuple, eval3d_: tuple, train3d_: tuple, e_more: dict,
+                t_more: dict) -> dict:
     """The kernels' JSON line; ``serve`` and ``train`` are (launches,
     launches by route, seconds per request or per steady step), ``heldout``,
     ``recipe_``, ``mixed_``, ``eval3d_`` and ``train3d_`` (launches, launches
-    by route, the phase's result), ``ddp`` (launches, launches by route)."""
+    by route, the phase's result), ``ddp`` (launches, launches by route),
+    ``e_more`` and ``t_more`` the results of ``eval3d_more`` and
+    ``train3d_more``."""
     from diffassemble_tpu_torch import REFERENCE_PACKAGE
     from diffassemble_tpu_torch.ops import cuda_attention
 
     cli3d = (eval3d_[2]["cli_launches"], eval3d_[2]["cli_routes"])
     paths = {"serve": serve, "train": train, "heldout_eval": heldout, "recipe": recipe_, "mixed": mixed_,
-             "ddp": ddp, "eval3d_cli": cli3d, "eval3d_heldout": eval3d_, "train3d": train3d_}
+             "ddp": ddp, "eval3d_cli": cli3d, "eval3d_heldout": eval3d_, "train3d": train3d_,
+             **{f"eval3d_{name}_cli": (v[2]["cli_launches"], v[2]["cli_routes"]) for name, v in e_more.items()},
+             **{f"eval3d_{name}": v for name, v in e_more.items()},
+             **{f"train3d_{label}": v for label, v in t_more.items()}}
     out = []
     for kernel, source in KERNEL_SOURCES.items():
         # the forward kernel's figures are per denoiser step at the serving
@@ -2233,6 +2701,10 @@ def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, t
     out[1]["mixed"] = {k: v for k, v in mixed_[2].items() if k != "corpus"}
     out[0]["eval3d"] = {k: v for k, v in eval3d_[2].items() if k not in ("cli_launches", "cli_routes")}
     out[1]["train3d"] = train3d_[2]
+    out[0]["eval3d_more"] = {name: {k: v for k, v in r[2].items() if k not in ("cli_launches", "cli_routes", "calls")}
+                             | {"rows": [{k: v for k, v in row.items() if k != "calls"} for row in r[2]["rows"]]}
+                             for name, r in e_more.items()}
+    out[1]["train3d_more"] = {label: r[2] for label, r in t_more.items()}
     return {"kernels": out}
 
 
@@ -2272,17 +2744,25 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_3d_") as tmp:
         *e3d, rows3d = eval3d(Path(tmp), errs)
         *t3d, rows_t3d = train3d(Path(tmp), errs)
-    rows += rows3d + rows_t3d
+        rows_w = kernels_3d_widths(errs)
+        e_more = eval3d_more(Path(tmp))
+        t_more = train3d_more(Path(tmp))
+    rows += rows3d + rows_t3d + attach_launches_3d(rows_w, e_more, t_more)
     paths = {"serve": serve[0], "train": train[0], "held-out eval": heldout[0], "recipe": rec[0],
              "mixed": mix[0], "ddp": ddp[0], "3D run_3d --evaluate": e3d[2]["cli_launches"],
-             "3D held-out": e3d[0], "3D train": t3d[0]}
+             "3D held-out": e3d[0], "3D train": t3d[0],
+             **{f"3D {name} run_3d --evaluate": v[2]["cli_launches"] for name, v in e_more.items()},
+             **{f"3D {name} held-out": v[0] for name, v in e_more.items()},
+             **{f"3D train {label}": v[0] for label, v in t_more.items()}}
     # these launch the forward kernel alone
-    sampling_only = {"serve", "held-out eval", "3D run_3d --evaluate", "3D held-out"}
+    sampling_only = {"serve", "held-out eval", "3D run_3d --evaluate", "3D held-out",
+                     *(f"3D {name} {what}" for name in e_more for what in ("run_3d --evaluate", "held-out"))}
     idle = {path: counts for path, counts in paths.items()
             if any(v == 0 for k, v in counts.items() if path not in sampling_only or k == "masked_attention_fwd")}
     if idle:
         raise AssertionError(f"a kernel of a main path was not launched: {idle}")
-    line = kernel_line(errs, rows, sweep, serve, train, heldout, rec, mix, ddp, tuple(e3d), tuple(t3d))
+    line = kernel_line(errs, rows, sweep, serve, train, heldout, rec, mix, ddp, tuple(e3d), tuple(t3d), e_more,
+                       t_more)
     phase("done")
     print(smi, flush=True)
     print(json.dumps(line), flush=True)

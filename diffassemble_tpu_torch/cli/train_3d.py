@@ -22,6 +22,10 @@ always read). Without a checkpoint it evaluates the seeded weights and
         --rel_pose_weight 0.5 --rel_condition 1 --aux_pose_weight 0.5 --rot_pt_l2_weight 1.0 \
         --encoder_init weights/vn_dgcnn_rich_rel3d_512.npz --device cuda
 
+``--backbone`` takes every encoder of the JAX package's table (``BACKBONES``),
+and ``--equiv_inv_mp 1`` (or ``--use_vn_dgcnn_equiv_inv_mp``) trains and
+evaluates with split equivariant/invariant message passing.
+
 Not ported: training over ``--gpus`` > 1 (ROADMAP Queue 1 item 19: the JAX
 step's batch means and the relative-pose loss's contact counts are global
 over the mesh, and DDP needs them made global by hand) and
@@ -36,6 +40,10 @@ from pathlib import Path
 import numpy as np
 
 from .common import str2bool
+
+# the JAX package's point encoders (nn/pointnet.py's table)
+BACKBONES = ("pointnet", "pointnet_inv", "pointnet_plus", "vn_dgcnn", "vn_dgcnn_inv", "vn_dgcnn_equiv_inv",
+             "vn_dgcnn_rich", "vnn")
 
 
 def add_3d_args(ap: argparse.ArgumentParser) -> None:
@@ -54,7 +62,8 @@ def add_3d_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--run_dir", type=str, default="")
     ap.add_argument("--noise_weight", type=float, default=0.0)
     ap.add_argument("--predict_xstart", type=str2bool, default=True)
-    ap.add_argument("--backbone", type=str, default="vn_dgcnn")
+    ap.add_argument("--backbone", type=str, default="vn_dgcnn", choices=BACKBONES,
+                    help="point encoder (nn/pointnet.py:make_point_encoder)")
     ap.add_argument("--architecture", type=str, default="transformer")
     ap.add_argument("--freeze_backbone", type=str2bool, default=False)
     ap.add_argument("--loss_type", type=str, default="all")
@@ -64,8 +73,10 @@ def add_3d_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--max_num_part", type=int, default=20)
     ap.add_argument("--min_num_part", type=int, default=2)
     ap.add_argument("--use_6dof_rot", action="store_true", default=False)
-    ap.add_argument("--use_vn_dgcnn_equiv_inv_mp", action="store_true", default=False,
-                    help="equiv/inv split message passing (not ported yet: ROADMAP Queue 1 item 15)")
+    ap.add_argument("--use_vn_dgcnn_equiv_inv_mp", "--equiv_inv_mp", type=str2bool, nargs="?", const=True,
+                    default=False,
+                    help="equiv/inv split message passing (DualStreamGraphTransformer; a vn_dgcnn backbone becomes "
+                         "vn_dgcnn_equiv_inv): bare, as the JAX CLI's flag, or with a value (--equiv_inv_mp 1)")
     ap.add_argument("--missing", type=int, default=0)
     ap.add_argument("--num_iter", type=int, default=1)
     ap.add_argument("--export_meshes", action="store_true", default=False)

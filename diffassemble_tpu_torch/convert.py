@@ -15,11 +15,16 @@ D); a conv kernel HWIO becomes OIHW (a depthwise (kh, kw, 1, C) kernel
 becomes (C, 1, kh, kw)); Embed tables, LayerNorm, BatchNorm2D and VNNorm
 scales become ``weight``; biases, the Exophormer's ``virt_embedding`` and the
 relative-pose head's raw projections ``U`` and ``V`` (C, k) carry over as
-they are. Module names follow the port's (``Exophormer_0`` → ``gnn``,
-``layer_3`` → ``layers.3``, ``blocks_2_1`` → ``blocks.2.1``,
-``VNLinearLeakyReLU_4`` → ``layers.4``, ``VNNorm_0`` → ``norm``,
-``VNStdFeature_0`` → ``std_feature``, ``VNLinear_0`` → ``frame``,
-``relpose`` → ``rel_head``, ...). The denoiser's Dense→GELU→Dense heads are
+they are. Module names follow the port's (``Exophormer_0`` or
+``DualStreamGraphTransformer_0`` → ``gnn``, ``layer_3`` → ``layers.3``,
+``blocks_2_1`` → ``blocks.2.1``, ``VNLinearLeakyReLU_4`` → ``layers.4``,
+``VNNorm_0`` → ``norm``, ``VNStdFeature_0`` → ``std_feature``,
+``PointMLP_1`` → ``mlps.1``, ``TNet_0`` → ``tnets.0``, ``relpose`` →
+``rel_head``, ...); some renames hold under one parent only (``Dense_0`` is
+``fc1``, the fusion MLP's, but ``dense.0`` in a ``PointMLP_i`` or ``TNet_i``
+and ``out`` directly under ``encoder``, the VN-PointNet's projection, and
+``VNLinear_0`` is ``frame`` in ``VNStdFeature_0`` but ``vn_out`` directly
+under ``encoder``). The denoiser's Dense→GELU→Dense heads are
 ``Sequential``s built inside its compact method, so their layers sit at the
 denoiser's top level as ``Dense_0`` ... in creation order: the position MLP,
 then ``final`` (or ``final_t`` and ``final_r`` with two heads) in the 2D
@@ -36,26 +41,34 @@ import torch
 
 from .utils.params import load_params
 
-_SEGMENT_RULES = (
-    (re.compile(r"^(Exophormer|GraphTransformer)_0$"), "gnn"),
-    (re.compile(r"^layer_(\d+)$"), r"layers.\1"),
-    (re.compile(r"^blocks_(\d+)_(\d+)$"), r"blocks.\1.\2"),
-    (re.compile(r"^Dense_0$"), "fc1"),
-    (re.compile(r"^Dense_1$"), "fc2"),
-    (re.compile(r"^VNLinearLeakyReLU_(\d+)$"), r"layers.\1"),
-    (re.compile(r"^VNNorm_0$"), "norm"),
-    (re.compile(r"^VNStdFeature_0$"), "std_feature"),
-    (re.compile(r"^VNLinear_0$"), "frame"),
-    (re.compile(r"^relpose$"), "rel_head"),
-)
+# (the JAX segment's parent, or None for any parent; the segment; its port name), first match wins
+_SEGMENT_RULES = tuple((parent and re.compile(parent), re.compile(seg), repl) for parent, seg, repl in (
+    (r"^(PointMLP|TNet)_\d+$", r"^Dense_(\d+)$", r"dense.\1"),
+    (r"^PointMLP_\d+$", r"^LayerNorm_(\d+)$", r"norms.\1"),
+    (r"^VNStdFeature_0$", r"^VNLinear_0$", "frame"),
+    (r"^encoder$", r"^VNLinear_0$", "vn_out"),  # VNPointNetEncoder's last VN layer
+    (r"^encoder$", r"^Dense_0$", "out"),  # and its projection
+    (r"^corr$", r"^LayerNorm_0$", "norm"),  # CorrespondencePairs' descriptor norm
+    (None, r"^(Exophormer|GraphTransformer|DualStreamGraphTransformer)_0$", "gnn"),
+    (None, r"^layer_(\d+)$", r"layers.\1"),
+    (None, r"^blocks_(\d+)_(\d+)$", r"blocks.\1.\2"),
+    (None, r"^Dense_0$", "fc1"),
+    (None, r"^Dense_1$", "fc2"),
+    (None, r"^VNLinearLeakyReLU_(\d+)$", r"layers.\1"),
+    (None, r"^VNNorm_0$", "norm"),
+    (None, r"^VNStdFeature_0$", "std_feature"),
+    (None, r"^PointMLP_(\d+)$", r"mlps.\1"),
+    (None, r"^TNet_(\d+)$", r"tnets.\1"),
+    (None, r"^relpose$", "rel_head"),
+))
 # the 2D denoiser's heads, by its number of Dense layers
 _HEADS_2D = {4: ("pos_mlp", "final"), 6: ("pos_mlp", "final_t", "final_r")}
 HEADS_3D = ("pos_mlp", "mlp_t", "mlp_r")
 
 
-def _rename(segment: str) -> str:
-    for pattern, repl in _SEGMENT_RULES:
-        if pattern.match(segment):
+def _rename(segment: str, parent: str | None = None) -> str:
+    for parent_pattern, pattern, repl in _SEGMENT_RULES:
+        if pattern.match(segment) and (parent_pattern is None or (parent is not None and parent_pattern.match(parent))):
             return pattern.sub(repl, segment)
     return segment
 
@@ -122,6 +135,6 @@ def convert_params(params: dict, heads: tuple[str, ...] | None = None) -> dict[s
     out = {}
     for path, arr in _flatten(params):
         name, value = _leaf(path[-1], np.asarray(arr, dtype=np.float32))
-        key = ".".join([_rename(s) for s in path[:-1]] + [name])
+        key = ".".join([_rename(seg, path[i - 1] if i else None) for i, seg in enumerate(path[:-1])] + [name])
         out[key] = torch.from_numpy(np.array(value, order="C"))
     return out

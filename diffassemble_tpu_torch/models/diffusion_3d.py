@@ -126,6 +126,7 @@ class Diffusion3D(nn.Module):
             heads=config.heads,
             use_6dof=config.use_6dof,
             equiv_inv_mp=config.equiv_inv_mp,
+            equiv_dim=self.equiv_dim,
             rel_channels=13 if config.rel_condition else 0,
             dtype=config.dtype,
         )

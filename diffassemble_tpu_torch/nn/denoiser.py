@@ -5,7 +5,10 @@
   backbone → residual + final MLP → output channels.
 - ``GraphDenoiser3D``: the same over point-cloud features, with a LeakyReLU
   fusion MLP, a translation head and an exp-map rotation head (3-vector →
-  rotation matrix → unit quaternion, in f32).
+  rotation matrix → unit quaternion, in f32). With ``equiv_inv_mp`` the
+  features [equiv (:equiv_dim) ‖ inv] are split before fusion into two
+  streams (each with the other's channels zeroed), both fused by the one
+  fusion MLP, and the backbone is ``DualStreamGraphTransformer``.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import so3
-from .gnn import make_gnn
+from .gnn import DualStreamGraphTransformer, make_gnn
 from .layers import Dense, Embed, LayerNorm, gelu
 
 
@@ -145,21 +148,25 @@ class GraphDenoiser3D(nn.Module):
         heads: int = 8,
         use_6dof: bool = False,
         equiv_inv_mp: bool = False,
+        equiv_dim: int = 768,
         rel_channels: int = 0,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
-        if equiv_inv_mp:
-            raise NotImplementedError("equiv_inv_mp (DualStreamGraphTransformer) is not ported yet: "
-                                      "ROADMAP Queue 1 item 15")
+        if equiv_inv_mp and architecture != "transformer":
+            raise ValueError("equiv_inv_mp requires architecture='transformer'")
+        self.equiv_inv_mp, self.equiv_dim = equiv_inv_mp, equiv_dim
         self.rel_channels = rel_channels
         combined_dim = feature_dim + 32 + 32
         self.time_emb = Embed(steps, 32, dtype=dtype)
         # a wider pose MLP when the 13-channel consensus vector rides along
         self.pos_mlp = _head(input_channels + rel_channels, 48 if rel_channels else 16, 32, dtype)
         self.fusion = FusionMLP(combined_dim, 256, combined_dim, dtype, activation="leaky_relu")
-        self.gnn = make_gnn(architecture, combined_dim, combined_dim, n_layers, hidden_dim, heads,
-                            virt_nodes, dtype)
+        if equiv_inv_mp:
+            self.gnn = DualStreamGraphTransformer(combined_dim, hidden_dim, heads, combined_dim, n_layers, dtype)
+        else:
+            self.gnn = make_gnn(architecture, combined_dim, combined_dim, n_layers, hidden_dim, heads,
+                                virt_nodes, dtype)
         self.mlp_t = _head(combined_dim, 256, 9 if use_6dof else 3, dtype)
         self.mlp_r = _head(combined_dim, 256, 3, dtype)
 
@@ -168,8 +175,17 @@ class GraphDenoiser3D(nn.Module):
         if self.rel_channels:
             x_t = torch.cat([x_t, rel_ctx.to(x_t.dtype)], dim=-1)
         pos_feats = self.pos_mlp(x_t)
-        combined = self.fusion(torch.cat([feats.to(time_feats.dtype), pos_feats, time_feats], dim=-1))
-        h, attentions = self.gnn(combined, adj, node_mask, return_weights=return_attentions)
+        f = feats.to(time_feats.dtype)
+        if self.equiv_inv_mp:
+            # split before fusion, where the [equiv ‖ inv] channel layout is real
+            equiv = torch.arange(f.shape[-1], device=f.device) < self.equiv_dim
+            f_e, f_i = torch.where(equiv, f, 0), torch.where(equiv, 0, f)
+            combined = self.fusion(torch.cat([f_e, pos_feats, time_feats], dim=-1))
+            combined_i = self.fusion(torch.cat([f_i, pos_feats, time_feats], dim=-1))
+            h, attentions = self.gnn(combined, combined_i, adj, node_mask, return_weights=return_attentions)
+        else:
+            combined = self.fusion(torch.cat([f, pos_feats, time_feats], dim=-1))
+            h, attentions = self.gnn(combined, adj, node_mask, return_weights=return_attentions)
         resid = h + combined
         t_pred = self.mlp_t(resid)
         r_vec = self.mlp_r(resid)

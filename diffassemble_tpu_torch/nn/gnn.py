@@ -5,6 +5,12 @@
 - ``Exophormer``: the transformer stack plus V learned virtual global nodes,
   appended as always-valid rows bridging every valid real node and stripped
   before output.
+- ``DualStreamGraphTransformer``: equivariant/invariant split message
+  passing over two feature streams through one set of weights per layer
+  (``_DualConvLayer``): the equivariant stream's queries and skip attend to
+  keys and values of the invariant stream, and the invariant stream advances
+  by the skip projection alone. It equals duplicating every node and
+  redirecting the edges' sources onto the copies, without doubling N.
 
 All take ``(x, adj, node_mask)``: x (B, N, D), adj (B, N, N) bool, node_mask (B, N).
 """
@@ -29,13 +35,18 @@ class TransformerConvLayer(nn.Module):
         self.key = Dense(in_features, out_channels, dtype=dtype)
         self.value = Dense(in_features, out_channels, dtype=dtype)
 
-    def forward(self, x, adj, return_weights: bool = False):
+    def forward(self, x, adj, return_weights: bool = False, kv=None, skip_only: bool = False):
+        """``kv`` gives the keys' and values' stream (queries and skip still
+        come from x); ``skip_only`` applies the skip projection alone."""
         b, n, _ = x.shape
         h, dh = self.heads, self.out_channels // self.heads
         skip = self.skip(x)
+        if skip_only:
+            return skip
+        src = x if kv is None else kv
         q = self.query(x).reshape(b, n, h, dh)
-        k = self.key(x).reshape(b, n, h, dh)
-        v = self.value(x).reshape(b, n, h, dh)
+        k = self.key(src).reshape(b, n, h, dh)
+        v = self.value(src).reshape(b, n, h, dh)
         if return_weights:
             out, w = masked_attention(q, k, v, adj, return_weights=True)
         else:
@@ -58,6 +69,40 @@ class GraphTransformer(nn.Module):
         for layer in self.layers[:-1]:
             x = gelu(layer(x, adj))
         out = self.layers[-1](x, adj, return_weights=return_weights)
+        return out if return_weights else (out, None)
+
+
+class _DualConvLayer(nn.Module):
+    """One split-message-passing layer: one ``TransformerConvLayer`` applied
+    to both streams."""
+
+    def __init__(self, in_features: int, out_channels: int, heads: int = 8, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv = TransformerConvLayer(in_features, out_channels, heads, dtype)
+
+    def forward(self, x_e, x_i, adj):
+        return self.conv(x_e, adj, kv=x_i), self.conv(x_i, adj, skip_only=True)
+
+
+class DualStreamGraphTransformer(nn.Module):
+    """n_layers of split message passing, GELU on both streams between
+    layers; the last layer maps the equivariant stream to output_size with
+    keys and values from the invariant one."""
+
+    def __init__(self, in_features: int, hidden_dim: int = 256, heads: int = 8,
+                 output_size: int = 256, n_layers: int = 4, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        widths = [in_features] + [hidden_dim] * (n_layers - 1) + [output_size]
+        self.layers = nn.ModuleList(
+            [_DualConvLayer(widths[i], widths[i + 1], heads, dtype) for i in range(n_layers - 1)]
+            + [TransformerConvLayer(widths[-2], widths[-1], heads, dtype)])
+
+    def forward(self, x_e, x_i, adj, node_mask, return_weights: bool = False):
+        del node_mask  # validity already folded into adj
+        for layer in self.layers[:-1]:
+            x_e, x_i = layer(x_e, x_i, adj)
+            x_e, x_i = gelu(x_e), gelu(x_i)
+        out = self.layers[-1](x_e, adj, kv=x_i, return_weights=return_weights)
         return out if return_weights else (out, None)
 
 

@@ -88,6 +88,10 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
 
     done = set()
     for m in module.modules():
+        if hasattr(m, "reference_init"):  # a module with an initialisation of its own (nn/vn.py, nn/relpose.py, ...)
+            m.reference_init(normal)
+            done.update(id(p) for p in m.parameters(recurse=False))
+            continue
         if isinstance(m, (Dense, Conv2d)):
             fan_in = m.weight[0].numel()
             normal(m.weight, 1.0 / math.sqrt(fan_in))
@@ -95,10 +99,6 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
             normal(m.weight, 1.0 / math.sqrt(m.embedding_dim))
         elif isinstance(m, (nn.LayerNorm, BatchNorm2D)):
             m.weight.fill_(1.0)
-        elif hasattr(m, "reference_init"):  # a module with parameters of its own kind (nn/vn.py, nn/relpose.py)
-            m.reference_init(normal)
-            done.update(id(p) for p in m.parameters(recurse=False))
-            continue
         else:
             continue
         if getattr(m, "bias", None) is not None:

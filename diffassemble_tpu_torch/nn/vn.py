@@ -1,7 +1,7 @@
 """Vector-Neuron (VN) SO(3)-equivariant point-cloud encoder — port of the JAX
 package's ``nn/vn.py`` (``VNLinear``, ``VNLeakyReLU``, ``VNNorm``,
-``VNLinearLeakyReLU``, ``VNStdFeature``, ``vn_graph_feature`` and
-``VN_DGCNN``; ``VNPointNetEncoder`` is ROADMAP Queue 1 item 15).
+``VNLinearLeakyReLU``, ``VNStdFeature``, ``vn_graph_feature``, ``VN_DGCNN``
+and ``VNPointNetEncoder``).
 
 Features are laid out (..., N_points, C, 3): every VN linear is one channel
 mix over C, and the DGCNN graph is a kNN over the flattened 3C features
@@ -171,14 +171,18 @@ class VN_DGCNN(nn.Module):
     (B, 2·feat_dim) with ``invariant``, or [equivariant ‖ invariant] with
     ``both``; ``pool="mean_maxnorm"`` concatenates to the mean pool a soft
     max-norm pool (a softmax over points of the standardized ‖h‖² of each
-    channel), doubling the pooled channels."""
+    channel), doubling the pooled channels. ``return_points`` also returns
+    per-point rotation-invariant descriptors (B, N, 63 + feat_dim): the
+    channel norms of the multi-scale VN features before pooling, the
+    correspondence head's input."""
 
     def __init__(self, feat_dim: int = 128, n_knn: int = 20, invariant: bool = False, both: bool = False,
-                 pool: str = "mean", dtype: torch.dtype = torch.float32):
+                 pool: str = "mean", dtype: torch.dtype = torch.float32, return_points: bool = False):
         super().__init__()
         if pool not in ("mean", "mean_maxnorm"):
             raise ValueError(f"unknown pool {pool!r}")
         self.feat_dim, self.n_knn, self.invariant, self.both, self.pool = feat_dim, n_knn, invariant, both, pool
+        self.return_points = return_points
         self.compute_dtype = dtype
         w = 64 // 3  # 21 channels
         edge = (-4, -3)
@@ -213,7 +217,12 @@ class VN_DGCNN(nn.Module):
         x2 = _mean(g, 2)
         x3 = _mean(conv[4](vn_graph_feature(x2, self.n_knn)), 2)
 
-        h = conv[5](torch.cat([x1, x2, x3], dim=-2))  # (B, N, feat, 3)
+        x123 = torch.cat([x1, x2, x3], dim=-2)  # (B, N, 63, 3)
+        h = conv[5](x123)  # (B, N, feat, 3)
+        point_desc = None
+        if self.return_points:  # the mean bank below is the same at every point: left out
+            loc = torch.cat([x123, h], dim=-2)
+            point_desc = torch.sqrt(_sum(loc * loc, -1) + _EPS**2)
         h = torch.cat([h, _mean(h, 1, keepdim=True).expand(h.shape)], dim=-2)  # (B, N, 2·feat, 3)
         pooled = _mean(h, 1)  # (B, 2·feat, 3)
         if self.pool == "mean_maxnorm":
@@ -229,9 +238,35 @@ class VN_DGCNN(nn.Module):
         h = pooled
 
         if self.invariant:
-            x_std, _ = self.std_feature(h)
-            return _mean(x_std, -1)
-        if self.both:
-            x_std, _ = self.std_feature(h)
-            return torch.cat([h.reshape(b, -1), _mean(x_std, -1)], dim=-1)
-        return h.reshape(b, -1)
+            out = _mean(self.std_feature(h)[0], -1)
+        elif self.both:
+            out = torch.cat([h.reshape(b, -1), _mean(self.std_feature(h)[0], -1)], dim=-1)
+        else:
+            out = h.reshape(b, -1)
+        return (out, point_desc) if self.return_points else out
+
+
+class VNPointNetEncoder(nn.Module):
+    """VN-PointNet global encoder (the ``vnn`` backbone): a VN layer on the
+    kNN edge features, mean-pooled over the neighbours, two more VN layers
+    and a VN linear to 341 channels per point, mean-pooled over the points to
+    one global vector feature, flattened (1023) and projected by a Dense to
+    ``output_dim``."""
+
+    def __init__(self, output_dim: int = 2104, n_knn: int = 20, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.n_knn, self.compute_dtype = n_knn, dtype
+        self.layers = nn.ModuleList([
+            VNLinearLeakyReLU(2, 21, point_axes=(-4, -3)),
+            VNLinearLeakyReLU(21, 64, point_axes=(-3,)),
+            VNLinearLeakyReLU(64, 128, point_axes=(-3,)),
+        ])
+        self.vn_out = VNLinear(128, 341)  # ≈1024 // 3 channels
+        self.out = Dense(341 * 3, output_dim, dtype=dtype)
+
+    def forward(self, pts):  # (B, N, 3)
+        b = pts.shape[0]
+        x = pts[:, :, None, :].to(self.compute_dtype)
+        x1 = _mean(self.layers[0](vn_graph_feature(x, self.n_knn)), 2)
+        x1 = self.vn_out(self.layers[2](self.layers[1](x1)))
+        return self.out(_mean(x1, 1).reshape(b, -1))

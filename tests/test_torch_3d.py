@@ -158,13 +158,18 @@ def test_vn_linear_in_bf16_matches_the_jax_package(lead, c, d):
 
 
 def test_point_encoder_table():
+    """Every name of the JAX package's table builds, with its output width
+    (``tests/test_torch_3d_encoders.py`` holds the new encoders' features to
+    the JAX package's)."""
     for name, dim in (("vn_dgcnn", 768), ("vn_dgcnn_inv", 256), ("vn_dgcnn_equiv_inv", 1024),
                       ("vn_dgcnn_rich", 2048)):
         enc, out = make_point_encoder(name)
         assert out == dim == enc.output_dim
-    for name in ("pointnet", "pointnet_inv", "pointnet_plus", "vnn"):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            make_point_encoder(name)
+    pts = torch.tensor(np.random.default_rng(0).standard_normal((2, 40, 3)).astype(np.float32))
+    for name, dim in (("pointnet", 128), ("pointnet_inv", 1024), ("pointnet_plus", 256), ("vnn", 2104)):
+        enc, out = make_point_encoder(name)
+        with torch.no_grad():
+            assert out == dim and enc(pts).shape == (2, dim)
     with pytest.raises(ValueError):
         make_point_encoder("resnet")
 
@@ -232,8 +237,12 @@ def test_graph_denoiser_3d_matches(rel_channels):
 
 
 def test_graph_denoiser_3d_refuses_split_message_passing():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        GraphDenoiser3D(steps=10, equiv_inv_mp=True)
+    """Split message passing runs on the transformer backbone only, as in the
+    JAX package (``tests/test_torch_3d_dualstream.py`` holds it to the JAX
+    package's); another backbone is refused."""
+    GraphDenoiser3D(steps=10, equiv_inv_mp=True)
+    with pytest.raises(ValueError, match="transformer"):
+        GraphDenoiser3D(steps=10, equiv_inv_mp=True, architecture="exophormer")
 
 
 # -------------------------------------------------------------- metrics

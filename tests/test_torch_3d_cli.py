@@ -114,6 +114,31 @@ def test_train_3d_missing_has_its_defaults(tmp_path):
     assert plain.missing == 0 and plain.num_iter == 1
 
 
+OTHER_BACKBONES = {"pointnet": ["--backbone", "pointnet"], "pointnet_inv": ["--backbone", "pointnet_inv"],
+                   "pointnet_plus": ["--backbone", "pointnet_plus"], "vnn": ["--backbone", "vnn"],
+                   "vn_dgcnn_equiv_inv_mp": ["--backbone", "vn_dgcnn", "--equiv_inv_mp", "1"]}
+
+
+@pytest.mark.parametrize("name", sorted(OTHER_BACKBONES))
+def test_run_3d_trains_and_evaluates_each_other_backbone(name, tmp_path):
+    """Every encoder of the table, and split message passing, through the
+    CLI: one step, a checkpoint, then ``--evaluate`` on it (T = 20, so a
+    sampling runs 2 reverse steps)."""
+    run = tmp_path / "run"
+    flags = ["--dataset", "synthetic", *OTHER_BACKBONES[name], "--steps", "20", "--n_layers", "2", "--num_points", "32",
+             "--max_num_part", "3", "--batch_size", "2", "--train_n", "2", "--test_n", "2", "--compute_dtype",
+             "float32", "--seed", "1", "--device", "cpu", "--run_dir", str(run)]
+    ap = train_3d.argparse.ArgumentParser()
+    train_3d.add_3d_args(ap)
+    assert train_3d.run_3d(ap.parse_args([*flags, "--max_steps", "1"])) is None
+    saved = json.loads((run / "checkpoints" / "config.json").read_text())
+    assert saved["backbone"] == OTHER_BACKBONES[name][1] and saved["equiv_inv_mp"] == (name == "vn_dgcnn_equiv_inv_mp")
+    steps = [r for r in _records(run) if "loss" in r]
+    assert len(steps) == 1 and np.isfinite(steps[0]["loss"]) and steps[0]["grad_norm/encoder"] > 0
+    metrics = train_3d.run_3d(ap.parse_args([*flags, "--evaluate", "true"]))
+    assert np.isfinite(metrics["rmse_t_AVG"][0])
+
+
 def test_train_3d_missing_trains_on_the_cpu(tmp_path):
     argv = ["train_3d_missing", *FLAGS, "--run_dir", str(tmp_path / "run"), "--max_steps", "1",
             "--min_num_part", "3"]

@@ -95,6 +95,36 @@ def test_converter_uses_every_leaf_of_the_3d_tree_once():
         convert.convert_params({"denoiser": params["denoiser"]}, ("pos_mlp", "final"))
 
 
+# the other backbones' models: no pairwise head; vn_dgcnn with split message passing
+OTHER_TREES = {
+    "pointnet": dict(backbone="pointnet"),
+    "pointnet_inv": dict(backbone="pointnet_inv"),
+    "pointnet_plus": dict(backbone="pointnet_plus"),
+    "vnn": dict(backbone="vnn"),
+    "vn_dgcnn_equiv_inv_mp": dict(backbone="vn_dgcnn", equiv_inv_mp=True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(OTHER_TREES))
+def test_converter_uses_every_leaf_of_the_other_3d_trees_once(name):
+    """The PointNet, PointNet-T-net, PointNet++ and VN-PointNet encoders'
+    trees and the dual-stream denoiser's (``layer_i/conv/...``): every leaf
+    of the JAX tree becomes one entry of the port's state_dict, of its
+    size, and the port has no other."""
+    jm, params, tm = _small_models(**OTHER_TREES[name], rel_condition=False, rel_pose_weight=0.0)
+    leaves = jax.tree_util.tree_leaves_with_path(params)
+    state = convert.convert_params(jax.tree.map(np.asarray, params), convert.HEADS_3D)
+    own = tm.state_dict()
+    assert len(state) == len(leaves) == len(own) and state.keys() == own.keys()
+    assert sorted(np.prod(leaf.shape) for _, leaf in leaves) == sorted(v.numel() for v in state.values())
+    assert set(params) == {"encoder", "denoiser"}
+    if name == "vn_dgcnn_equiv_inv_mp":
+        assert any(".conv." in k for k in state) and "DualStreamGraphTransformer_0" in params["denoiser"]
+    if name == "pointnet_inv":  # the T-nets' last layer: a Dense kernel (256, k²) becomes (k², 256)
+        kernel = params["encoder"]["TNet_1"]["Dense_2"]["kernel"]
+        assert np.array_equal(state["encoder.tnets.1.dense.2.weight"].numpy(), np.asarray(kernel).T)
+
+
 def test_ddim_step_se3_matches():
     jm, _, tm = _small_models()
     rng = np.random.default_rng(1)
@@ -136,11 +166,16 @@ def test_small_model_samples_three_steps_as_the_jax_package(monkeypatch):
 
 
 def test_training_entry_points_raise_naming_the_roadmap_item():
-    """What of the 3D model is still not ported raises and names its ROADMAP
-    item: the split equivariant/invariant message passing (item 15); DDPM
-    sampling raises as the JAX package's does."""
-    with pytest.raises(NotImplementedError, match="item 15"):
-        Diffusion3D(Diffusion3DConfig(**{**SMALL, "equiv_inv_mp": True}), device="cpu")
+    """Nothing of the 3D model names a ROADMAP item any more: split
+    equivariant/invariant message passing builds, on the VN encoders alone,
+    as in the JAX package; DDPM sampling raises as the JAX package's does
+    (the CLI's raises for items 11 and 19:
+    ``test_run_3d_refuses_training_and_mesh_export``)."""
+    model = Diffusion3D(Diffusion3DConfig(**{**SMALL, "equiv_inv_mp": True}), device="cpu")
+    assert model.denoiser.equiv_inv_mp and model.denoiser.equiv_dim == model.equiv_dim == 1536
+    with pytest.raises(ValueError, match="vn_dgcnn"):
+        Diffusion3D(Diffusion3DConfig(**{**SMALL, "equiv_inv_mp": True, "backbone": "vnn", "rel_condition": False,
+                                         "rel_pose_weight": 0.0}), device="cpu")
     with pytest.raises(ValueError, match="DDIM"):
         Diffusion3D(Diffusion3DConfig(**{**SMALL, "sampling": "ddpm"}), device="cpu")
 

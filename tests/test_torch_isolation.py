@@ -74,10 +74,12 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                                     "utils.deadline", "utils.profiling", "utils.viz", "cli.train_device",
                                     "data.breaking_bad", "ops.so3", "ops.knn", "nn.vn", "nn.pointnet",
                                     "nn.relpose", "models.diffusion_3d", "models.losses_3d", "train.heldout3d",
-                                    "cli.train_3d"])
+                                    "cli.train_3d", "nn.gnn", "nn.correspondence", "models.refine3d", "convert"])
 def test_training_path_modules_import_alone_without_jax_or_pil(module):
     """Each module of the device-resident training path, of data-parallel
-    training and of the 3D evaluation path, imported alone in a fresh
+    training and of the 3D paths (the point encoders, split message passing,
+    the refinement, the correspondence head and the readers of the 3D
+    assets: ``train.heldout3d`` and ``convert``), imported alone in a fresh
     process, loads nothing of JAX, its relatives, PIL, trimesh or the JAX
     package (``utils.viz`` imports PIL when it draws, never at import; the
     real Breaking-Bad loader imports trimesh when it reads a mesh)."""
@@ -93,6 +95,26 @@ def test_training_path_modules_import_alone_without_jax_or_pil(module):
     res = subprocess.run([sys.executable, "-c", child, str(ROOT)], capture_output=True, text=True,
                          timeout=300, env=env, cwd=ROOT)
     assert res.returncode == 0 and res.stdout.split()[-1] == "ok", res.stderr
+
+
+def test_every_3d_asset_loads_without_jax():
+    """Each committed trained 3D checkpoint loads strictly into its model in
+    a fresh process that refuses JAX and the JAX package."""
+    child = _REFUSE + textwrap.dedent(
+        """
+        from diffassemble_tpu_torch.train.heldout3d import ASSETS, model_from_asset
+        for name in ASSETS:
+            model, cfg, protocol, step = model_from_asset(name, "cpu")
+            assert step > 0 and protocol["test_n"] == 64, (name, step, protocol)
+        loaded = sorted(m for m in sys.modules if blocked(m))
+        assert not loaded, loaded
+        print(len(ASSETS))
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", child, str(ROOT)], capture_output=True, text=True,
+                         timeout=300, env=env, cwd=ROOT)
+    assert res.returncode == 0 and res.stdout.split()[-1] == "4", res.stderr
 
 
 def test_port_sources_name_no_jax_module():

@@ -113,9 +113,8 @@ def export_flagship_assets(out_path=ASSET) -> Path:
 
 
 # ---------------------------------------------------------------------------
-# the 3D SE(3) model: weights/diffusion3d_easy at step 12000 and the held-out
-# protocol of scripts/tpu_eval_3d.py that evaluated it
-# (results/diagnostics/eval3d_easy12k.json)
+# the 3D SE(3) models: the trained checkpoints under weights/diffusion3d_*, each
+# with the protocol of scripts/tpu_eval_3d.py that evaluated it
 
 CHECKPOINT_3D = ROOT / "weights" / "diffusion3d_easy"
 STEP_3D = 12000
@@ -124,67 +123,105 @@ ASSET_3D = ROOT / "diffassemble_tpu_torch" / "assets" / "diffusion3d_easy12000.n
 PROTOCOL_3D = dict(test_n=64, batch=16, num_points=512, max_num_part=8, min_num_part=2, wall_detail=0.08,
                    wall_boost=3, canonical=0.9, ratio=10, seed=0)
 THRESHOLDS_3D = (0.01, 0.02, 0.05, 0.1, 0.2)
+# every committed 3D checkpoint: (its step, its protocol's arguments, where the script's defaults
+# (scripts/tpu_eval_3d.py:48-75) are not taken)
+ASSETS_3D = {
+    "diffusion3d_easy": (STEP_3D, PROTOCOL_3D),
+    # scripts/tpu_queue_r5g.sh:54,65-69
+    "diffusion3d_relpose": (12000, dict(test_n=64, batch=16, num_points=512, max_num_part=8, min_num_part=2,
+                                        wall_detail=0.06, wall_boost=3, canonical=0.6, ratios=[10], seed=0)),
+    # scripts/tpu_queue_r5i.sh:56-57,92-96: the wall-surface corpus, raw and refined
+    "diffusion3d_wallsurf": (18000, dict(test_n=64, batch=16, num_points=512, max_num_part=8, min_num_part=2,
+                                         wall_detail=0.08, wall_boost=3, wall_surface=1, wall_freq=5.0,
+                                         canonical=0.9, ratios=[10], refine_steps=60, refine_anchor=0.01,
+                                         refine_sigma0=0.2, refine_trim=0.25, seed=0)),
+    # the script's defaults at the two ratios of results/diagnostics/eval3d_vndgcnn.json
+    "diffusion3d_vndgcnn": (3000, dict(test_n=64, batch=16, num_points=1000, max_num_part=20, min_num_part=2,
+                                       wall_detail=0.0, wall_boost=1, canonical=0.6, ratios=[10, 2], seed=0)),
+}
+_SCRIPT_DEFAULTS = dict(wall_surface=0, wall_freq=14.0, refine_steps=0, refine_anchor=0.05, refine_sigma0=0.2,
+                        refine_trim=0.25)
 
 
-def params_3d() -> dict:
-    """The checkpoint's ``eval_params`` (it has no EMA, so its live params),
-    restored from a copy so that nothing is written under ``weights/``."""
+def asset_path_3d(name: str = "diffusion3d_easy") -> Path:
+    return ROOT / "diffassemble_tpu_torch" / "assets" / f"{name}{ASSETS_3D[name][0]}.npz"
+
+
+def params_3d(name: str = "diffusion3d_easy") -> dict:
+    """The checkpoint's ``eval_params`` (the 3D runs kept no EMA, so its live
+    params), restored from a copy so that nothing is written under
+    ``weights/``."""
     import orbax.checkpoint as ocp
 
     from diffassemble_tpu.train.train_state import TrainState, eval_params
 
+    step = ASSETS_3D[name][0]
     with tempfile.TemporaryDirectory() as tmp:
-        shutil.copytree(CHECKPOINT_3D / str(STEP_3D), Path(tmp) / str(STEP_3D))
-        restored = ocp.StandardCheckpointer().restore(Path(tmp) / str(STEP_3D) / "default")
+        shutil.copytree(ROOT / "weights" / name / str(step), Path(tmp) / str(step))
+        restored = ocp.StandardCheckpointer().restore(Path(tmp) / str(step) / "default")
     return eval_params(TrainState(**restored))
 
 
-def export_3d_assets(out_path=ASSET_3D) -> Path:
-    """Write the 3D checkpoint's params in f32 with its config and the
+def export_3d_assets(out_path=None, name: str = "diffusion3d_easy") -> Path:
+    """Write checkpoint ``name``'s params in f32 with its config and its
     protocol's arguments (JSON strings ``config`` and ``protocol``) and the
-    step."""
+    step, to ``out_path`` (default: its committed asset). Each asset is
+    rewritten by one command (orbax restore, about 10 s on a CPU):
+
+        JAX_PLATFORMS=cpu python -c "from tests.torch_assets import export_3d_assets; \\
+            export_3d_assets(name='diffusion3d_wallsurf')"
+
+    with ``name`` one of ``ASSETS_3D``."""
     import json
 
     from flax.traverse_util import flatten_dict
 
-    arrays = {"/".join(k): np.asarray(v, dtype=np.float32) for k, v in flatten_dict(params_3d()).items()}
+    step, protocol = ASSETS_3D[name]
+    arrays = {"/".join(k): np.asarray(v, dtype=np.float32) for k, v in flatten_dict(params_3d(name)).items()}
     arrays.update(
-        config=np.array(json.dumps(json.loads((CHECKPOINT_3D / "config.json").read_text()), sort_keys=True)),
-        protocol=np.array(json.dumps(PROTOCOL_3D, sort_keys=True)),
-        step=np.array(STEP_3D, dtype=np.int64),
+        config=np.array(json.dumps(json.loads((ROOT / "weights" / name / "config.json").read_text()),
+                                   sort_keys=True)),
+        protocol=np.array(json.dumps(protocol, sort_keys=True)),
+        step=np.array(step, dtype=np.int64),
     )
-    out_path = Path(out_path)
+    out_path = Path(out_path or asset_path_3d(name))
     out_path.parent.mkdir(parents=True, exist_ok=True)
     np.savez(out_path, **arrays)
     return out_path
 
 
-def protocol_dataset_3d(test_n: int = PROTOCOL_3D["test_n"]):
+def protocol_dataset_3d(test_n: int | None = None, protocol: dict = PROTOCOL_3D):
     """The protocol's held-out corpus, built by the JAX package's copy of the
     data module (as ``scripts/tpu_eval_3d.py`` builds it)."""
     from diffassemble_tpu.data.breaking_bad import get_dataset_3d
 
-    p = PROTOCOL_3D
+    p = {**_SCRIPT_DEFAULTS, **protocol}
     _, test_ds, _ = get_dataset_3d(
-        "synthetic", train_n=4, test_n=test_n, max_num_part=p["max_num_part"], min_num_part=p["min_num_part"],
-        num_points=p["num_points"], seed=p["seed"], canonical=p["canonical"], voronoi=True,
-        wall_detail=p["wall_detail"], wall_boost=p["wall_boost"], wall_surface=False, wall_freq=14.0)
+        "synthetic", train_n=4, test_n=test_n or p["test_n"], max_num_part=p["max_num_part"],
+        min_num_part=p["min_num_part"], num_points=p["num_points"], seed=p["seed"], canonical=p["canonical"],
+        voronoi=True, wall_detail=p["wall_detail"], wall_boost=p["wall_boost"],
+        wall_surface=bool(p["wall_surface"]), wall_freq=p["wall_freq"])
     return test_ds
 
 
-def jax_reference_3d(compute_dtype: str = "bfloat16", test_n: int = PROTOCOL_3D["test_n"],
-                     params: dict | None = None, out=None) -> dict:
-    """``scripts/tpu_eval_3d.py``'s sampler metrics (ratio 10, no gauge
-    alignment, no refinement) of the 3D checkpoint through the JAX package on
-    this host, in ``compute_dtype``: n_parts, rmse_t, rmse_r, gd_r, part_acc
-    at each threshold, the CD percentiles, plus ``final`` (the sampled poses
-    of every batch). ``out``, when given, gets the result as an npz
-    (``final`` and the JSON ``metrics``).
+def jax_reference_3d(compute_dtype: str = "bfloat16", test_n: int | None = None, params: dict | None = None,
+                     out=None, name: str = "diffusion3d_easy", ratio: int | None = None) -> dict:
+    """``scripts/tpu_eval_3d.py``'s row of checkpoint ``name`` at ``ratio``
+    (default: its protocol's first) through the JAX package on this host, in
+    ``compute_dtype``, on the protocol's first ``test_n`` objects (default:
+    all): n_parts, rmse_t, rmse_r, gd_r, part_acc at each threshold, the CD
+    percentiles, ``gauge_aligned``, ``refined`` when the protocol refines
+    (the script's code, copied: it has no function to import), plus
+    ``final`` (the sampled poses of every batch) and ``refined_final``.
+    ``out``, when given, gets the result as an npz (``final`` and the JSON
+    ``metrics``). ``chip_smoke.JAX_CPU_3D`` and ``JAX_CPU_3D_ASSETS`` hold
+    the values; each is reproduced by one command:
 
         JAX_PLATFORMS=cpu python -c "from tests.torch_assets import jax_reference_3d; \\
-            print(jax_reference_3d('bfloat16'))"
+            print(jax_reference_3d('bfloat16', name='diffusion3d_wallsurf'))"
 
-    takes about two and a half minutes on a CPU for the 64 objects."""
+    (``name='diffusion3d_vndgcnn', ratio=2`` for its second row). The easy
+    checkpoint's 64 objects take about two and a half minutes on a CPU."""
     import dataclasses
     import json
 
@@ -195,16 +232,25 @@ def jax_reference_3d(compute_dtype: str = "bfloat16", test_n: int = PROTOCOL_3D[
     from diffassemble_tpu.data.breaking_bad import collate_fragments
     from diffassemble_tpu.models import losses_3d
     from diffassemble_tpu.models.diffusion_3d import Diffusion3D, Diffusion3DConfig
+    from diffassemble_tpu.models.refine3d import refine_poses
     from diffassemble_tpu.ops import so3
     from diffassemble_tpu.ops.knn import chamfer_distance
 
-    p = PROTOCOL_3D
-    base = json.loads((CHECKPOINT_3D / "config.json").read_text())
+    _, protocol = ASSETS_3D[name]
+    p = {**_SCRIPT_DEFAULTS, **protocol}
+    if ratio is None:
+        ratio = p["ratios"][0] if "ratios" in p else p["ratio"]
+    base = json.loads((ROOT / "weights" / name / "config.json").read_text())
     cfg = dataclasses.replace(Diffusion3DConfig(**base), compute_dtype=compute_dtype, encoder_init="",
-                              inference_ratio=p["ratio"])
+                              inference_ratio=ratio)
     model = Diffusion3D(cfg)
-    params = params_3d() if params is None else params
-    test_ds = protocol_dataset_3d(test_n)
+    params = params_3d(name) if params is None else params
+    test_ds = protocol_dataset_3d(test_n, protocol)
+
+    def per_part_cd(pts, pred_t, gt_t, pred_q, gt_q):
+        d1, d2 = chamfer_distance(losses_3d.transform_pc(pred_t, pred_q, pts),
+                                  losses_3d.transform_pc(gt_t, gt_q, pts))
+        return jnp.mean(d1, axis=-1) + jnp.mean(d2, axis=-1)
 
     @jax.jit
     def run(batch):
@@ -212,37 +258,94 @@ def jax_reference_3d(compute_dtype: str = "bfloat16", test_n: int = PROTOCOL_3D[
         pred_q, pred_t = final[..., :4], final[..., 4:7]
         gt_q, gt_t = batch.x0[..., :4], batch.x0[..., 4:7]
         v = batch.node_mask
-        d1, d2 = chamfer_distance(losses_3d.transform_pc(pred_t, pred_q, batch.pcds),
-                                  losses_3d.transform_pc(gt_t, gt_q, batch.pcds))
-        cd = jnp.mean(d1, axis=-1) + jnp.mean(d2, axis=-1)
+        cd = per_part_cd(batch.pcds, pred_t, gt_t, pred_q, gt_q)
         gd = so3.geodesic_distance_rmat(so3.quaternion_to_matrix(pred_q), so3.quaternion_to_matrix(gt_q))
+        # the gauge-aligned diagnostic, as the script computes it
+        hp = jax.lax.Precision.HIGHEST
+        pred_r, gt_r = so3.quaternion_to_matrix(pred_q), so3.quaternion_to_matrix(gt_q)
+        w = v.astype(pred_r.dtype)
+        m = jnp.einsum("bp,bpij,bpkj->bik", w, gt_r, pred_r, precision=hp)
+        u, _, vt = jnp.linalg.svd(m)
+        det = jnp.linalg.det(jnp.einsum("bij,bjk->bik", u, vt, precision=hp))
+        d = jnp.stack([jnp.ones_like(det), jnp.ones_like(det), det], -1)
+        r0 = jnp.einsum("bij,bj,bjk->bik", u, d, vt, precision=hp)
+        nv = jnp.sum(w, axis=1, keepdims=True) + 1e-9
+        mean_gt = jnp.sum(gt_t * w[..., None], axis=1) / nv
+        mean_pr = jnp.sum(pred_t * w[..., None], axis=1) / nv
+        t0 = mean_gt - jnp.einsum("bij,bj->bi", r0, mean_pr, precision=hp)
+        a_t = jnp.einsum("bij,bpj->bpi", r0, pred_t, precision=hp) + t0[:, None]
+        a_r = jnp.einsum("bij,bpjk->bpik", r0, pred_r, precision=hp)
         return {"final": final, "cd": cd, "gd": gd, "rmse_t": losses_3d.trans_rmse(pred_t, gt_t, v),
-                "rmse_r": losses_3d.rot_euler_rmse(pred_q, gt_q, v)}
+                "rmse_r": losses_3d.rot_euler_rmse(pred_q, gt_q, v),
+                "cd_a": per_part_cd(batch.pcds, a_t, gt_t, so3.matrix_to_quaternion(a_r), gt_q),
+                "gd_a": so3.geodesic_distance_rmat(a_r, gt_r), "rmse_t_a": losses_3d.trans_rmse(a_t, gt_t, v)}
+
+    @jax.jit
+    def refine(batch, pred_q, pred_t, point_w):
+        res = refine_poses(batch.pcds, batch.node_mask.astype(bool), pred_q, pred_t, steps=p["refine_steps"],
+                           anchor=p["refine_anchor"], sigma0=p["refine_sigma0"], trim=p["refine_trim"],
+                           point_w=point_w)
+        gt_q, gt_t = batch.x0[..., :4], batch.x0[..., 4:7]
+        v = batch.node_mask
+        return {"final": jnp.concatenate([res.quat, res.trans], -1),
+                "cd": per_part_cd(batch.pcds, res.trans, gt_t, res.quat, gt_q),
+                "gd": so3.geodesic_distance_rmat(so3.quaternion_to_matrix(res.quat), so3.quaternion_to_matrix(gt_q)),
+                "rmse_t": losses_3d.trans_rmse(res.trans, gt_t, v),
+                "rmse_r": losses_3d.rot_euler_rmse(res.quat, gt_q, v)}
 
     rng = np.random.default_rng(p["seed"])
-    cds, gds, rts, rrs, finals = [], [], [], [], []
+    got = {k: [] for k in ("cd", "gd", "rmse_t", "rmse_r", "final", "cd_a", "gd_a", "rmse_t_a")}
+    ref = {k: [] for k in ("cd", "gd", "rmse_t", "rmse_r", "final")}
     for lo in range(0, len(test_ds), p["batch"]):
         samples = [test_ds[i] for i in range(lo, min(lo + p["batch"], len(test_ds)))]
         nb = collate_fragments(samples, p["max_num_part"], rng=rng)
-        r = jax.device_get(run(FragmentBatch(*[jnp.asarray(a) for a in nb])))
+        pw = np.zeros(nb.pcds.shape[:3], np.float32)
+        for i, smp in enumerate(samples):
+            if "wall" in smp:
+                pw[i, : min(smp["n_parts"], p["max_num_part"])] = smp["wall"][: p["max_num_part"]].astype(np.float32)
+        batch = FragmentBatch(*[jnp.asarray(a) for a in nb])
+        r = jax.device_get(run(batch))
         mask = nb.node_mask
-        cds.append(r["cd"][mask])
-        gds.append(r["gd"][mask])
-        rts.append(r["rmse_t"])
-        rrs.append(r["rmse_r"])
-        finals.append(np.asarray(r["final"]))
-    cd, gd = np.concatenate(cds), np.concatenate(gds)
+        for k in ("cd", "gd", "cd_a", "gd_a"):
+            got[k].append(r[k][mask])
+        for k in ("rmse_t", "rmse_r", "rmse_t_a", "final"):
+            got[k].append(np.asarray(r[k]))
+        if p["refine_steps"] > 0:
+            rr = jax.device_get(refine(batch, jnp.asarray(r["final"][..., :4]), jnp.asarray(r["final"][..., 4:7]),
+                                       jnp.asarray(pw) if pw.any() else None))
+            for k in ("cd", "gd"):
+                ref[k].append(rr[k][mask])
+            for k in ("rmse_t", "rmse_r", "final"):
+                ref[k].append(np.asarray(rr[k]))
+    cat = {k: np.concatenate(v) for k, v in got.items()}
+
+    def acc(cd):
+        return {str(t): float((cd < t).mean()) for t in THRESHOLDS_3D}
+
     metrics = {
-        "n_parts": int(cd.size),
-        "rmse_t": float(np.mean(np.concatenate(rts).astype(np.float64))),
-        "rmse_r": float(np.mean(np.concatenate(rrs).astype(np.float64))),
-        "gd_r": float(gd.mean()),
-        "part_acc": {str(t): float((cd < t).mean()) for t in THRESHOLDS_3D},
-        "cd_percentiles": {str(q): float(np.percentile(cd, q)) for q in (5, 10, 25, 50, 75, 90)},
+        "ratio": ratio,
+        "reverse_steps": cfg.steps // ratio,
+        "n_parts": int(cat["cd"].size),
+        "rmse_t": float(np.mean(cat["rmse_t"].astype(np.float64))),
+        "rmse_r": float(np.mean(cat["rmse_r"].astype(np.float64))),
+        "gd_r": float(cat["gd"].mean()),
+        "part_acc": acc(cat["cd"]),
+        "cd_percentiles": {str(q): float(np.percentile(cat["cd"], q)) for q in (5, 10, 25, 50, 75, 90)},
+        "gauge_aligned": {"gd_r": float(cat["gd_a"].mean()),
+                          "rmse_t": float(np.mean(cat["rmse_t_a"].astype(np.float64))),
+                          "part_acc": acc(cat["cd_a"]), "cd_median": float(np.median(cat["cd_a"]))},
     }
+    extra = {"final": cat["final"]}
+    if p["refine_steps"] > 0:
+        rc = {k: np.concatenate(v) for k, v in ref.items()}
+        metrics["refined"] = {"steps": p["refine_steps"], "gd_r": float(rc["gd"].mean()),
+                              "rmse_t": float(np.mean(rc["rmse_t"].astype(np.float64))),
+                              "rmse_r": float(np.mean(rc["rmse_r"].astype(np.float64))),
+                              "part_acc": acc(rc["cd"]), "cd_median": float(np.median(rc["cd"]))}
+        extra["refined_final"] = rc["final"]
     if out is not None:
-        np.savez(out, final=np.concatenate(finals), metrics=np.array(json.dumps(metrics)))
-    return {**metrics, "final": np.concatenate(finals)}
+        np.savez(out, final=cat["final"], metrics=np.array(json.dumps(metrics)))
+    return {**metrics, **extra}
 
 
 def knn_agreement_3d(n_objects: int = PROTOCOL_3D["batch"], compute_dtype: str = "bfloat16") -> dict:
@@ -423,3 +526,64 @@ def vn_dgcnn_conditioning(draws: int = 60) -> dict:
         "norm_gain": {i: rel(mid[i, "out"], base_seen[i, "out"]) / max(rel(mid[i, "in"], base_seen[i, "in"]), 1e-30)
                       for i in range(len(tm.layers))},
     }
+
+
+def ulp_spread(module, pts: np.ndarray, draws: int = 10) -> tuple[float, float]:
+    """(median, max) over ``draws`` draws of one-ulp input noise (each
+    coordinate times 1 + {-1, 0, 1}·2⁻²³) of how far ``module``'s output
+    moves, over its largest entry."""
+    import torch
+
+    with torch.no_grad():
+        base = module(torch.tensor(pts))
+        moves = []
+        for s in range(draws):
+            noise = np.random.default_rng(1000 + s).choice([-1, 0, 1], size=pts.shape)
+            out = module(torch.tensor(pts * (1 + 2.0**-23 * noise).astype(np.float32)))
+            moves.append(float((out - base).abs().max() / base.abs().max()))
+    return float(np.median(moves)), max(moves)
+
+
+def encoder_conditioning() -> dict:
+    """For each encoder parity test of ``tests/test_torch_3d_encoders.py``
+    whose tolerance is set from it: the port's largest and median error
+    against the JAX package's (over the output's largest entry) and its
+    one-ulp spread (``ulp_spread``), on the test's own points and weights.
+
+        JAX_PLATFORMS=cpu python -c "import sys; sys.path.insert(0, 'tests'); \\
+            from torch_assets import encoder_conditioning; print(encoder_conditioning())"
+    """
+    import jax.numpy as jnp
+    import torch
+
+    from diffassemble_tpu.nn.pointnet import PointNet as JPN
+    from diffassemble_tpu.nn.vn import VN_DGCNN as JVN
+    from diffassemble_tpu.nn.vn import VNPointNetEncoder as JVNP
+    from diffassemble_tpu.utils.params import load_params as jload
+    from diffassemble_tpu_torch.nn.pointnet import PointNet
+    from diffassemble_tpu_torch.nn.vn import VN_DGCNN, VNPointNetEncoder
+    from test_torch_3d import _init_shapes, _load, seeded_tree
+    from test_torch_3d_encoders import _clouds, _points
+
+    rich, pose = jload(ROOT / "weights" / "vn_dgcnn_rich_rel3d.npz"), jload(ROOT / "weights" / "pointnet_pose3d.npz")
+    pts = _points()
+    jvnp = JVNP(output_dim=24, n_knn=8)
+    cases = {
+        "vn_dgcnn_rich_rel3d": (JVN(feat_dim=128, both=True, pool="mean_maxnorm"),
+                                VN_DGCNN(feat_dim=128, both=True, pool="mean_maxnorm"), rich["encoder"],
+                                _clouds(2, 256, 5, canonical=0.6, wall_detail=0.06, wall_boost=2)),
+        "pointnet_pose3d": (JPN(feat_dim=128), PointNet(feat_dim=128), pose["encoder"],
+                            _clouds(2, 1000, 6, canonical=0.85)),
+        "vnn_seeded": (jvnp, VNPointNetEncoder(output_dim=24, n_knn=8),
+                       seeded_tree(_init_shapes(jvnp, jnp.asarray(pts)), 1), pts),
+    }
+    out = {}
+    for name, (jm, tm, params, p) in cases.items():
+        want = np.asarray(jm.apply({"params": params}, jnp.asarray(p)))
+        _load(tm, params, "encoder")
+        with torch.no_grad():
+            err = np.abs(tm(torch.tensor(p)).numpy() - want) / np.abs(want).max()
+        median, worst = ulp_spread(tm, p)
+        out[name] = {"err_max": float(err.max()), "err_median": float(np.median(err)),
+                     "ulp_spread_median": median, "ulp_spread_max": worst}
+    return out
