@@ -76,15 +76,40 @@ Phases, each ending in a line with the elapsed seconds:
 9. one ``make_device_train_step`` step against one
    ``train_state.make_train_step`` step on the card, same weights, batch
    and draws;
-10. mixed, the fifth main path: the mixed-size recipe
-   (``weights/diffusion2d_rot_ms/data.json``: 6/8/10/12 padded to 144
-   pieces) at the flagship's widths, batch 8, 3 steps and two evaluations,
-   all on the tensor cores; then the three kernels against their plain
-   versions on its masks (B = 8, N = 152 with padding rows and unattended
-   keys; bf16 on the tensor cores, f32 on the CUDA cores) and timed there
-   beside their bound and ``scaled_dot_product_attention``;
+10. mixed, the fifth main path: the mixed-size recipe of
+   ``weights/diffusion2d_rot_ms`` (its config.json: resnet18equiv at the
+   flagship's widths; its data.json: 6/8/10/12 padded to 144 pieces) from
+   seeded weights at batch 16, 3 steps and a resume to 4, with evaluations,
+   all on the tensor cores, and its seeded f32 loss card against CPU; then
+   the three kernels against their plain versions on its masks (B = 16, N =
+   152 with padding rows and unattended keys; bf16 on the tensor cores, f32
+   on the CUDA cores) and timed there beside their bound and
+   ``scaled_dot_product_attention``; then the forward kernel against its
+   plain version on a 6×6 request's mask (B = 1, N = 44, fully connected)
+   at Dh 32 and 144 in bf16 and f32, timed there; ``serve --run_dir`` on
+   that run after its OrientationNorm statistics were calibrated and written
+   as ``norm_stats.npz`` (120 forward launches, the statistics frozen); then the
+   trained ``diffusion2d_rot_ms`` (step 7000, committed converted) through
+   ``cli/train_device.py --evaluate_npz`` under its run's protocol (64
+   puzzles in calls of 16, the JAX rotation draw, bf16): 480 forward
+   launches on the tensor cores, piece_acc within 0.01 of the TPU's 0.99967,
+   the per-size figures, the JAX package's CPU figure and ms per call
+   printed;
 11. ddp: one ``Trainer`` step at full width under DDP in a world of one
-   over NCCL, bit-equal to the same step without DDP;
+   over NCCL, bit-equal to the same step without DDP; then the discrete
+   family: the three kernels against their plain versions on the discrete
+   protocol's masks (the committed 60% expander over 36 pieces + 8 virtual
+   nodes, B = 32) and timed there; the trained ``diffusion2d_discrete_rot6``
+   (step 6000) under ``scripts/tpu_train_variants.py``'s protocol
+   (``train/heldout.py:run_protocol``: 64 6×6 puzzles in calls of 32, 30
+   Gumbel steps each re-running the encoder on the re-rotated patches, bf16):
+   240 forward launches on the tensor cores, piece_acc within 0.01 of the
+   TPU's 1.0; the discrete-rotation model through ``cli/train_2d_rot.py
+   --discrete true`` (6×6, batch 32, seeded weights, 2 steps and a resume to
+   3, each 4 + 4 + 4 tensor-core launches) after its seeded f32 loss card
+   against CPU; a seeded 6×6 ``AngleDiffusion2D`` sample card against CPU
+   in f32 (1e-3), then in bf16 with 120 forward launches on the tensor
+   cores;
 12. 3D held-out, the sixth main path: the trained 3D SE(3) model
    (``weights/diffusion3d_easy`` at step 12000, bf16, committed converted
    as ``diffassemble_tpu_torch/assets/diffusion3d_easy12000.npz``) under
@@ -179,6 +204,21 @@ DATA = ROOT / "weights" / "diffusion2d_rot30" / "data.json"  # the flagship's da
 ASSET = ROOT / "diffassemble_tpu_torch" / "assets" / "diffusion2d_rot30_ema32000.npz"
 ENCODER_INIT = ROOT / "weights" / "efficientnet_b0_pose30hf.npz"  # the flagship's encoder_init
 MIXED_DATA = ROOT / "weights" / "diffusion2d_rot_ms" / "data.json"  # the mixed-size recipe (hw 6/8/10/12)
+MIXED_CONFIG = ROOT / "weights" / "diffusion2d_rot_ms" / "config.json"  # its model: resnet18equiv, flagship widths
+MIXED_BATCH = 16  # its run's batch (scripts/tpu_queue_r5e.sh:83-88), no EMA
+# the other trained 2D checkpoints' figures on the TPU (each checkpoint's metrics file: rot_ms at step 7000,
+# discrete_rot6 at step 6000); the card's piece_acc must lie within PIECE_ACC_TOL of the TPU's
+TPU_2D = {"diffusion2d_rot_ms": {"overall__piece_acc": 0.9996744794771075, "overall_acc": 0.984375},
+          "diffusion2d_discrete_rot6": {"overall__piece_acc": 1.0, "overall_acc": 1.0}}
+# the discrete-rotation model trained through the rotation CLI: weights/diffusion2d_discrete_rot6's config
+# (scripts/tpu_train_variants.py's make_model; committed in its asset, as the checkpoint's directory stays
+# out of the chip copy) at its 6x6 size and batch of 32, from seeded weights; 2 steps, then a resume to step 3
+DISCRETE_FLAGS = [
+    "-dataset", "synthetic", "-puzzle_sizes", "6", "--degree", "60%", "--unique_graph", "true", "-batch_size", "32",
+    "--discrete", "true", "--cold_diffusion", "true", "--loss_type", "vb", "--backbone", "resnet18equiv",
+    "--aux_loss_weight", "0.1", "--warmup_steps", "200", "--compute_dtype", "bfloat16", "--device", "cuda",
+]
+DISCRETE_STEPS, DISCRETE_RESUME_TO = 2, 3
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, NVIDIA H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # non-tensor-core f32 peak
 H100_BYTES_PER_S = 3.35e12
@@ -220,7 +260,7 @@ MAIN_HEAD_DIMS = (32, 144)
 # puzzles, 6 steps with an evaluation every 3, then a resume to 8; the mixed
 # corpus 3 steps; EMA on as the flagship's run had it
 RECIPE_TRAIN_N, RECIPE_EVAL_N, RECIPE_STEPS, RECIPE_EVAL_EVERY, RECIPE_RESUME_TO = 16, 8, 6, 3, 8
-MIXED_STEPS = 3
+MIXED_STEPS, MIXED_RESUME_TO = 3, 4
 EMA_DECAY = 0.999
 # widths off the tensor-core route: 20 is no multiple of 8; the 3D family's last layers (feature
 # width + 64 over 8 heads) are 24 (pointnet), 40 (pointnet_plus), 104 (vn_dgcnn), 136 (pointnet_inv,
@@ -1025,10 +1065,11 @@ def card_vs_cpu_training() -> None:
           f"worst err/tol {worst:.3f}, {undetermined} entries with a gradient at rounding noise")
 
 
-def training(run_dir: Path) -> tuple[dict[str, int], dict[str, dict[str, int]], list[float]]:
-    """The second main path: ``run_2d`` of the rotation CLI at full width,
-    batch 8, 30×30; then a resume from its checkpoint. Each train step is
-    timed (host clock to a synchronize) and its launches counted."""
+def drive_trainer(argvs: list[list[str]], label: str) -> tuple[list[dict], list[int]]:
+    """Run the rotation CLI's ``main`` (``run_2d``, the ``Trainer``) once per
+    argv; each train step is timed (host clock to a synchronize, and CUDA
+    events) and its launches counted. Returns (steps, the number of steps of
+    each run)."""
     import torch
 
     from diffassemble_tpu_torch.cli import train_2d_rot
@@ -1041,49 +1082,57 @@ def training(run_dir: Path) -> tuple[dict[str, int], dict[str, dict[str, int]], 
         step = make_step(*args, **kwargs)
 
         def counted(state, batch):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             torch.cuda.synchronize()
             start, before, before_routes = time.perf_counter(), read_counts(), read_routes()
+            ev[0].record()
             new, aux = step(state, batch)
+            ev[1].record()
             torch.cuda.synchronize()
             launched = {k: v - before[k] for k, v in read_counts().items()}
-            rec = {"step": new.step, "seconds": time.perf_counter() - start, "launches": launched,
-                   "routes": routes_since(before_routes),
-                   **{k: float(aux[k]) for k in ("total_loss", "grad_norm", "grad_norm/encoder",
-                                                 "grad_norm/denoiser", "grad_nonfinite")}}
+            rec = {"step": new.step, "seconds": time.perf_counter() - start, "ms": ev[0].elapsed_time(ev[1]),
+                   "launches": launched, "routes": routes_since(before_routes),
+                   **{k: float(aux[k]) for k in ("grad_norm", "grad_norm/encoder", "grad_norm/denoiser",
+                                                 "grad_nonfinite")},
+                   "total_loss": float(aux.get("total_loss", aux["loss"]))}
             steps.append(rec)
-            phase(f"train step {rec['step']}: {rec['seconds']:.3f} s, launches {launched}, "
+            phase(f"{label} step {rec['step']}: {rec['seconds']:.3f} s, launches {launched}, "
                   f"loss {rec['total_loss']:.4f}, grad_norm {rec['grad_norm']:.4f} "
                   f"(encoder {rec['grad_norm/encoder']:.4f}, denoiser {rec['grad_norm/denoiser']:.4f})")
             return new, aux
 
         return counted
 
-    argv = ["train_2d_rot", *TRAIN_FLAGS, "--run_dir", str(run_dir)]
+    runs = []
+    with mock.patch.object(trainer_mod, "make_train_step", counted_make_train_step):
+        for argv in argvs:
+            before = len(steps)
+            with mock.patch.object(sys, "argv", ["train_2d_rot", *argv]):
+                train_2d_rot.main()
+            runs.append(len(steps) - before)
+    return steps, runs
+
+
+def training(run_dir: Path) -> tuple[dict[str, int], dict[str, dict[str, int]], list[float]]:
+    """The second main path: ``run_2d`` of the rotation CLI at full width,
+    batch 8, 30×30; then a resume from its checkpoint. Each train step is
+    timed (host clock to a synchronize) and its launches counted."""
+    import torch
+
+    argv = [*TRAIN_FLAGS, "--run_dir", str(run_dir)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    with mock.patch.object(trainer_mod, "make_train_step", counted_make_train_step):
-        with mock.patch.object(sys, "argv", argv + ["-max_steps", str(TRAIN_STEPS)]):
-            train_2d_rot.main()
-        first_run = len(steps)
-        with mock.patch.object(sys, "argv", argv + ["-max_steps", str(TRAIN_STEPS + RESUME_STEPS)]):
-            train_2d_rot.main()
+    steps, runs = drive_trainer([argv + ["-max_steps", str(TRAIN_STEPS)],
+                                 argv + ["-max_steps", str(TRAIN_STEPS + RESUME_STEPS)]], "train")
+    first_run = runs[0]
     counts, routes = read_counts(), read_routes()
     peak = torch.cuda.max_memory_allocated()
     ckpts = sorted(int(p.name) for p in (run_dir / "checkpoints").iterdir() if p.name.isdigit())
-    expected = dict.fromkeys(KERNEL_SOURCES, 4)
-    on_tensor_cores = dict.fromkeys(KERNEL_SOURCES, {"tensor_cores": 4, "cuda_cores": 0})
     if first_run != TRAIN_STEPS or [s["step"] for s in steps] != list(range(1, TRAIN_STEPS + RESUME_STEPS + 1)):
         raise AssertionError(f"expected steps 1..{TRAIN_STEPS} then a resume to {TRAIN_STEPS + RESUME_STEPS}, "
                              f"got {[s['step'] for s in steps]}")
-    for s in steps:
-        if s["launches"] != expected:
-            raise AssertionError(f"step {s['step']}: launches {s['launches']}, expected {expected}")
-        if s["routes"] != on_tensor_cores:
-            raise AssertionError(f"step {s['step']}: launches by route {s['routes']}, expected all on the tensor cores")
-        if not (math.isfinite(s["total_loss"]) and math.isfinite(s["grad_norm"]) and s["grad_nonfinite"] == 0
-                and s["grad_norm/encoder"] > 0 and s["grad_norm/denoiser"] > 0):
-            raise AssertionError(f"step {s['step']}: bad loss or gradient norms {s}")
+    _check_trainer_steps(steps, "train")
     if ckpts != [TRAIN_STEPS + RESUME_STEPS]:  # the latest (no eval metrics to rank by)
         raise AssertionError(f"checkpoints {ckpts}")
     metrics = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
@@ -1228,26 +1277,27 @@ def accuracy() -> tuple[dict[str, int], dict[str, dict[str, int]], dict]:
 
 
 def recipe_argv(run_dir: str, data_recipe: dict, max_steps: int, train_n: int, eval_n: int, eval_every: int,
-                backbone: str | None = None, encoder_init: bool = True) -> list[str]:
-    """``cli/train_device.py``'s flags for the flagship's config.json (widths,
-    sampler and, with ``encoder_init``, its pretrained encoder) and a data
-    recipe (``data.json``: sizes, graph, image knobs, seed), at batch 8 with
-    EMA, cut to the given corpora and steps; no reconstruction images (the
-    card machine has no PIL)."""
-    cfg = json.loads(CONFIG.read_text())
+                backbone: str | None = None, encoder_init: bool = True, config: Path = CONFIG,
+                batch: int = TRAIN_BATCH, ema_decay: float = EMA_DECAY) -> list[str]:
+    """``cli/train_device.py``'s flags for a run's config.json (default the
+    flagship's: widths, sampler, backbone and, with ``encoder_init``, its
+    pretrained encoder) and a data recipe (``data.json``: sizes, graph, image
+    knobs, seed), at ``batch`` with ``ema_decay``, cut to the given corpora
+    and steps; no reconstruction images (the card machine has no PIL)."""
+    cfg = json.loads(config.read_text())
     encoder_init = str(ROOT / cfg["encoder_init"]) if encoder_init and cfg["encoder_init"] else ""
     return [
         "--run_dir", run_dir, "--hw", *map(str, data_recipe["hw"]), "--rotation", str(int(cfg["rotation"])),
         "--backbone", backbone or cfg["backbone"], "--architecture", cfg["architecture"],
         "--degree", str(data_recipe["degree"]), "--virt_nodes", str(cfg["virt_nodes"]),
         "--n_layers", str(cfg["n_layers"]), "--steps", str(cfg["steps"]),
-        "--inference_ratio", str(cfg["inference_ratio"]), "--batch_size", str(TRAIN_BATCH),
+        "--inference_ratio", str(cfg["inference_ratio"]), "--batch_size", str(batch),
         "--train_n", str(train_n), "--eval_n", str(eval_n), "--max_steps", str(max_steps),
         "--eval_every", str(eval_every), "--log_every", "1", "--compute_dtype", cfg["compute_dtype"],
         "--warmup_steps", str(cfg["warmup_steps"]), "--aux_loss_weight", str(cfg["aux_loss_weight"]),
         "--encoder_init", encoder_init, "--hf_detail", str(data_recipe["hf_detail"]),
         "--canonical", str(data_recipe["canonical"]), "--style", data_recipe["style"],
-        "--seed", str(data_recipe["seed"]), "--ema_decay", str(EMA_DECAY), "--viz_every_eval", "0",
+        "--seed", str(data_recipe["seed"]), "--ema_decay", str(ema_decay), "--viz_every_eval", "0",
         "--device", "cuda",
     ]
 
@@ -1298,7 +1348,8 @@ def drive_recipe(workdir: Path, argvs: list[list[str]], label: str) -> tuple[lis
         rec = {"calls": -(-data.n_samples // eval_n), "puzzles": data.n_samples, "n_nodes": data.n_nodes,
                "seconds": time.perf_counter() - start,
                "launches": {k: v - before[k] for k, v in read_counts().items()},
-               "routes": routes_since(before_routes), "piece_acc": metrics["overall__piece_acc"]}
+               "routes": routes_since(before_routes), "piece_acc": metrics["overall__piece_acc"],
+               "metrics": metrics}
         evals.append(rec)
         phase(f"{label} evaluation: {rec['puzzles']} puzzles in {rec['calls']} call(s), {rec['seconds']:.3f} s, "
               f"launches {rec['launches']}, piece_acc {rec['piece_acc']!r}")
@@ -1490,9 +1541,9 @@ def device_step_vs_train_state_step() -> None:
 
 
 def mixed_masks(corpus_file: Path):
-    """(label, mask (B, N+8, N+8) bool on the card, pairs) of the mixed
-    corpus's first batch of 8 (two puzzles of each size, padded to 144 + 8
-    virtual nodes), as the denoiser builds it."""
+    """(label, mask (B, N+8, N+8) bool on the card) of the mixed corpus's
+    first batch of ``MIXED_BATCH`` (its puzzles in order, sizes 6/8/10/12
+    padded to 144 + 8 virtual nodes), as the denoiser builds it."""
     import numpy as np
     import torch
 
@@ -1501,42 +1552,107 @@ def mixed_masks(corpus_file: Path):
 
     with np.load(corpus_file) as z:
         data = DeviceMixedPuzzleData(*(torch.from_numpy(z[k]).cuda() for k in DeviceMixedPuzzleData._fields))
-    batch = gather_batch_mixed(data, torch.arange(TRAIN_BATCH, device="cuda"))
+    batch = gather_batch_mixed(data, torch.arange(MIXED_BATCH, device="cuda"))
     mask, _ = extend_mask_with_virtual_nodes(batch.adj, batch.node_mask, 8)
     sizes = batch.patches_dim[:, 0].tolist()
     return f"mixed {'/'.join(map(str, sorted(set(sizes))))} padded", mask.contiguous()
 
 
 def mixed(workdir: Path) -> tuple[dict[str, int], dict[str, dict[str, int]], dict]:
-    """The fifth main path: the mixed-size recipe (``weights/diffusion2d_rot_ms``'s
-    data.json: sizes 6/8/10/12 padded to 144 pieces, fully connected) through
-    ``cli/train_device.py`` at the flagship's widths and batch 8, 3 steps and
-    two evaluations; its config's backbone (resnet18equiv) is not ported, so
-    efficientnet_b0 stands in, from seeded weights as that config has no
-    encoder_init. Then the three kernels against their plain
-    versions on the masks of its first batch (N = 152 with 8 virtual nodes:
-    rows of padding nodes attend to no key, their columns are attended by no
-    query) and their times there."""
+    """The fifth main path: the mixed-size recipe of ``weights/diffusion2d_rot_ms``
+    (its config.json: resnet18equiv at the flagship's widths; its data.json:
+    sizes 6/8/10/12 padded to 144 pieces, fully connected) through
+    ``cli/train_device.py`` from seeded weights at its run's batch of 16
+    without EMA: 3 steps with an evaluation, then a resume to step 4, each
+    step through OrientationNorm's backward and the three kernels. Its
+    seeded f32 loss on two puzzles of the corpus, card against CPU on the
+    same draws, within ``TOL_LOSS_3D["float32"]``. Then the three kernels
+    against their plain versions on the masks of its first batch (N = 152
+    with 8 virtual nodes: rows of padding nodes attend to no key, their
+    columns are attended by no query) and their times there."""
     data_recipe = json.loads(MIXED_DATA.read_text())
     run_dir = workdir / "mixed"
-    argv = recipe_argv(str(run_dir), data_recipe, MIXED_STEPS, RECIPE_TRAIN_N, RECIPE_EVAL_N, MIXED_STEPS,
-                       backbone="efficientnet_b0", encoder_init=False)
+    argvs = [recipe_argv(str(run_dir), data_recipe, steps, RECIPE_TRAIN_N, RECIPE_EVAL_N, MIXED_STEPS,
+                         config=MIXED_CONFIG, batch=MIXED_BATCH, ema_decay=0.0)
+             for steps in (MIXED_STEPS, MIXED_RESUME_TO)]
     reset_counts()
     start = time.perf_counter()
-    steps, evals = drive_recipe(workdir, [argv], "mixed")
+    steps, evals = drive_recipe(workdir, argvs, "mixed")
     seconds = time.perf_counter() - start
     counts, routes = read_counts(), read_routes()
-    cfg = flagship_config()
+    cfg = mixed_config()
     _check_recipe_launches(steps, evals, cfg.n_layers * (cfg.steps // cfg.inference_ratio), "mixed")
-    if [s["step"] for s in steps] != list(range(1, MIXED_STEPS + 1)) or len(evals) != 2:
+    # an evaluation at step 3 and a final one, then at step 4 and a final one
+    if [s["step"] for s in steps] != list(range(1, MIXED_RESUME_TO + 1)) or len(evals) != 4:
         raise AssertionError(f"mixed: steps {[s['step'] for s in steps]}, {len(evals)} evaluations")
     n_max = max(data_recipe["hw"]) ** 2
     if any(e["n_nodes"] != n_max for e in evals):
         raise AssertionError(f"mixed: the held-out corpus is not padded to {n_max} pieces: {evals}")
-    phase(f"mixed: {len(steps)} steps in {seconds:.1f} s, host s/step {[round(s['seconds'], 4) for s in steps]}, "
-          f"CUDA events ms {[round(s['ms'], 2) for s in steps]}; launches {counts}")
+    saved = json.loads((run_dir / "checkpoints" / "config.json").read_text())
+    if saved["backbone"] != "resnet18equiv":
+        raise AssertionError(f"mixed: the run's config.json {saved}")
+    phase(f"mixed ({cfg.backbone}, B={MIXED_BATCH}): {len(steps)} steps in two runs in {seconds:.1f} s, host s/step "
+          f"{[round(s['seconds'], 4) for s in steps]}, CUDA events ms {[round(s['ms'], 2) for s in steps]}; "
+          f"launches {counts}")
     corpus = next((workdir / "runs" / "_corpus").glob(f"train-hw{'x'.join(map(str, data_recipe['hw']))}-*.npz"))
-    return counts, routes, {"corpus": corpus, "steps": steps, "evals": evals, "seconds": seconds}
+    losses = mixed_loss_card_vs_cpu(corpus)
+    return counts, routes, {"corpus": corpus, "run_dir": run_dir, "steps": steps, "evals": evals,
+                            "seconds": seconds, "loss_f32_card": losses}
+
+
+def mixed_config():
+    from diffassemble_tpu_torch.models import Diffusion2DConfig
+
+    return Diffusion2DConfig(**json.loads(MIXED_CONFIG.read_text()))
+
+
+def card_vs_cpu_loss_2d(make_model, batch, draws: dict, label: str) -> dict[str, float]:
+    """One f32 loss dict of ``make_model(device)`` (seeded weights) on
+    ``batch`` with the numpy ``draws``, on the card and on the CPU: each term
+    within 2e-3 relative and ``total_loss`` within 2e-4 (PR 11's f32 gate,
+    ``TOL_LOSS_3D["float32"]``). Returns the card's."""
+    import torch
+
+    term, total = TOL_LOSS_3D["float32"]
+    out = {}
+    for device in ("cpu", "cuda"):
+        model = make_model(device)
+        with torch.no_grad():
+            _, aux = model.loss(batch.to(device), **{k: torch.as_tensor(v).to(device) for k, v in draws.items()})
+        out[device] = {k: float(v) for k, v in aux.items()}
+        del model
+    worst = 0.0
+    for key, want in out["cpu"].items():
+        got = out["cuda"][key]
+        tol = (total if key == "total_loss" else term) * abs(want) + 1e-12
+        worst = max(worst, abs(got - want) / tol)
+        if not (math.isfinite(got) and abs(got - want) <= tol):
+            raise AssertionError(f"{label}: f32 {key} on the card {got!r}, on the CPU {want!r}")
+    phase(f"{label}: seeded f32 loss, card vs CPU on the same draws, worst err/tol {worst:.3f}: "
+          f"{ {k: round(v, 6) for k, v in out['cuda'].items()} }")
+    return out["cuda"]
+
+
+def mixed_loss_card_vs_cpu(corpus: Path) -> dict[str, float]:
+    """``card_vs_cpu_loss_2d`` of the mixed run's model on the first two
+    puzzles of its corpus (sizes 6 and 8, padded to 144) with numpy draws of
+    the rotations, t and the noise."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from diffassemble_tpu_torch.models import Diffusion2D
+    from diffassemble_tpu_torch.train.device_data import DeviceMixedPuzzleData, gather_batch_mixed
+
+    cfg = dataclasses.replace(mixed_config(), compute_dtype="float32")
+    with np.load(corpus) as z:
+        data = DeviceMixedPuzzleData(*(torch.from_numpy(z[k]) for k in DeviceMixedPuzzleData._fields))
+    rng = np.random.default_rng(LOSS3D_SEED)
+    batch = gather_batch_mixed(data, torch.arange(2), torch.as_tensor(rng.integers(0, 4, (2, data.n_nodes))))
+    draws = {"t_graph": rng.integers(0, cfg.steps, 2),
+             "noise": rng.standard_normal(tuple(batch.x0.shape)).astype(np.float32)}
+    return card_vs_cpu_loss_2d(lambda device: Diffusion2D(cfg, device=device, seed=0), batch, draws, "mixed")
 
 
 def mixed_kernels(corpus: Path, max_err: dict[str, float]) -> list[dict]:
@@ -1555,10 +1671,7 @@ def mixed_kernels(corpus: Path, max_err: dict[str, float]) -> list[dict]:
     for dh in MAIN_HEAD_DIMS:
         for dtype in (torch.bfloat16, torch.float32):
             _check_kernels(label, mask, dh, dtype, gen, max_err)
-    rows = time_on_masks(mask, label, [dh for dh, _ in STEP_LAUNCHES], gen)
-    for r in rows:
-        r["launches_per_step"] = dict(STEP_LAUNCHES)[r["dh"]]
-    return rows
+    return time_on_masks(mask, label, MAIN_HEAD_DIMS, gen)
 
 
 def time_on_masks(mask, label: str, widths, gen) -> list[dict]:
@@ -1566,7 +1679,7 @@ def time_on_masks(mask, label: str, widths, gen) -> list[dict]:
     their plain versions, the bound over the mask's attended pairs and
     ``scaled_dot_product_attention`` with the same boolean mask (its forward,
     and one backward for dQ, dK and dV together). One row a kernel and
-    width; the caller adds its launches."""
+    width; the caller adds its launches (``attach_launches_2d``)."""
     import torch
 
     from diffassemble_tpu_torch.ops import cuda_attention as ca
@@ -1666,11 +1779,8 @@ def kernels_3d(protocol: dict, heads: int, widths: tuple[int, int], max_err: dic
     """The forward kernel on the 3D protocol's masks (B = 16, N = 8): against
     its plain version at the denoiser's two head widths in bf16 and f32 (the
     existing tolerances and exact zeros on empty rows), then timed in bf16
-    beside its plain version, the bound over the mask's attended pairs and
-    ``scaled_dot_product_attention`` with the same boolean mask."""
+    (``time_forward_on_mask``)."""
     import torch
-
-    from diffassemble_tpu_torch.ops import cuda_attention as ca
 
     # all pairs of each object's valid parts: padding parts have empty rows and unattended keys
     mask = first_batch_3d(protocol).adj.contiguous()
@@ -1683,6 +1793,20 @@ def kernels_3d(protocol: dict, heads: int, widths: tuple[int, int], max_err: dic
     for dh in widths:
         for dtype in (torch.bfloat16, torch.float32):
             _check_kernels(label, mask, dh, dtype, gen, max_err, backward=False)
+    return time_forward_on_mask(mask, label, heads, widths, gen)
+
+
+def time_forward_on_mask(mask, label: str, heads: int, widths, gen) -> list[dict]:
+    """The forward kernel timed on ``mask`` at each head width in bf16,
+    beside its plain version, the bound over the mask's attended pairs and
+    ``scaled_dot_product_attention`` with the same boolean mask: one row a
+    width; the caller adds its launches."""
+    import torch
+
+    from diffassemble_tpu_torch.ops import cuda_attention as ca
+
+    b, n, _ = mask.shape
+    pairs = int(mask.sum())
     rows = []
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for dh in widths:
@@ -1695,7 +1819,7 @@ def kernels_3d(protocol: dict, heads: int, widths: tuple[int, int], max_err: dic
         bound, bound_by = bound_ms("masked_attention_fwd", b, n, heads, dh, 2, pairs=pairs)
         route = ca.route("masked_attention_fwd", q, k, v, mask)
         rows.append({"kernel": "masked_attention_fwd", "b": b, "n": n, "dh": dh, "route": route, "main_path": True,
-                     "mask": label, "launches_per_step": 0, "ms": ms, "plain_ms": plain_ms,
+                     "mask": label, "ms": ms, "plain_ms": plain_ms,
                      "library_ms": library_ms, "bound_ms": bound, "bound_by": bound_by})
         phase(f"timing masked_attention_fwd      B={b} N={n} H={heads} Dh={dh:3d} bf16 {route:12s} ({label}): "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
@@ -2474,6 +2598,377 @@ def attach_launches_3d(rows: list[dict], e_more: dict, t_more: dict) -> list[dic
     return rows
 
 
+def timed_sample_calls(cls):
+    """(a patch of ``cls.sample``, the list it fills): within the patch every
+    call is timed by CUDA events and the host clock and its launches counted,
+    {"puzzles", "ms", "host_s", "routes"}."""
+    import torch
+
+    calls, sample = [], cls.sample
+
+    def timed(self, batch, *args, **kwargs):
+        host, before = time.perf_counter(), read_routes()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = sample(self, batch, *args, **kwargs)
+        ev[1].record()
+        torch.cuda.synchronize()
+        calls.append({"puzzles": batch.patches.shape[0], "ms": ev[0].elapsed_time(ev[1]),
+                      "host_s": time.perf_counter() - host, "routes": routes_since(before)})
+        return out
+
+    return mock.patch.object(cls, "sample", timed), calls
+
+
+def attach_launches_2d(rows: list[dict], paths: dict[str, dict[str, list[dict]]]) -> list[dict]:
+    """Each timed row of the equivariant 2D masks gets ``launches_by_path``:
+    for the main paths that run its mask (``paths[mask label]``: path name →
+    its calls or steps, each with measured launches by route), the launches
+    of its kernel on its route in each call or step (both head widths
+    together: 3 at Dh 32 and 1 at Dh 144 a denoiser pass). The mixed rows'
+    mask is the mixed training corpus's first batch; rot_ms's held-out calls
+    run the same sizes and padding over their own corpus."""
+    for r in rows:
+        r["launches_by_path"] = {path: [rec["routes"][r["kernel"]][r["route"]] for rec in recs]
+                                 for path, recs in paths[r["mask"]].items()}
+    return rows
+
+
+def _gate_2d(name: str, metrics: dict, calls: list[dict], counts: dict, routes: dict, label: str) -> dict:
+    """The trained checkpoint's gate: piece_acc within ``PIECE_ACC_TOL`` of the
+    TPU's, every forward launch on the tensor cores, 120 a call, no backward."""
+    per_call = 4 * (300 // 10)
+    n = per_call * len(calls)
+    if counts != {"masked_attention_fwd": n, "masked_attention_bwd_dq": 0, "masked_attention_bwd_dkv": 0} \
+            or routes["masked_attention_fwd"] != {"tensor_cores": n, "cuda_cores": 0}:
+        raise AssertionError(f"{label}: launches {counts} by route {routes}, expected {n} forward launches on the "
+                             "tensor cores and no backward")
+    from diffassemble_tpu_torch.train.heldout import asset_protocol
+
+    tpu = TPU_2D[name]
+    jax_cpu = json.loads(str(asset_protocol(name)[1]["jax_cpu_bfloat16"]))
+    jax_cpu = {k: jax_cpu[k] for k in ("overall__piece_acc", "overall_acc")}
+    gap = abs(metrics["overall__piece_acc"] - tpu["overall__piece_acc"])
+    for c in calls:
+        phase(f"{label} call of {c['puzzles']} puzzles: {c['ms']:.2f} ms (CUDA events), {c['host_s']:.3f} s host")
+    sizes = {k[:-len("__piece_acc")]: (v, metrics[k[:-len("_piece_acc")] + "acc"]) for k, v in metrics.items()
+             if k.endswith("__piece_acc") and not k.startswith("overall")}
+    phase(f"{label} accuracy, bf16: piece_acc {metrics['overall__piece_acc']!r}, puzzle_acc "
+          f"{metrics['overall_acc']!r} over {metrics['overall_nImages']:g} puzzles; (piece_acc, puzzle_acc) by "
+          f"size {sizes}; the TPU's {tpu}, {gap:.5f} from the card's (tolerance {PIECE_ACC_TOL}); the JAX package's "
+          f"CPU bf16 run {jax_cpu}")
+    if metrics["overall_nImages"] != 64 or not gap <= PIECE_ACC_TOL:
+        raise AssertionError(f"{label}: piece_acc {metrics['overall__piece_acc']} is not within {PIECE_ACC_TOL} of "
+                             f"the TPU's {tpu['overall__piece_acc']}")
+    return {"piece_acc": metrics["overall__piece_acc"], "puzzle_acc": metrics["overall_acc"], "by_size": sizes,
+            "tpu": tpu, "jax_cpu_bfloat16": jax_cpu, "calls": calls}
+
+
+def eval_rot_ms(workdir: Path) -> tuple[dict[str, int], dict[str, dict[str, int]], dict]:
+    """The tenth main path: ``diffusion2d_rot_ms`` at step 7000 (committed
+    converted, ``train/heldout.py:ASSETS``) through the recipe CLI
+    (``cli/train_device.py --evaluate_npz``, ``evaluate_protocol``) under
+    ``scripts/tpu_train_device.py``'s protocol as its run had it: data.json's
+    corpus (sizes 6/8/10/12 padded to 144, fully connected, images from seed
+    1000), the JAX rotation draw, calls of 16, bf16."""
+    import torch
+
+    from diffassemble_tpu_torch.cli import train_device
+    from diffassemble_tpu_torch.models import Diffusion2D
+    from diffassemble_tpu_torch.train.heldout import ASSETS
+
+    name = "diffusion2d_rot_ms"
+    data_recipe = json.loads(MIXED_DATA.read_text())
+    argv = recipe_argv(str(workdir / "rot_ms_eval"), data_recipe, 0, MIXED_BATCH, 64, 1, config=MIXED_CONFIG,
+                       batch=MIXED_BATCH, ema_decay=0.0) + ["--eval_batch", str(MIXED_BATCH),
+                                                            "--evaluate_npz", str(ASSETS[name])]
+    patch, calls = timed_sample_calls(Diffusion2D)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start = time.perf_counter()
+    with patch:
+        metrics = train_device.main(argv)
+    seconds = time.perf_counter() - start
+    counts, routes = read_counts(), read_routes()
+    if len(calls) != 4 or (workdir / "rot_ms_eval").exists():
+        raise AssertionError(f"rot_ms: {len(calls)} calls, or the evaluation wrote a run")
+    result = _gate_2d(name, metrics, calls, counts, routes, "rot_ms")
+    result.update(seconds=seconds, max_memory_allocated=torch.cuda.max_memory_allocated())
+    phase(f"rot_ms: {seconds:.1f} s with the corpus; max_memory_allocated "
+          f"{result['max_memory_allocated'] / 2**30:.2f} GiB; launches {counts}")
+    return counts, routes, result
+
+
+def eval_discrete() -> tuple[dict[str, int], dict[str, dict[str, int]], dict]:
+    """The eleventh main path: ``diffusion2d_discrete_rot6`` at step 6000
+    (committed converted) under ``scripts/tpu_train_variants.py``'s protocol
+    (``train/heldout.py:run_protocol``: 64 6×6 puzzles, the committed 60%
+    expander, the JAX rotation draw, calls of 32, bf16): 30 Gumbel steps a
+    call, each re-running the equivariant encoder on the patches turned by
+    the accumulated rotation."""
+    import torch
+
+    from diffassemble_tpu_torch.models import DiscreteDiffusion2DRot
+    from diffassemble_tpu_torch.train.heldout import run_protocol
+
+    name = "diffusion2d_discrete_rot6"
+    patch, calls = timed_sample_calls(DiscreteDiffusion2DRot)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start = time.perf_counter()
+    with patch:
+        metrics = run_protocol(name, "cuda")
+    seconds = time.perf_counter() - start
+    counts, routes = read_counts(), read_routes()
+    if len(calls) != 2:
+        raise AssertionError(f"discrete: {len(calls)} calls")
+    result = _gate_2d(name, metrics, calls, counts, routes, "discrete")
+    result.update(seconds=seconds, max_memory_allocated=torch.cuda.max_memory_allocated())
+    phase(f"discrete: {seconds:.1f} s with the corpus; max_memory_allocated "
+          f"{result['max_memory_allocated'] / 2**30:.2f} GiB; launches {counts}")
+    return counts, routes, result
+
+
+def discrete_masks():
+    """(label, mask (32, 44, 44) bool on the card): the discrete protocol's
+    committed 60% expander over 36 pieces plus 8 virtual nodes, shared by a
+    call's 32 puzzles."""
+    import torch
+
+    from diffassemble_tpu_torch.ops.attention import build_adjacency_mask, extend_mask_with_virtual_nodes
+    from diffassemble_tpu_torch.train.heldout import asset_adj, asset_protocol
+
+    _, extras = asset_protocol("diffusion2d_discrete_rot6")
+    valid = torch.ones((32, 36), dtype=torch.bool)
+    adj, _ = extend_mask_with_virtual_nodes(build_adjacency_mask(torch.as_tensor(asset_adj(extras)), valid), valid, 8)
+    return "discrete expander60%+8virt, B=32", adj.cuda().contiguous()
+
+
+def kernels_discrete_masks(max_err: dict[str, float]) -> list[dict]:
+    """The three kernels against their plain versions on the discrete
+    protocol's masks (bf16 on the tensor cores, f32 on the CUDA cores, Dh 32
+    and 144, exact zeros), then timed there (``time_on_masks``)."""
+    import torch
+
+    label, mask = discrete_masks()
+    b, n, _ = mask.shape
+    pairs = int(mask.sum())
+    phase(f"discrete masks: {label}, B={b} N={n}, {pairs} attended pairs ({pairs / mask.numel():.3f} of B·N²)")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for dh in MAIN_HEAD_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            _check_kernels(label, mask, dh, dtype, gen, max_err)
+    return time_on_masks(mask, label, MAIN_HEAD_DIMS, gen)
+
+
+def train_discrete(workdir: Path) -> tuple[dict[str, int], dict[str, dict[str, int]], dict]:
+    """The twelfth main path: the discrete-rotation model of
+    ``weights/diffusion2d_discrete_rot6``'s config (resnet18equiv, cold
+    diffusion, the vb loss with the aux CE, bf16) through
+    ``cli/train_2d_rot.py --discrete true`` at 6×6 over the 60% expander,
+    batch 32, from seeded weights: a sanity evaluation, 2 steps, a
+    checkpoint, a resume to step 3. Every step 4 + 4 + 4 tensor-core
+    launches, finite losses, nonzero gradients; each sanity evaluation 120
+    forward launches. First the seeded f32 loss on two puzzles, card against
+    CPU on the same numpy draws (``card_vs_cpu_loss_2d``)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from diffassemble_tpu_torch.models import DiscreteDiffusion2DConfig, DiscreteDiffusion2DRot
+
+    from diffassemble_tpu_torch.train.heldout import asset_protocol
+
+    cfg = DiscreteDiffusion2DConfig(**json.loads(str(asset_protocol("diffusion2d_discrete_rot6")[1]["config"])))
+    f32 = dataclasses.replace(cfg, compute_dtype="float32", encoder_init="")
+    rng = np.random.default_rng(LOSS3D_SEED)
+    host = seeded_puzzles(6, 2, True, rng, degree="60%")
+    draws = {"t_graph": rng.integers(0, cfg.steps, 2),
+             "gumbel_x": -np.log(-np.log(rng.uniform(1e-12, 1.0, (2, 36, 36)))).astype(np.float32),
+             "gumbel_r": -np.log(-np.log(rng.uniform(1e-12, 1.0, (2, 36, 4)))).astype(np.float32)}
+    losses = card_vs_cpu_loss_2d(lambda device: DiscreteDiffusion2DRot(f32, device=device, seed=0), host, draws,
+                                 "discrete")
+    run_dir = workdir / "discrete"
+    argv = [*DISCRETE_FLAGS, "--run_dir", str(run_dir)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start = time.perf_counter()
+    steps, runs = drive_trainer([argv + ["-max_steps", str(DISCRETE_STEPS)],
+                                 argv + ["-max_steps", str(DISCRETE_RESUME_TO)]], "discrete")
+    seconds = time.perf_counter() - start
+    counts, routes = read_counts(), read_routes()
+    peak = torch.cuda.max_memory_allocated()
+    if runs != [DISCRETE_STEPS, DISCRETE_RESUME_TO - DISCRETE_STEPS] or \
+            [s["step"] for s in steps] != list(range(1, DISCRETE_RESUME_TO + 1)):
+        raise AssertionError(f"discrete training: steps {[s['step'] for s in steps]} in runs {runs}")
+    _check_trainer_steps(steps, "discrete")
+    per_call = cfg.n_layers * (cfg.steps // cfg.inference_ratio)
+    in_steps = {k: sum(s["launches"][k] for s in steps) for k in KERNEL_SOURCES}
+    sanity = {k: counts[k] - in_steps[k] for k in KERNEL_SOURCES}  # one sanity call in each run
+    if sanity != {"masked_attention_fwd": 2 * per_call, "masked_attention_bwd_dq": 0,
+                  "masked_attention_bwd_dkv": 0} or routes["masked_attention_fwd"]["cuda_cores"]:
+        raise AssertionError(f"discrete training: sanity evaluations launched {sanity}, by route {routes}")
+    saved = json.loads((run_dir / "checkpoints" / "config.json").read_text())
+    ckpts = sorted(int(p.name) for p in (run_dir / "checkpoints").iterdir() if p.name.isdigit())
+    if ckpts != [DISCRETE_RESUME_TO] or saved["n_classes"] != 36 or not saved["cold_diffusion"] \
+            or saved["discrete_loss"] != "vb":
+        raise AssertionError(f"discrete training: checkpoints {ckpts}, config {saved}")
+    steady = [s for i, s in enumerate(steps) if i not in (0, runs[0])]
+    result = {"seconds": seconds, "max_memory_allocated": peak, "losses": [s["total_loss"] for s in steps],
+              "host_s": [s["seconds"] for s in steps], "cuda_ms": [s["ms"] for s in steps],
+              "steady_host_s": [s["seconds"] for s in steady], "checkpoints": ckpts, "loss_f32_card": losses,
+              "steps": steps}
+    phase(f"discrete training: {len(steps)} steps in two runs, {seconds:.1f} s with sanity evaluations and "
+          f"checkpoints; s/step by host clock {[round(x, 3) for x in result['host_s']]}, CUDA events (ms) "
+          f"{[round(x, 2) for x in result['cuda_ms']]}; max_memory_allocated {peak / 2**30:.2f} GiB; losses "
+          f"{[round(x, 4) for x in result['losses']]}; launches {counts}")
+    return counts, routes, result
+
+
+def _check_trainer_steps(steps: list[dict], label: str) -> None:
+    """Every step 4 + 4 + 4 launches on the tensor cores, finite, with gradients in encoder and denoiser."""
+    want = dict.fromkeys(KERNEL_SOURCES, 4)
+    on_tc = dict.fromkeys(KERNEL_SOURCES, {"tensor_cores": 4, "cuda_cores": 0})
+    for s in steps:
+        if s["launches"] != want or s["routes"] != on_tc:
+            raise AssertionError(f"{label} step {s['step']}: launches {s['launches']} by route {s['routes']}")
+        if not (math.isfinite(s["total_loss"]) and math.isfinite(s["grad_norm"]) and s["grad_nonfinite"] == 0
+                and s["grad_norm/encoder"] > 0 and s["grad_norm/denoiser"] > 0):
+            raise AssertionError(f"{label} step {s['step']}: bad loss or gradient norms {s}")
+
+
+def angle_sample() -> tuple[dict[str, int], dict[str, dict[str, int]], dict]:
+    """The fourteenth main path: a seeded 6×6 ``AngleDiffusion2D`` sample
+    (rot_ms's widths and encoder, DDIM from unit noise drawn on the CPU).
+    First in f32, card against CPU within the 6×6 sample phase's 1e-3 (a
+    comparison: its launches, on the CUDA cores as f32 asks, do not count);
+    then in bf16 with the counts from 0: 120 forward launches on the tensor
+    cores, no backward, a finite (1, 36, 4) result."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from diffassemble_tpu_torch.models import AngleDiffusion2D, AngleDiffusion2DConfig
+
+    base = dataclasses.asdict(mixed_config())
+    cfg = AngleDiffusion2DConfig(**{**base, "compute_dtype": "float32", "noise_weight": 0.0})
+    small = seeded_puzzles(6, 1, True, np.random.default_rng(7))
+    finals = [AngleDiffusion2D(cfg, device=device, seed=0).sample(small.to(device)).final.cpu()
+              for device in ("cpu", "cuda")]
+    err = (finals[1] - finals[0]).abs().max().item()
+    phase(f"angle model: 6x6 sample f32, card vs CPU: max|d|={err:.3e} (tol 1e-3), final {tuple(finals[1].shape)}")
+    if not (torch.isfinite(finals[1]).all() and finals[1].shape == (1, 36, 4) and err <= 1e-3):
+        raise AssertionError("the angle model's sample on the card disagrees with the CPU's")
+
+    bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    model, batch = AngleDiffusion2D(bf16, device="cuda", seed=0), small.to("cuda")
+    patch, calls = timed_sample_calls(AngleDiffusion2D)
+    torch.cuda.synchronize()
+    reset_counts()
+    with patch:
+        final = model.sample(batch).final
+    counts, routes = read_counts(), read_routes()
+    n = bf16.n_layers * (bf16.steps // bf16.inference_ratio)
+    if counts != {"masked_attention_fwd": n, "masked_attention_bwd_dq": 0, "masked_attention_bwd_dkv": 0} \
+            or routes["masked_attention_fwd"] != {"tensor_cores": n, "cuda_cores": 0}:
+        raise AssertionError(f"angle sample: launches {counts} by route {routes}, expected {n} forward launches on "
+                             "the tensor cores and no backward")
+    if not (torch.isfinite(final).all() and final.shape == (1, 36, 4)):
+        raise AssertionError(f"angle sample bf16: final {tuple(final.shape)}, finite {bool(torch.isfinite(final).all())}")
+    phase(f"angle model: 6x6 sample bf16 on the card in {calls[0]['ms']:.2f} ms (CUDA events), "
+          f"{calls[0]['host_s']:.3f} s host; launches {counts}")
+    return counts, routes, {"max_abs_err_f32_card_vs_cpu": err, "calls": calls}
+
+
+def serve_masks():
+    """(label, mask (1, 44, 44) bool on the card): a 6×6 request's graph
+    under rot_ms's config (fully connected, 8 virtual nodes), as
+    ``serve_norm_stats`` and ``angle_sample`` give it to the forward kernel."""
+    import torch
+
+    from diffassemble_tpu_torch.ops.attention import (build_adjacency_mask, extend_mask_with_virtual_nodes,
+                                                      fully_connected_mask)
+
+    cfg = mixed_config()
+    valid = torch.ones((1, 36), dtype=torch.bool)
+    adj, _ = extend_mask_with_virtual_nodes(build_adjacency_mask(fully_connected_mask(36), valid), valid,
+                                            cfg.virt_nodes)
+    return f"6x6 fully connected+{cfg.virt_nodes}virt, B=1", adj.cuda().contiguous()
+
+
+def kernels_serve_masks(max_err: dict[str, float]) -> list[dict]:
+    """The forward kernel against its plain version on a 6×6 request's mask
+    (``serve_masks``) at Dh 32 and 144, bf16 on the tensor cores and f32 on
+    the CUDA cores, then timed there in bf16 (``time_forward_on_mask``)."""
+    import torch
+
+    label, mask = serve_masks()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for dh in MAIN_HEAD_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            _check_kernels(label, mask, dh, dtype, gen, max_err, backward=False)
+    return time_forward_on_mask(mask, label, HEADS, MAIN_HEAD_DIMS, gen)
+
+
+def serve_norm_stats(run_dir: Path) -> tuple[dict[str, int], dict[str, dict[str, int]], dict]:
+    """The thirteenth main path: ``serve --run_dir`` on the mixed run (its
+    latest checkpoint, resnet18equiv) after its OrientationNorm statistics
+    were calibrated on the card over one 12×12 image's pieces and written as
+    ``<run_dir>/norm_stats.npz``: ``PuzzleSolver.from_run`` serves with them
+    frozen (a piece's features then do not depend on the rest of its batch),
+    one 6×6 request, 120 forward launches on the tensor cores."""
+    import numpy as np
+    import torch
+
+    from diffassemble_tpu_torch.cli.serve import PuzzleSolver
+    from diffassemble_tpu_torch.data.patchify import patchify
+    from diffassemble_tpu_torch.nn.visual import norm_layers, save_norm_stats
+
+    solver = PuzzleSolver.from_run(run_dir, puzzle_size=6, device="cuda")
+    if solver.model.norm_stats is not None:
+        raise AssertionError("the run had no norm_stats.npz yet")
+    img = np.random.default_rng(9).random((384, 384, 3)).astype(np.float32)
+    stats = solver.model.calibrate_norm_stats([patchify(img, 12, 12, 32)])
+    save_norm_stats(run_dir / "norm_stats.npz", stats)
+    solver = PuzzleSolver.from_run(run_dir, puzzle_size=6, device="cuda")
+    layers = norm_layers(solver.model.encoder)
+    if solver.model.norm_stats is None or not all(m.frozen_mean is not None for _, m in layers):
+        raise AssertionError("serve did not attach the run's norm_stats.npz")
+    pieces = torch.as_tensor(patchify(img, 12, 12, 32)[:16], device="cuda")
+
+    def batch_dependence():
+        with torch.no_grad():
+            alone, together = solver.model.encoder(pieces[:4]), solver.model.encoder(pieces)[:4]
+        return (alone - together).abs().max().item() / together.abs().max().item()
+
+    spread = batch_dependence()
+    frozen = solver.model.norm_stats
+    solver.model.norm_stats = None
+    spread_batch = batch_dependence()
+    solver.model.norm_stats = frozen
+    reset_counts()
+    start = time.perf_counter()
+    out = solver.predict_array(np.random.default_rng(10).random((192, 192, 3)).astype(np.float32))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    counts, routes = read_counts(), read_routes()
+    if counts != {"masked_attention_fwd": 120, "masked_attention_bwd_dq": 0, "masked_attention_bwd_dkv": 0} \
+            or routes["masked_attention_fwd"] != {"tensor_cores": 120, "cuda_cores": 0}:
+        raise AssertionError(f"serve with norm_stats: launches {counts} by route {routes}")
+    if out.shape != (192, 192, 3) or not np.isfinite(out).all() or not spread <= 5e-2:
+        raise AssertionError(f"serve with norm_stats: output {out.shape}, batch dependence {spread}")
+    phase(f"serve --run_dir with norm_stats.npz ({len(layers)} OrientationNorm layers frozen): a 6x6 request in "
+          f"{seconds:.3f} s, launches {counts}; features of 4 pieces alone vs in a batch of 16 differ by "
+          f"{spread:.2e} of their largest entry (bf16 convolutions; with batch statistics {spread_batch:.2e})")
+    return counts, routes, {"seconds": seconds, "batch_dependence": spread, "batch_dependence_batch_stats":
+                            spread_batch}
+
+
 def _family(kernel_name: str) -> str:
     name = kernel_name.lower()
     for family, keys in (("masked_attention_bwd (this port)", ("masked_attention_bwd",)),
@@ -2648,13 +3143,14 @@ def profile_train3d_step() -> None:
 
 def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, train: tuple, heldout: tuple,
                 recipe_: tuple, mixed_: tuple, ddp: tuple, eval3d_: tuple, train3d_: tuple, e_more: dict,
-                t_more: dict) -> dict:
+                t_more: dict, more_2d: dict) -> dict:
     """The kernels' JSON line; ``serve`` and ``train`` are (launches,
     launches by route, seconds per request or per steady step), ``heldout``,
     ``recipe_``, ``mixed_``, ``eval3d_`` and ``train3d_`` (launches, launches
     by route, the phase's result), ``ddp`` (launches, launches by route),
     ``e_more`` and ``t_more`` the results of ``eval3d_more`` and
-    ``train3d_more``."""
+    ``train3d_more``, ``more_2d`` the equivariant 2D family's paths by name
+    (launches, launches by route, the phase's result)."""
     from diffassemble_tpu_torch import REFERENCE_PACKAGE
     from diffassemble_tpu_torch.ops import cuda_attention
 
@@ -2663,7 +3159,7 @@ def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, t
              "ddp": ddp, "eval3d_cli": cli3d, "eval3d_heldout": eval3d_, "train3d": train3d_,
              **{f"eval3d_{name}_cli": (v[2]["cli_launches"], v[2]["cli_routes"]) for name, v in e_more.items()},
              **{f"eval3d_{name}": v for name, v in e_more.items()},
-             **{f"train3d_{label}": v for label, v in t_more.items()}}
+             **{f"train3d_{label}": v for label, v in t_more.items()}, **more_2d}
     out = []
     for kernel, source in KERNEL_SOURCES.items():
         # the forward kernel's figures are per denoiser step at the serving
@@ -2698,13 +3194,14 @@ def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, t
     out[1]["seconds_per_train_step"] = train[2]
     out[0]["heldout_eval"] = heldout[2]
     out[1]["recipe"] = recipe_[2]
-    out[1]["mixed"] = {k: v for k, v in mixed_[2].items() if k != "corpus"}
+    out[1]["mixed"] = {k: v for k, v in mixed_[2].items() if k not in ("corpus", "run_dir")}
     out[0]["eval3d"] = {k: v for k, v in eval3d_[2].items() if k not in ("cli_launches", "cli_routes")}
     out[1]["train3d"] = train3d_[2]
     out[0]["eval3d_more"] = {name: {k: v for k, v in r[2].items() if k not in ("cli_launches", "cli_routes", "calls")}
                              | {"rows": [{k: v for k, v in row.items() if k != "calls"} for row in r[2]["rows"]]}
                              for name, r in e_more.items()}
     out[1]["train3d_more"] = {label: r[2] for label, r in t_more.items()}
+    out[0]["equivariant_2d"] = {name: r[2] for name, r in more_2d.items()}
     return {"kernels": out}
 
 
@@ -2739,8 +3236,25 @@ def main() -> None:
         rec = recipe(Path(tmp))
         device_step_vs_train_state_step()
         mix = mixed(Path(tmp))
-        rows += mixed_kernels(mix[2]["corpus"], errs)
+        rows_2d = mixed_kernels(mix[2]["corpus"], errs)
+        rows_2d += kernels_serve_masks(errs)
+        served = serve_norm_stats(mix[2]["run_dir"])
+        rot_ms = eval_rot_ms(Path(tmp))
     ddp = ddp_world_of_one()
+    rows_2d += kernels_discrete_masks(errs)
+    discrete = eval_discrete()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_discrete_") as tmp:
+        discrete_train = train_discrete(Path(tmp))
+    angle = angle_sample()
+    labels = {r["mask"]: None for r in rows_2d}  # mixed, 6×6 request, discrete, in order
+    mixed_mask, serve_mask, discrete_mask = labels
+    rows += attach_launches_2d(rows_2d, {
+        mixed_mask: {"mixed_steps": mix[2]["steps"], "mixed_evaluations": mix[2]["evals"],
+                     "rot_ms_heldout": rot_ms[2]["calls"]},
+        serve_mask: {"serve_norm_stats": [{"routes": served[1]}], "angle_sample": angle[2]["calls"]},
+        discrete_mask: {"discrete_heldout": discrete[2]["calls"], "discrete_train": discrete_train[2]["steps"]}})
+    more_2d = {"rot_ms_heldout": rot_ms, "discrete_heldout": discrete, "discrete_train": discrete_train,
+               "serve_norm_stats": served, "angle_sample": angle}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_3d_") as tmp:
         *e3d, rows3d = eval3d(Path(tmp), errs)
         *t3d, rows_t3d = train3d(Path(tmp), errs)
@@ -2753,16 +3267,18 @@ def main() -> None:
              "3D held-out": e3d[0], "3D train": t3d[0],
              **{f"3D {name} run_3d --evaluate": v[2]["cli_launches"] for name, v in e_more.items()},
              **{f"3D {name} held-out": v[0] for name, v in e_more.items()},
-             **{f"3D train {label}": v[0] for label, v in t_more.items()}}
+             **{f"3D train {label}": v[0] for label, v in t_more.items()},
+             **{name: v[0] for name, v in more_2d.items()}}
     # these launch the forward kernel alone
-    sampling_only = {"serve", "held-out eval", "3D run_3d --evaluate", "3D held-out",
+    sampling_only = {"serve", "held-out eval", "3D run_3d --evaluate", "3D held-out", "rot_ms_heldout",
+                     "discrete_heldout", "serve_norm_stats", "angle_sample",
                      *(f"3D {name} {what}" for name in e_more for what in ("run_3d --evaluate", "held-out"))}
     idle = {path: counts for path, counts in paths.items()
             if any(v == 0 for k, v in counts.items() if path not in sampling_only or k == "masked_attention_fwd")}
     if idle:
         raise AssertionError(f"a kernel of a main path was not launched: {idle}")
     line = kernel_line(errs, rows, sweep, serve, train, heldout, rec, mix, ddp, tuple(e3d), tuple(t3d), e_more,
-                       t_more)
+                       t_more, more_2d)
     phase("done")
     print(smi, flush=True)
     print(json.dumps(line), flush=True)

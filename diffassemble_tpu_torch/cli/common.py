@@ -2,8 +2,11 @@
 reference's argparse surface → config + datasets + trainer.
 
 The flags are the JAX CLI's, plus ``--device`` (default ``cuda``; the CPU
-only when asked for). Not ported yet: ``--discrete`` (ROADMAP Queue 1 item
-12) and every backbone but efficientnet_b0 (items 6 and 13). ``-gpus N``
+only when asked for). ``--discrete`` builds the D3PM models (with
+``--rotation``, the two-chain one; ``--cold_diffusion``, ``--only_rotation``),
+K = ``puzzle_sizes[0]``² classes. The backbones are efficientnet_b0 and the
+equivariant ResNets; "tiny" and "convnet" are not ported yet (ROADMAP Queue
+1 item 6). ``-gpus N``
 trains data-parallel over min(N, the run's processes) ranks: launch one
 process per card, e.g. ``torchrun --nproc_per_node N -m
 diffassemble_tpu_torch.cli.train_2d_rot ...``; a single process uses one
@@ -16,6 +19,8 @@ from __future__ import annotations
 import argparse
 
 from ..models.diffusion_2d import Diffusion2D, Diffusion2DConfig
+from ..models.diffusion_2d_discrete import DiscreteDiffusion2D, DiscreteDiffusion2DConfig, DiscreteDiffusion2DRot
+from ..nn.visual import BACKBONES
 
 
 def percent(value: str):
@@ -102,22 +107,17 @@ def add_2d_args(ap: argparse.ArgumentParser) -> None:
 
 def check_backbone(backbone: str) -> None:
     """Raise, naming its ROADMAP item, for a backbone the port does not have."""
-    if backbone != "efficientnet_b0":
-        # the equivariant ResNets come with OrientationNorm (item 13), the light encoders with item 6
-        item = 13 if backbone.endswith("equiv") else 6
+    if backbone not in BACKBONES:
         raise NotImplementedError(
-            f"backbone {backbone!r} is not ported yet (only efficientnet_b0): ROADMAP Queue 1 item {item}")
+            f"backbone {backbone!r} is not ported yet (only {', '.join(BACKBONES)}): ROADMAP Queue 1 item 6")
 
 
 def build_2d_model(args) -> Diffusion2D:
-    if args.discrete:
-        raise NotImplementedError("--discrete (the discrete 2D models) is not ported yet: ROADMAP Queue 1 item 12")
+    """The continuous model, or with ``--discrete`` the D3PM one (the
+    two-chain one with ``--rotation``), as the JAX CLI builds them; a loss
+    type the model does not know falls back to huber, or cross_entropy."""
     check_backbone(args.backbone)
-    degree = args.degree
-    if isinstance(degree, str) and degree == "100%":
-        degree = -1  # fully connected
-    lt = args.loss_type if args.loss_type in ("huber", "l1", "l2") else "huber"
-    cfg = Diffusion2DConfig(
+    common = dict(
         steps=args.steps,
         sampling=args.sampling.lower(),
         inference_ratio=args.inference_ratio,
@@ -126,7 +126,6 @@ def build_2d_model(args) -> Diffusion2D:
         noise_weight=args.noise_weight,
         classifier_free_prob=args.classifier_free_prob,
         classifier_free_w=args.classifier_free_w,
-        loss_type=lt,
         backbone=args.backbone,
         architecture=args.architecture,
         n_layers=args.n_layers,
@@ -140,7 +139,15 @@ def build_2d_model(args) -> Diffusion2D:
         aux_loss_weight=args.aux_loss_weight,
         compute_dtype=args.compute_dtype,
     )
-    return Diffusion2D(cfg, device=args.device, seed=args.seed)
+    if args.discrete:
+        dl = args.loss_type if args.loss_type in ("cross_entropy", "vb", "hybrid") else "cross_entropy"
+        cfg = DiscreteDiffusion2DConfig(**common, n_classes=args.puzzle_sizes[0] ** 2, discrete_loss=dl,
+                                        cold_diffusion=bool(args.cold_diffusion),
+                                        only_rotation=bool(args.only_rotation))
+        model_cls = DiscreteDiffusion2DRot if args.rotation else DiscreteDiffusion2D
+        return model_cls(cfg, device=args.device, seed=args.seed)
+    lt = args.loss_type if args.loss_type in ("huber", "l1", "l2") else "huber"
+    return Diffusion2D(Diffusion2DConfig(**common, loss_type=lt), device=args.device, seed=args.seed)
 
 
 def build_2d_datasets(args):

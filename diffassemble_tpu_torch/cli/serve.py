@@ -8,7 +8,9 @@ PIL ``predict`` and the stdlib HTTP server in ``main`` (POST an image to
 Weights come in two ways. ``PuzzleSolver.from_run`` serves a run of the
 port's trainer as the JAX ``cli/serve.py`` serves one of its own: the run's
 config, and ``eval_params`` of its latest checkpoint (the EMA where the run
-kept one), or with ``checkpoint_path`` that checkpoint's live params. The
+kept one), or with ``checkpoint_path`` that checkpoint's live params, and
+the run's calibrated OrientationNorm statistics (``<run_dir>/norm_stats.npz``,
+either package's) when it has them. The
 constructor takes a config and a state_dict (e.g. JAX weights converted with
 ``convert.convert_params``, or read by ``convert.load_jax_npz`` from an npz
 such as the committed ``assets/diffusion2d_rot30_ema32000.npz``, which
@@ -33,6 +35,7 @@ import torch
 from ..data.batch import collate_puzzles
 from ..data.patchify import make_puzzle
 from ..models.diffusion_2d import Diffusion2D, Diffusion2DConfig
+from ..nn.visual import load_norm_stats
 from ..train.checkpoint import CheckpointManager, restore_explicit
 from ..train.train_state import create_train_state, eval_params
 from ..utils.device import resolve_device
@@ -69,7 +72,9 @@ class PuzzleSolver:
         ``PuzzleSolver(run_dir, ...)``): the config of ``<run_dir>/checkpoints``;
         with ``checkpoint_path`` the live params of that checkpoint
         (``restore_explicit``), else ``eval_params`` of the run's latest
-        checkpoint, else the seeded weights."""
+        checkpoint, else the seeded weights; frozen OrientationNorm
+        statistics from ``<run_dir>/norm_stats.npz`` when present, for
+        batch-independent inference."""
         ckpt = CheckpointManager(Path(run_dir) / "checkpoints")
         solver = cls(Diffusion2DConfig(**ckpt.load_config()), seed=seed, device=device,
                      puzzle_size=puzzle_size, shuffle=shuffle)
@@ -85,6 +90,9 @@ class PuzzleSolver:
         with torch.no_grad():
             for k, p in model.named_parameters():
                 p.copy_(params[k])
+        stats_path = Path(run_dir) / "norm_stats.npz"
+        if stats_path.is_file():
+            model.norm_stats = load_norm_stats(stats_path)
         return solver
 
     def predict_positions(self, img: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

@@ -25,6 +25,17 @@ The flagship 30×30 recipe (``weights/diffusion2d_rot30``):
         --train_n 1536 --encoder_init weights/efficientnet_b0_pose30hf.npz \\
         --ema_decay 0.999 --viz_every_eval 0
 
+The mixed-size recipe of ``weights/diffusion2d_rot_ms`` (its config.json and data.json):
+
+    python -m diffassemble_tpu_torch.cli.train_device --run_dir runs/rot_ms --hw 6 8 10 12 \
+        --degree -1 --batch_size 16 --eval_batch 16 --aux_loss_weight 0.1
+
+``--evaluate_npz`` evaluates the parameters of an npz instead of training
+(``convert.load_jax_npz``: a committed asset of ``train/heldout.py``, with
+``heldout_rot_k``, the JAX package's rotation draw): the held-out corpus of
+these flags under ``train/heldout.py:evaluate_protocol``, in calls of
+``--eval_batch``; nothing is written.
+
 The guard reads the cutoff from ``PROGRESS.jsonl``; set
 ``DIFFASSEMBLE_DEADLINE_EPOCH`` to run past it.
 """
@@ -50,7 +61,7 @@ from ..train.device_data import (
     make_device_train_step,
     size_topologies,
 )
-from ..train.heldout import heldout_eval
+from ..train.heldout import evaluate_protocol, heldout_eval
 from ..train.train_state import create_train_state, eval_params
 from ..train.trainer import JsonlLogger, swapped_params
 from ..utils.deadline import round_deadline
@@ -101,6 +112,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ema_decay", type=float, default=0.0, help="EMA of params for eval (0 = off)")
     ap.add_argument("--deadline_margin", type=float, default=3600.0,
                     help="stop training this many seconds before the round's cutoff (utils/deadline.py)")
+    ap.add_argument("--evaluate_npz", default="",
+                    help="evaluate these parameters (a JAX-tree npz, e.g. a committed asset) instead of training")
     ap.add_argument("--device", default="cuda", help="torch device; the CPU runs only when asked for")
     return ap
 
@@ -163,6 +176,21 @@ def corpus_bytes(*corpora) -> int:
     return sum(t.numel() * t.element_size() for data in corpora for t in data)
 
 
+def evaluate_npz(args, model: Diffusion2D) -> dict[str, float]:
+    """``--evaluate_npz``: the npz's parameters in ``model`` under these
+    flags' held-out protocol (their eval corpus, the npz's rotation draw)."""
+    from .. import convert
+
+    params, extras = convert.load_jax_npz(args.evaluate_npz)
+    model.load_state_dict(params, strict=True)
+    if model.cfg.rotation and "heldout_rot_k" not in extras:
+        raise ValueError(f"{args.evaluate_npz} holds no heldout_rot_k, the rotation draw of its protocol")
+    protocol = {"hw": args.hw, "degree": args.degree, "seed": args.seed, "eval_n": args.eval_n,
+                "eval_batch": args.eval_batch or args.batch_size, "canonical": args.canonical,
+                "hf_detail": args.hf_detail, "style": args.style}
+    return evaluate_protocol(model, protocol, extras["heldout_rot_k"] if model.cfg.rotation else None, model.device)
+
+
 def main(argv: list[str] | None = None) -> dict[str, float]:
     """Train (or resume) and evaluate; returns the final evaluation's metrics."""
     t0 = time.time()
@@ -185,6 +213,11 @@ def main(argv: list[str] | None = None) -> dict[str, float]:
     model = Diffusion2D(cfg, device=args.device, seed=args.seed)
     dev = model.device
     tick(f"device: {dev} ({torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'})")
+    if args.evaluate_npz:
+        m = evaluate_npz(args, model)
+        tick(f"evaluated {args.evaluate_npz}: overall_acc={m.get('overall_acc', float('nan')):.4f} "
+             f"piece_acc={m.get('overall__piece_acc', float('nan')):.4f}")
+        return m
 
     topologies = size_topologies(sizes, args.degree, args.seed)
     data = load_corpus(args, "train", args.train_n, args.seed, topologies, dev)

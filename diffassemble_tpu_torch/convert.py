@@ -12,7 +12,9 @@ JAX:
 other arrays stored beside it. Leaf rules: a Dense kernel (in, out) becomes a
 Linear weight (out, in), and so does a VN linear's bias-free channel mix (C,
 D); a conv kernel HWIO becomes OIHW (a depthwise (kh, kw, 1, C) kernel
-becomes (C, 1, kh, kw)); Embed tables, LayerNorm, BatchNorm2D and VNNorm
+becomes (C, 1, kh, kw)), but a group convolution's (``GroupConvP4_i`` ...)
+keeps the JAX shape, as ``nn/visual.py`` holds it; Embed tables,
+OrientationNorm, LayerNorm, BatchNorm2D and VNNorm
 scales become ``weight``; biases, the Exophormer's ``virt_embedding`` and the
 relative-pose head's raw projections ``U`` and ``V`` (C, k) carry over as
 they are. Module names follow the port's (``Exophormer_0`` or
@@ -24,11 +26,18 @@ they are. Module names follow the port's (``Exophormer_0`` or
 ``fc1``, the fusion MLP's, but ``dense.0`` in a ``PointMLP_i`` or ``TNet_i``
 and ``out`` directly under ``encoder``, the VN-PointNet's projection, and
 ``VNLinear_0`` is ``frame`` in ``VNStdFeature_0`` but ``vn_out`` directly
-under ``encoder``). The denoiser's Dense→GELU→Dense heads are
+under ``encoder``; the equivariant ResNet's ``GroupConvZ2_0`` and
+``OrientationNorm_0`` directly under ``encoder`` are ``stem`` and
+``stem_norm``, and in an ``EquivariantBasicBlock_k`` or
+``EquivariantBottleneck_k`` (→ ``blocks.k``) ``GroupConvP4_i`` and
+``OrientationNorm_i`` are ``conv{i+1}`` and ``norm{i+1}`` but the last of a
+block with a projected shortcut, ``shortcut`` and ``shortcut_norm``). The
+denoiser's Dense→GELU→Dense heads are
 ``Sequential``s built inside its compact method, so their layers sit at the
 denoiser's top level as ``Dense_0`` ... in creation order: the position MLP,
 then ``final`` (or ``final_t`` and ``final_r`` with two heads) in the 2D
-denoiser. The caller names the heads of any other denoiser: the 3D one's
+denoiser, ``final_pos`` (and ``final_rot``) in the discrete one, which has
+``pos_emb`` in place of a position MLP. The caller names the heads of any other denoiser: the 3D one's
 are ``HEADS_3D``.
 """
 
@@ -60,9 +69,21 @@ _SEGMENT_RULES = tuple((parent and re.compile(parent), re.compile(seg), repl) fo
     (None, r"^PointMLP_(\d+)$", r"mlps.\1"),
     (None, r"^TNet_(\d+)$", r"tnets.\1"),
     (None, r"^relpose$", "rel_head"),
+    # the equivariant ResNets: the stem under the encoder, the blocks' convs and norms by creation order
+    (r"^encoder$", r"^GroupConvZ2_0$", "stem"),
+    (r"^encoder$", r"^OrientationNorm_0$", "stem_norm"),
+    (None, r"^Equivariant(BasicBlock|Bottleneck)_(\d+)$", r"blocks.\2"),
+    (r"^EquivariantBasicBlock_\d+$", r"^GroupConvP4_2$", "shortcut"),
+    (r"^EquivariantBasicBlock_\d+$", r"^OrientationNorm_2$", "shortcut_norm"),
+    (r"^EquivariantBottleneck_\d+$", r"^GroupConvP4_3$", "shortcut"),
+    (r"^EquivariantBottleneck_\d+$", r"^OrientationNorm_3$", "shortcut_norm"),
+    (r"^Equivariant(BasicBlock|Bottleneck)_\d+$", r"^GroupConvP4_(\d)$", lambda m: f"conv{int(m[1]) + 1}"),
+    (r"^Equivariant(BasicBlock|Bottleneck)_\d+$", r"^OrientationNorm_(\d)$", lambda m: f"norm{int(m[1]) + 1}"),
 ))
-# the 2D denoiser's heads, by its number of Dense layers
+_GROUP_CONV = re.compile(r"^GroupConv(Z2|P4|Z2M|P4M)_\d+$")
+# the 2D denoiser's heads, by its number of Dense layers; the discrete one's (it embeds x_t)
 _HEADS_2D = {4: ("pos_mlp", "final"), 6: ("pos_mlp", "final_t", "final_r")}
+_HEADS_2D_DISCRETE = ("final_pos", "final_rot")
 HEADS_3D = ("pos_mlp", "mlp_t", "mlp_r")
 
 
@@ -73,7 +94,9 @@ def _rename(segment: str, parent: str | None = None) -> str:
     return segment
 
 
-def _leaf(name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
+def _leaf(name: str, arr: np.ndarray, parent: str | None = None) -> tuple[str, np.ndarray]:
+    if name == "kernel" and parent is not None and _GROUP_CONV.match(parent):
+        return name, arr  # a group convolution keeps the JAX layout (nn/visual.py)
     if name == "kernel":
         if arr.ndim == 2:  # Dense (in, out) → (out, in)
             return "weight", arr.T
@@ -100,7 +123,7 @@ def _denoiser_heads(denoiser: dict, heads: tuple[str, ...] | None) -> dict:
     (``heads``, or the 2D denoiser's when None)."""
     dense = sorted((k for k in denoiser if re.match(r"^Dense_\d+$", k)), key=lambda k: int(k[6:]))
     if heads is None:
-        heads = _HEADS_2D.get(len(dense))
+        heads = _HEADS_2D_DISCRETE[:len(dense) // 2] if "pos_emb" in denoiser else _HEADS_2D.get(len(dense))
     if heads is None or len(dense) != 2 * len(heads):
         raise ValueError(f"unexpected denoiser Dense layers {dense} for heads {heads}")
     out = {k: v for k, v in denoiser.items() if k not in dense}
@@ -114,11 +137,23 @@ def load_jax_npz(path, heads: tuple[str, ...] | None = None) -> tuple[dict[str, 
 
     Keys with a ``/`` are ``a/b/c`` paths into the JAX package's tree
     (``encoder/...``, ``denoiser/...``); they are rebuilt into the nested tree
-    and converted by ``convert_params`` with the denoiser's ``heads``. Every
-    other key is returned as it is in ``extras``."""
+    and converted by ``convert_params`` with the denoiser's ``heads``. A leaf
+    named in the extra ``bfloat16_leaves`` is stored as bf16 bits (uint16)
+    and widened to f32. Every other key is returned as it is in ``extras``."""
     tree = load_params(path)
     extras = {k: tree.pop(k) for k in list(tree) if not isinstance(tree[k], dict)}
+    for key in extras.get("bfloat16_leaves", ()):
+        *parents, leaf = str(key).split("/")
+        node = tree
+        for p in parents:
+            node = node[p]
+        node[leaf] = bf16_to_f32(node[leaf])
     return convert_params(tree, heads), extras
+
+
+def bf16_to_f32(bits: np.ndarray) -> np.ndarray:
+    """bf16 values stored as their uint16 bits → the same values in f32 (exact)."""
+    return (np.asarray(bits, dtype=np.uint16).astype(np.uint32) << 16).view(np.float32)
 
 
 def convert_params(params: dict, heads: tuple[str, ...] | None = None) -> dict[str, torch.Tensor]:
@@ -134,7 +169,7 @@ def convert_params(params: dict, heads: tuple[str, ...] | None = None) -> dict[s
         params = {**params, "denoiser": _denoiser_heads(params["denoiser"], heads)}
     out = {}
     for path, arr in _flatten(params):
-        name, value = _leaf(path[-1], np.asarray(arr, dtype=np.float32))
+        name, value = _leaf(path[-1], np.asarray(arr, dtype=np.float32), path[-2] if len(path) > 1 else None)
         key = ".".join([_rename(seg, path[i - 1] if i else None) for i, seg in enumerate(path[:-1])] + [name])
         out[key] = torch.from_numpy(np.array(value, order="C"))
     return out

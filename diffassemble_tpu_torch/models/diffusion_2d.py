@@ -5,9 +5,14 @@ Gaussian DDIM/DDPM over node states x ∈ R² (position) or R⁴ (position +
 rotation unit vector), conditioned on per-piece visual features through the
 graph-attention denoiser, with classifier-free guidance and greedy-assignment
 metrics. The visual features are computed once per batch and reused at every
-step. Training: ``loss`` (per-graph t, huber/l1/l2 on ε or x₀, the aux head),
-``init`` (seeded weights plus the ``encoder_init`` npz) and
-``make_optimizer`` (Adafactor with the HF relative schedule).
+step; the encoder is any of ``nn/visual.py:make_visual_encoder``
+(efficientnet_b0 or an equivariant ResNet), with ``all_equivariant`` the
+mean of the features of the four rot90 copies of every patch, and frozen
+OrientationNorm statistics while ``norm_stats`` holds them
+(``calibrate_norm_stats``). Training: ``loss`` (per-graph t, huber/l1/l2 on
+ε or x₀, the aux head), ``init`` (seeded weights plus the ``encoder_init``
+npz) and ``make_optimizer`` (Adafactor with the HF relative schedule).
+Evaluation: ``evaluate``, ``metrics_from_final`` and ``piece_table``.
 """
 
 from __future__ import annotations
@@ -21,8 +26,8 @@ from torch import nn
 from .. import convert
 from ..data.batch import PuzzleBatch
 from ..nn.denoiser import GraphDenoiser2D
-from ..nn.efficientnet import EfficientNetB0Features
 from ..nn.layers import init_weights
+from ..nn.visual import FEATURE_DIM, calibrate_norm_stats, make_visual_encoder, norm_layers, set_norm_stats
 from ..ops.assignment import greedy_assignment_batch
 from ..ops.gaussian import SampleLoopResult, q_sample, sample_loop
 from ..ops.schedules import DiffusionSchedule
@@ -86,21 +91,22 @@ class Diffusion2D(nn.Module):
 
     def __init__(self, config: Diffusion2DConfig, device: torch.device | str = "cuda", seed: int = 0):
         super().__init__()
-        if config.backbone != "efficientnet_b0":
-            raise NotImplementedError(f"backbone {config.backbone!r} is not ported yet")
-        if config.all_equivariant:
-            raise NotImplementedError("all_equivariant is not ported yet")
         device = resolve_device(device)
         self.cfg = config
         self.sched = DiffusionSchedule.create(config.steps, config.scheduler, device)
-        self.encoder = EfficientNetB0Features(
-            bn_mode="affine" if config.visual_pretrained else "batch", dtype=config.dtype
-        )
-        self.denoiser = GraphDenoiser2D(
+        self.encoder = make_visual_encoder(config.backbone, config.dtype, config.visual_pretrained)
+        self.denoiser = self.make_denoiser(config)
+        init_weights(self, torch.Generator().manual_seed(seed))
+        self.to(device)
+        self.stats_group = None  # a process group: the loss's masked means span it (loss)
+        self._norm_stats = None
+
+    def make_denoiser(self, config) -> GraphDenoiser2D:
+        return GraphDenoiser2D(
             steps=config.steps,
             input_channels=config.input_channels,
             output_channels=config.input_channels,
-            feature_dim=EfficientNetB0Features.feature_dim,
+            feature_dim=FEATURE_DIM,
             n_layers=config.n_layers,
             architecture=config.architecture,
             virt_nodes=config.virt_nodes,
@@ -110,22 +116,51 @@ class Diffusion2D(nn.Module):
             aux_head=config.aux_loss_weight > 0,
             dtype=config.dtype,
         )
-        init_weights(self, torch.Generator().manual_seed(seed))
-        self.to(device)
-        self.stats_group = None  # a process group: the loss's masked means span it (loss)
 
     @property
     def device(self) -> torch.device:
         return self.sched.betas.device
 
+    @property
+    def norm_stats(self) -> dict | None:
+        """The frozen OrientationNorm statistics the encoder runs with (the
+        nested ``norm_stats`` layout), or None for batch statistics; setting
+        it attaches or detaches them."""
+        return self._norm_stats
+
+    @norm_stats.setter
+    def norm_stats(self, stats: dict | None) -> None:
+        set_norm_stats(self.encoder, stats)
+        self._norm_stats = stats or None
+
+    @property
+    def has_norm_layers(self) -> bool:
+        """Whether the encoder has OrientationNorm layers to calibrate."""
+        return bool(norm_layers(self.encoder))
+
+    def calibrate_norm_stats(self, patch_batches) -> dict:
+        """Pool OrientationNorm statistics over calibration batches (each
+        (B, ps, ps, 3) in [0, 1]) with the model's current parameters and
+        attach them (``norm_stats``); {} and None attached for an encoder
+        without OrientationNorm layers."""
+        stats = calibrate_norm_stats(self.encoder, patch_batches)
+        self.norm_stats = stats
+        return stats
+
     def visual_features(self, patches: torch.Tensor) -> torch.Tensor:
         """(B, N, ps, ps, 3) uint8 or float in [0, 1] → (B, N, 1088).
 
-        "batch"-mode BatchNorm takes its statistics over all B·N patches."""
+        "batch"-mode BatchNorm and OrientationNorm without frozen statistics
+        take theirs over all B·N patches. With ``all_equivariant`` the
+        features are the mean over the four rot90 copies of every patch."""
         b, n = patches.shape[:2]
         if not patches.is_floating_point():
             patches = patches.float() / 255.0
-        feats = self.encoder(patches.reshape(b * n, *patches.shape[2:]))
+        flat = patches.reshape(b * n, *patches.shape[2:])
+        if self.cfg.all_equivariant:
+            feats = torch.stack([self.encoder(torch.rot90(flat, k, dims=(1, 2))) for k in range(4)]).mean(0)
+        else:
+            feats = self.encoder(flat)
         if self.cfg.freeze_backbone:
             feats = feats.detach()
         return feats.reshape(b, n, -1)
@@ -200,13 +235,7 @@ class Diffusion2D(nn.Module):
         target = batch.x0 if cfg.mean_type == "xstart" else noise
         err_fn = {"huber": _huber, "l1": lambda p, y: (p - y).abs(), "l2": lambda p, y: (p - y) ** 2}[cfg.loss_type]
         mask = batch.node_mask[..., None].float()
-        n_valid = mask.sum()
-        if self.stats_group is not None:
-            import torch.distributed as dist
-
-            n_valid = n_valid.clone()
-            dist.all_reduce(n_valid, group=self.stats_group)
-            n_valid = n_valid / dist.get_world_size(self.stats_group)
+        n_valid = self.valid_count(mask)
 
         def masked_mean(per_elem):
             n_valid_elems = n_valid * per_elem.shape[-1]
@@ -229,6 +258,20 @@ class Diffusion2D(nn.Module):
             aux["loss/rot"] = masked_mean(per_elem[..., 2:])
         loss = main + cfg.aux_loss_weight * aux_loss
         return loss, {"loss": main, "total_loss": loss, "t_mean": t_graph.float().mean(), **aux}
+
+    def valid_count(self, mask: torch.Tensor) -> torch.Tensor:
+        """The entries of ``mask`` that a masked mean divides by: its sum, or
+        while ``stats_group`` holds a process group, the whole batch's sum
+        across the group over the group's size (the ranks' mean of their
+        means, which data-parallel training takes, is then the whole batch's)."""
+        n_valid = mask.sum()
+        if self.stats_group is not None:
+            import torch.distributed as dist
+
+            n_valid = n_valid.clone()
+            dist.all_reduce(n_valid, group=self.stats_group)
+            n_valid = n_valid / dist.get_world_size(self.stats_group)
+        return n_valid
 
     def make_optimizer(self) -> Adafactor:
         """Adafactor with HF-style relative step sizes (the JAX
@@ -275,6 +318,29 @@ class Diffusion2D(nn.Module):
         )
 
     @torch.no_grad()
+    def evaluate(self, batch: PuzzleBatch, generator: torch.Generator | None = None) -> dict:
+        """Sample, then score (``metrics_from_final``)."""
+        return self.metrics_from_final(self.sample(batch, generator).final, batch)
+
+    @torch.no_grad()
+    def piece_table(self, final: torch.Tensor, batch: PuzzleBatch) -> dict:
+        """Per-piece (B, N) arrays for error analysis: whether each piece's
+        assignment is right, both assignments, the mask, the raw position
+        error and the true position; with rotation also whether the rotation
+        is within 45°, its cosine and the true rotation."""
+        valid = batch.node_mask
+        pred_pos = final[..., :2]
+        pred_ass = greedy_assignment_batch(pred_pos, batch.grid, valid)
+        gt_ass = greedy_assignment_batch(batch.x0[..., :2], batch.grid, valid)
+        out = {"pos_correct": (pred_ass == gt_ass) & valid, "pred_ass": pred_ass, "gt_ass": gt_ass,
+               "valid": valid, "pos_err": torch.linalg.norm(pred_pos - batch.x0[..., :2], dim=-1),
+               "gt_pos": batch.x0[..., :2]}
+        if self.cfg.rotation:
+            cos = _rotation_cosine(final[..., 2:4], batch.x0[..., 2:4])
+            out.update(rot_correct=cos > math.cos(math.pi / 4), rot_cos=cos, gt_rot=batch.x0[..., 2:4])
+        return out
+
+    @torch.no_grad()
     def metrics_from_final(self, final: torch.Tensor, batch: PuzzleBatch) -> dict:
         """Greedy-assign predictions and ground truth to the anchor grid; a
         piece is correct when both land on the same anchor (and, with rotation,
@@ -284,18 +350,19 @@ class Diffusion2D(nn.Module):
         gt_ass = greedy_assignment_batch(batch.x0[..., :2], batch.grid, valid)
         piece_correct = (pred_ass == gt_ass) & valid
         if self.cfg.rotation:
-            pred_rot = final[..., 2:4]
-            gt_rot = batch.x0[..., 2:4]
-            cos = (pred_rot * gt_rot).sum(-1) / torch.clamp(
-                torch.linalg.norm(pred_rot, dim=-1) * torch.linalg.norm(gt_rot, dim=-1), min=1e-8
-            )
-            piece_correct = piece_correct & (cos > math.cos(math.pi / 4))
+            piece_correct = piece_correct & (_rotation_cosine(final[..., 2:4], batch.x0[..., 2:4])
+                                             > math.cos(math.pi / 4))
         n_valid = torch.clamp(valid.sum(-1), min=1)
         return {
             "piece_acc": piece_correct.sum(-1) / n_valid,
             "puzzle_correct": (piece_correct | ~valid).all(-1).float(),
             "n_valid": n_valid,
         }
+
+
+def _rotation_cosine(pred_rot: torch.Tensor, gt_rot: torch.Tensor) -> torch.Tensor:
+    return (pred_rot * gt_rot).sum(-1) / torch.clamp(
+        torch.linalg.norm(pred_rot, dim=-1) * torch.linalg.norm(gt_rot, dim=-1), min=1e-8)
 
 
 def _huber(pred: torch.Tensor, target: torch.Tensor, delta: float = 1.0) -> torch.Tensor:

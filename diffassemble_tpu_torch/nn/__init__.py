@@ -7,5 +7,11 @@ from .gnn import Exophormer, GraphTransformer, TransformerConvLayer, make_gnn  #
 from .layers import BatchNorm2D, init_weights  # noqa: F401
 from .pointnet import make_point_encoder  # noqa: F401
 from .relpose import RelPoseHead, rel_consensus  # noqa: F401
-from .visual import normalize_patches  # noqa: F401
+from .visual import (  # noqa: F401
+    EquivariantResNet,
+    EquivariantResNet50,
+    OrientationNorm,
+    make_visual_encoder,
+    normalize_patches,
+)
 from .vn import VN_DGCNN  # noqa: F401

@@ -1,8 +1,12 @@
 """Graph-attention denoisers — port of the JAX package's ``nn/denoiser.py``.
 
-- ``GraphDenoiser2D`` (continuous mode): per node [visual features ‖
-  pos-MLP(x_t) (32) ‖ time embedding (32)] → fusion MLP → graph attention
-  backbone → residual + final MLP → output channels.
+- ``GraphDenoiser2D``: per node [visual features ‖ pos-MLP(x_t) (32) ‖ time
+  embedding (32)] → fusion MLP → graph attention backbone → residual + final
+  MLP → output channels. With ``discrete`` x_t is a grid-cell index
+  embedded by ``pos_emb`` (plus ``rot_emb`` of the rotation class with
+  ``rot_classes``) and the heads give logits: ``final_pos`` (and
+  ``final_rot``, then the output is a dict {"pos", "rot"}); the aux head's
+  readouts are ``aux_final_pos``/``aux_final_rot``.
 - ``GraphDenoiser3D``: the same over point-cloud features, with a LeakyReLU
   fusion MLP, a translation head and an exp-map rotation head (3-vector →
   rotation matrix → unit quaternion, in f32). With ``equiv_inv_mp`` the
@@ -54,10 +58,14 @@ def _head(in_features: int, hidden: int, out: int, dtype: torch.dtype) -> nn.Seq
 class GraphDenoiser2D(nn.Module):
     """2D piece-pose denoiser over padded graphs.
 
-    Inputs:  x_t (B, N, Cin) noisy poses, t (B, N) int timesteps, feats
-             (B, N, F) per-piece visual features, adj (B, N, N) bool mask,
-             node_mask (B, N) bool.
-    Output:  (B, N, Cout) — the ε or x₀ prediction in the compute type.
+    Inputs:  x_t (B, N, Cin) noisy poses (with ``discrete``: (B, N) int cell
+             indices, and rot_t (B, N) int rotation classes with
+             ``rot_classes``), t (B, N) int timesteps, feats (B, N, F)
+             per-piece visual features, adj (B, N, N) bool mask, node_mask
+             (B, N) bool.
+    Output:  (B, N, Cout) — the ε or x₀ prediction in the compute type; with
+             ``discrete`` the (B, N, n_classes) position logits, or with
+             ``rot_classes`` the dict {"pos", "rot"} of logits.
     """
 
     def __init__(
@@ -73,14 +81,23 @@ class GraphDenoiser2D(nn.Module):
         heads: int = 8,
         two_heads: bool = False,
         aux_head: bool = False,
+        discrete: bool = False,
+        n_classes: int = 0,
+        rot_classes: int = 0,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.compute_dtype = dtype
         self.two_heads = two_heads
+        self.discrete, self.rot_classes = discrete, rot_classes
         combined_dim = feature_dim + 32 + 32
         self.time_emb = Embed(steps, 32, dtype=dtype)
-        self.pos_mlp = _head(input_channels, 16, 32, dtype)
+        if discrete:
+            self.pos_emb = Embed(n_classes, 32, dtype=dtype)
+            if rot_classes:
+                self.rot_emb = Embed(rot_classes, 32, dtype=dtype)
+        else:
+            self.pos_mlp = _head(input_channels, 16, 32, dtype)
         self.fusion = FusionMLP(combined_dim, 128, combined_dim, dtype)
         if aux_head:
             # feats-only readout for training; its parameters exist in the
@@ -88,20 +105,34 @@ class GraphDenoiser2D(nn.Module):
             self.aux_ln0 = LayerNorm(feature_dim, dtype)
             self.aux_final_0 = Dense(feature_dim, 128, dtype=dtype)
             self.aux_ln1 = LayerNorm(128, dtype)
-            self.aux_final_1 = Dense(128, output_channels, dtype=dtype)
+            if discrete:
+                self.aux_final_pos = Dense(128, n_classes, dtype=dtype)
+                if rot_classes:
+                    self.aux_final_rot = Dense(128, rot_classes, dtype=dtype)
+            else:
+                self.aux_final_1 = Dense(128, output_channels, dtype=dtype)
         self.aux_head = aux_head
         self.gnn = make_gnn(architecture, combined_dim, combined_dim, n_layers, hidden_dim,
                             heads, virt_nodes, dtype)
-        if two_heads:
+        if discrete:
+            self.final_pos = _head(combined_dim, 64, n_classes, dtype)
+            if rot_classes:
+                self.final_rot = _head(combined_dim, 32, rot_classes, dtype)
+        elif two_heads:
             self.final_t = _head(combined_dim, 32, 2, dtype)
             self.final_r = _head(combined_dim, 32, output_channels - 2, dtype)
         else:
             self.final = _head(combined_dim, 32, output_channels, dtype)
 
-    def forward(self, x_t, t, feats, adj, node_mask, return_attentions: bool = False,
+    def forward(self, x_t, t, feats, adj, node_mask, rot_t=None, return_attentions: bool = False,
                 return_aux: bool = False):
         time_feats = self.time_emb(t)
-        pos_feats = self.pos_mlp(x_t)
+        if self.discrete:
+            pos_feats = self.pos_emb(x_t)
+            if self.rot_classes:
+                pos_feats = pos_feats + self.rot_emb(rot_t)
+        else:
+            pos_feats = self.pos_mlp(x_t)
         combined = torch.cat([feats.to(self.compute_dtype), pos_feats, time_feats], dim=-1)
         combined = self.fusion(combined)
 
@@ -109,12 +140,20 @@ class GraphDenoiser2D(nn.Module):
         if return_aux:
             if not self.aux_head:
                 raise ValueError("return_aux needs a denoiser built with aux_head=True")
-            a = self.aux_final_0(self.aux_ln0(feats.to(self.compute_dtype)))
-            aux_out = self.aux_final_1(gelu(self.aux_ln1(a)))
+            a = gelu(self.aux_ln1(self.aux_final_0(self.aux_ln0(feats.to(self.compute_dtype)))))
+            if self.discrete:
+                aux_out = {"pos": self.aux_final_pos(a)}
+                if self.rot_classes:
+                    aux_out["rot"] = self.aux_final_rot(a)
+            else:
+                aux_out = self.aux_final_1(a)
 
         h, attentions = self.gnn(combined, adj, node_mask, return_weights=return_attentions)
         resid = h + combined
-        if self.two_heads:
+        if self.discrete:
+            out = {"pos": self.final_pos(resid), "rot": self.final_rot(resid)} if self.rot_classes \
+                else self.final_pos(resid)
+        elif self.two_heads:
             out = torch.cat([self.final_t(resid), self.final_r(resid)], dim=-1)
         else:
             out = self.final(resid)

@@ -7,7 +7,11 @@ tasks: puzzles (``puzzle_adapter``) and fragments (``fragment_adapter``).
   thread;
 - a sanity evaluation before training, periodic evaluation (the sampler plus
   greedy-assignment metrics, folded per puzzle size) and checkpointing with
-  top-k by a monitored metric, and resume from the latest checkpoint;
+  top-k by a monitored metric, and resume from the latest checkpoint; with
+  ``calibrate_eval`` each evaluation first pools the OrientationNorm
+  statistics over ``calibrate_batches`` eval batches and runs with them
+  frozen (the model's own are put back after; a calibration that fails is
+  skipped, never the evaluation);
 - metric logging to stdout and ``metrics.jsonl``;
 - the dead-gradient tripwire, the preemption guard (SIGTERM/SIGINT:
   checkpoint and return) and the round-deadline guard (``deadline_margin``:
@@ -19,8 +23,7 @@ batch on its own device, which gives the single-process metrics, while the
 other ranks go on to the next step and wait for it there. The ranks agree on
 every stop (preemption, deadline) before acting on it.
 
-Not ported: reconstruction images (``_save_viz``, ROADMAP Queue 1 item 11)
-and the OrientationNorm calibration (equivariant encoders only).
+Not ported: reconstruction images (``_save_viz``, ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -164,6 +167,8 @@ class Trainer:
         dead_grad_patience: int = 20,
         mesh: Mesh | None = None,
         deadline_margin: float | None = None,
+        calibrate_eval: bool = True,
+        calibrate_batches: int = 4,
     ):
         self.model = model
         self.device = model.device
@@ -188,6 +193,8 @@ class Trainer:
         # for this many CONSECUTIVE steps aborts the run with a checkpoint
         # instead of stepping in place; 0/None disables it
         self.dead_grad_patience = dead_grad_patience
+        self.calibrate_eval = calibrate_eval
+        self.calibrate_batches = calibrate_batches
 
     # the optimizer and the train step are made when first used, so that an
     # evaluation needs neither
@@ -296,11 +303,33 @@ class Trainer:
 
     # ------------------------------------------------------------------ eval
 
+    def _calibration_stats(self, eval_ds, n_max: int) -> dict:
+        """Pool the OrientationNorm statistics over the valid patches of the
+        first ``calibrate_batches`` eval batches with the model's current
+        parameters and attach them (``calibrate_norm_stats``), so that the
+        metrics do not depend on how the eval batches are composed. {} when
+        off, for an encoder without OrientationNorm layers, or when it fails."""
+        if not (self.calibrate_eval and getattr(self.model, "has_norm_layers", False)):
+            return {}
+        try:
+            calib = []
+            host_rng = np.random.default_rng(self.seed + 2)
+            for bi, nb in enumerate(batch_iterator(eval_ds, self.batch_size, n_max, host_rng, shuffle=False,
+                                                   collate=self.adapter.collate)):
+                if bi >= self.calibrate_batches or not hasattr(nb, "patches"):
+                    break
+                calib.append(np.asarray(nb.patches)[np.asarray(nb.node_mask)].astype(np.float32) / 255.0)
+            return self.model.calibrate_norm_stats(calib) if calib else {}
+        except Exception as e:  # calibration must never kill an eval pass
+            print(f"norm-stats calibration skipped: {e}", flush=True)
+            return {}
+
     def evaluate(self, params: dict[str, torch.Tensor], eval_ds, max_batches: int | None = None,
                  tag: str = "val", step: int = 0) -> dict:
         """Sample every eval batch and fold the model's metrics as the adapter
         does (per puzzle size, or per category and ``_AVG``); the model runs
-        with ``params`` and gets its own back.
+        with ``params`` (and, with ``calibrate_eval``, statistics calibrated
+        under them) and gets its own back.
         Other ranks than the main one return {} at once."""
         if not self.main:
             return {}
@@ -308,15 +337,22 @@ class Trainer:
         agg = MeanMetrics()
         gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
         host_rng = np.random.default_rng(self.seed + 1)
+        prev_stats = getattr(self.model, "norm_stats", None)
         with swapped_params(self.model, params):
-            for bi, nb in enumerate(batch_iterator(eval_ds, self.batch_size, n_max, host_rng, shuffle=False,
-                                                   collate=self.adapter.collate)):
-                if max_batches is not None and bi >= max_batches:
-                    break
-                db = self._device_batch(nb)
-                final = self.model.sample(db, gen).final
-                bm = {k: v.cpu().numpy() for k, v in self.model.metrics_from_final(final, db).items()}
-                self.adapter.fold_metrics(agg, bm, nb)
+            try:
+                self._calibration_stats(eval_ds, n_max)
+                for bi, nb in enumerate(batch_iterator(eval_ds, self.batch_size, n_max, host_rng, shuffle=False,
+                                                       collate=self.adapter.collate)):
+                    if max_batches is not None and bi >= max_batches:
+                        break
+                    db = self._device_batch(nb)
+                    final = self.model.sample(db, gen).final
+                    bm = {k: v.cpu().numpy() for k, v in self.model.metrics_from_final(final, db).items()}
+                    self.adapter.fold_metrics(agg, bm, nb)
+            finally:
+                # training must never see frozen statistics
+                if hasattr(self.model, "norm_stats"):
+                    self.model.norm_stats = prev_stats
         metrics = agg.compute()
         self._log(step, {f"{tag}/{k}": v for k, v in metrics.items()})
         return metrics

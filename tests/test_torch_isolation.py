@@ -74,7 +74,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                                     "utils.deadline", "utils.profiling", "utils.viz", "cli.train_device",
                                     "data.breaking_bad", "ops.so3", "ops.knn", "nn.vn", "nn.pointnet",
                                     "nn.relpose", "models.diffusion_3d", "models.losses_3d", "train.heldout3d",
-                                    "cli.train_3d", "nn.gnn", "nn.correspondence", "models.refine3d", "convert"])
+                                    "cli.train_3d", "nn.gnn", "nn.correspondence", "models.refine3d", "convert",
+                                    "nn.visual", "models.diffusion_2d_discrete", "models.diffusion_2d_angle",
+                                    "train.heldout", "cli.serve"])
 def test_training_path_modules_import_alone_without_jax_or_pil(module):
     """Each module of the device-resident training path, of data-parallel
     training and of the 3D paths (the point encoders, split message passing,
@@ -115,6 +117,30 @@ def test_every_3d_asset_loads_without_jax():
     res = subprocess.run([sys.executable, "-c", child, str(ROOT)], capture_output=True, text=True,
                          timeout=300, env=env, cwd=ROOT)
     assert res.returncode == 0 and res.stdout.split()[-1] == "4", res.stderr
+
+
+def test_every_2d_asset_loads_without_jax():
+    """Each committed trained 2D checkpoint beside the flagship loads
+    strictly into its model in a fresh process that refuses JAX and the JAX
+    package, with its protocol, draws and the JAX package's CPU figures."""
+    child = _REFUSE + textwrap.dedent(
+        """
+        from diffassemble_tpu_torch.train.heldout import ASSETS, asset_adj, load_asset
+        for name in ASSETS:
+            model, cfg, protocol, extras = load_asset(name, "cpu")
+            assert cfg.backbone == "resnet18equiv" and protocol["eval_n"] == 64, (name, protocol)
+            assert extras["heldout_rot_k"].shape[0] == 64 and "jax_cpu_bfloat16" in extras
+            adj = asset_adj(extras)
+            assert adj is None or adj.shape == (36, 36)
+        loaded = sorted(m for m in sys.modules if blocked(m))
+        assert not loaded, loaded
+        print(len(ASSETS))
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", child, str(ROOT)], capture_output=True, text=True,
+                         timeout=300, env=env, cwd=ROOT)
+    assert res.returncode == 0 and res.stdout.split()[-1] == "2", res.stderr
 
 
 def test_port_sources_name_no_jax_module():

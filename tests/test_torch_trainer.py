@@ -252,24 +252,43 @@ def test_cli_trains_three_steps_then_evaluates_on_the_cpu(tmp_path, capsys, monk
 @pytest.mark.parametrize("backbone, item", [("tiny", 6), ("convnet", 6), ("resnet18equiv", 13),
                                             ("resnet34equiv", 13), ("resnet50equiv", 13)])
 def test_cli_refusal_names_the_backbones_roadmap_item(backbone, item):
+    """The light encoders are still refused, naming item 6; item 13's
+    equivariant ResNets are ported and build with their encoder."""
     ap = argparse.ArgumentParser()
     common.add_2d_args(ap)
-    args = ap.parse_args(["--device", "cpu", "--backbone", backbone])
-    with pytest.raises(NotImplementedError, match=rf"{backbone}.*ROADMAP Queue 1 item {item}$"):
-        common.build_2d_model(args)
+    args = ap.parse_args(["--device", "cpu", "--backbone", backbone, "--n_layers", "1"])
+    if item == 6:
+        with pytest.raises(NotImplementedError, match=rf"{backbone}.*ROADMAP Queue 1 item {item}$"):
+            common.build_2d_model(args)
+    else:
+        from diffassemble_tpu_torch.nn.visual import EQUIVARIANT_BACKBONES
+
+        model = common.build_2d_model(args)
+        assert model.cfg.backbone == backbone
+        assert type(model.encoder) is type(EQUIVARIANT_BACKBONES[backbone]())
 
 
 def test_cli_builds_the_flagship_and_refuses_what_is_not_ported():
+    """The rotation CLI's defaults (resnet18equiv) and ``--discrete`` build;
+    a light encoder is refused."""
+    from diffassemble_tpu_torch.models import DiscreteDiffusion2D, DiscreteDiffusion2DRot
+
     ap = argparse.ArgumentParser()
     common.add_2d_args(ap)
     ap.set_defaults(rotation=True, predict_xstart=True, degree="60%", virt_nodes=8, backbone="resnet18equiv",
                     architecture="exophormer")
-    args = ap.parse_args(["--device", "cpu"])
+    args = ap.parse_args(["--device", "cpu", "--n_layers", "1"])
+    assert common.build_2d_model(args).cfg.backbone == "resnet18equiv"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        common.build_2d_model(args)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        common.build_2d_model(ap.parse_args(["--device", "cpu", "--backbone", "efficientnet_b0",
-                                             "--discrete", "true"]))
+        common.build_2d_model(ap.parse_args(["--device", "cpu", "--backbone", "tiny"]))
+    rot = common.build_2d_model(ap.parse_args(["--device", "cpu", "--backbone", "efficientnet_b0", "--n_layers", "1",
+                                               "--discrete", "true", "-puzzle_sizes", "3"]))
+    assert type(rot) is DiscreteDiffusion2DRot and rot.cfg.n_classes == 9
+    assert rot.cfg.discrete_loss == "cross_entropy"  # huber is no discrete loss: the JAX CLI's fallback
+    flat = common.build_2d_model(ap.parse_args(["--device", "cpu", "--backbone", "efficientnet_b0", "--n_layers",
+                                                "1", "--discrete", "true", "--rotation", "false", "--loss_type",
+                                                "vb"]))
+    assert type(flat) is DiscreteDiffusion2D and flat.cfg.discrete_loss == "vb" and flat.cfg.n_classes == 36
     args = ap.parse_args(["--backbone", "efficientnet_b0", "--degree", "10%", "--aux_loss_weight", "0.1",
                           "--device", "cpu"])
     flagship = json.loads((ROOT / "weights" / "diffusion2d_rot30" / "config.json").read_text())

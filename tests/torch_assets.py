@@ -587,3 +587,193 @@ def encoder_conditioning() -> dict:
         out[name] = {"err_max": float(err.max()), "err_median": float(np.median(err)),
                      "ulp_spread_median": median, "ulp_spread_max": worst}
     return out
+
+
+# ---------------------------------------------------------------------------
+# the other trained 2D checkpoints: the mixed-size rot_ms and the discrete
+# rot6, each with the held-out protocol that evaluated it
+
+# (step, the protocol's arguments): ``script`` names the JAX script whose
+# evaluation it is. diffusion2d_rot_ms: scripts/tpu_train_device.py's run_eval
+# as scripts/tpu_queue_r5e.sh:83-88 ran it (the data of its data.json, eval
+# images from seed + 1000, calls of 16); diffusion2d_discrete_rot6:
+# scripts/tpu_train_variants.py:120-133 and :181-195 (64 images from seed
+# 1000, a 60% expander from build_device_data(..., seed=0), calls of 32).
+ASSETS_2D = {
+    "diffusion2d_rot_ms": (7000, dict(script="tpu_train_device", hw=[6, 8, 10, 12], degree="-1", canonical=0.5,
+                                      hf_detail=0.0, style="default", eval_n=64, eval_batch=16, seed=0)),
+    "diffusion2d_discrete_rot6": (6000, dict(script="tpu_train_variants", hw=[6], degree="60%", canonical=0.5,
+                                             hf_detail=0.0, style="default", eval_n=64, eval_batch=32, seed=0)),
+}
+
+
+def asset_path_2d(name: str) -> Path:
+    return ROOT / "diffassemble_tpu_torch" / "assets" / f"{name}_{ASSETS_2D[name][0]}.npz"
+
+
+def params_2d(name: str) -> dict:
+    """The checkpoint's ``eval_params`` (neither run kept an EMA, so its live
+    params), restored from a copy so that nothing is written under ``weights/``."""
+    import orbax.checkpoint as ocp
+
+    from diffassemble_tpu.train.train_state import TrainState, eval_params
+
+    step = ASSETS_2D[name][0]
+    with tempfile.TemporaryDirectory() as tmp:
+        shutil.copytree(ROOT / "weights" / name / str(step), Path(tmp) / str(step))
+        restored = ocp.StandardCheckpointer().restore(Path(tmp) / str(step) / "default")
+    state = TrainState(**restored)
+    if state.ema_params is not None:
+        raise ValueError(f"weights/{name}/{step} holds an EMA: the protocol evaluated it, export that")
+    return eval_params(state)
+
+
+def heldout_rot_k_2d(protocol: dict) -> np.ndarray:
+    """(eval_n, max N) uint8: the rotation draw the JAX gather makes for each
+    held-out slice, ``randint(fold_in(PRNGKey(99), lo), (b, n), 0, 4)``
+    (unmasked: the mixed gather zeroes padding nodes itself)."""
+    import jax
+
+    n = max(protocol["hw"]) ** 2
+    total, bs = protocol["eval_n"], protocol["eval_batch"]
+    rows = [np.asarray(jax.random.randint(jax.random.fold_in(jax.random.PRNGKey(ROT_SEED), lo),
+                                          (min(bs, total - lo), n), 0, 4)) for lo in range(0, total, bs)]
+    return np.concatenate(rows).astype(np.uint8)
+
+
+def protocol_corpus_2d(protocol: dict, eval_n: int | None = None):
+    """The protocol's held-out corpus, built by the JAX package (its
+    expander's ARPACK start vector fixed, ``fixed_eigsh``)."""
+    from diffassemble_tpu.data.datasets import SyntheticImages
+    from diffassemble_tpu.train.device_data import build_device_data, build_device_data_mixed
+
+    p = protocol
+    n = p["eval_n"] if eval_n is None else eval_n
+    kw = dict(n=p["eval_n"], seed=p["seed"] + 1000, cache=False, canonical=p["canonical"],
+              hf_detail=p["hf_detail"], style=p["style"])
+    sizes = [(s, s) for s in p["hw"]]
+    with fixed_eigsh():
+        if len(sizes) > 1:
+            sources = {}
+
+            def factory(shw, i):
+                if shw not in sources:
+                    sources[shw] = SyntheticImages(shw, **kw)
+                return sources[shw][i]
+
+            return build_device_data_mixed(factory, sizes, n, degree=p["degree"], seed=p["seed"])
+        hw = sizes[0]
+        return build_device_data(SyntheticImages((hw[0] * 32, hw[1] * 32), **kw), hw, n, degree=p["degree"],
+                                 seed=p["seed"])
+
+
+def jax_model_2d(name: str, compute_dtype: str = "bfloat16"):
+    """The JAX package's model of checkpoint ``name`` from its config.json, in ``compute_dtype``."""
+    import dataclasses
+    import json
+
+    from diffassemble_tpu.models.diffusion_2d import Diffusion2D, Diffusion2DConfig
+    from diffassemble_tpu.models.diffusion_2d_discrete import DiscreteDiffusion2DConfig, DiscreteDiffusion2DRot
+
+    base = json.loads((ROOT / "weights" / name / "config.json").read_text())
+    if "n_classes" in base:
+        cfg = dataclasses.replace(DiscreteDiffusion2DConfig(**base), compute_dtype=compute_dtype, encoder_init="")
+        return DiscreteDiffusion2DRot(cfg)
+    return Diffusion2D(dataclasses.replace(Diffusion2DConfig(**base), compute_dtype=compute_dtype, encoder_init=""))
+
+
+def jax_reference_2d(name: str, compute_dtype: str = "bfloat16", eval_n: int | None = None,
+                     params: dict | None = None) -> dict:
+    """The protocol's metrics (``MeanMetrics.compute()``: overall and per
+    size) of checkpoint ``name`` through the JAX package on this host, in
+    ``compute_dtype``, on its first ``eval_n`` puzzles (default: all): the
+    script's loop, its rotation key per slice and its sample key
+    ``fold_in(PRNGKey(7), lo)``. ``rot_ms`` takes about four minutes on a
+    CPU in bf16, ``discrete_rot6`` about twenty (its encoder runs at each of
+    the 30 steps).
+
+        JAX_PLATFORMS=cpu python -c "from tests.torch_assets import jax_reference_2d; \\
+            print(jax_reference_2d('diffusion2d_rot_ms'))"
+    """
+    import jax
+    import jax.numpy as jnp
+
+    from diffassemble_tpu.train.device_data import gather_batch, gather_batch_mixed
+    from diffassemble_tpu.train.metrics import MeanMetrics, update_puzzle_metrics
+
+    _, p = ASSETS_2D[name]
+    total = eval_n or p["eval_n"]
+    model = jax_model_2d(name, compute_dtype)
+    params = params_2d(name) if params is None else params
+    data = protocol_corpus_2d(p, total)
+    gather = gather_batch_mixed if len(p["hw"]) > 1 else gather_batch
+
+    @jax.jit
+    def eval_fn(params, batch, key):
+        return model.metrics_from_final(model.sample(params, batch, key).final, batch)
+
+    agg = MeanMetrics()
+    for lo in range(0, total, p["eval_batch"]):
+        idx = jnp.arange(lo, min(lo + p["eval_batch"], total))
+        eb = gather(data, idx, jax.random.fold_in(jax.random.PRNGKey(ROT_SEED), lo))
+        bm = jax.device_get(eval_fn(params, eb, jax.random.fold_in(jax.random.PRNGKey(7), lo)))
+        update_puzzle_metrics(agg, bm, np.asarray(eb.patches_dim), np.asarray(eb.node_mask))
+    return {k: float(v) for k, v in agg.compute().items()}
+
+
+def bf16_bits(x: np.ndarray) -> np.ndarray:
+    """f32 → the bits of its round-to-nearest-even bf16, as uint16 (the
+    rounding of ``torch.Tensor.to(torch.bfloat16)`` and ``astype(bfloat16)``)."""
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32).astype(np.uint64)
+    return ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint16)
+
+
+def export_2d_assets(name: str, out_path=None, reference: dict | None = None) -> Path:
+    """Write checkpoint ``name``'s params, its config, its protocol's arguments
+    and draws, the step and the JAX package's own CPU bf16 metrics on the
+    protocol (``jax_cpu_bfloat16``, JSON; ``reference`` when given, else
+    computed: see ``jax_reference_2d``) to ``out_path`` (default: the
+    committed asset). Kernels and embedding tables, which the bf16 path
+    rounds to bf16 before their first use, are stored as their bf16 bits
+    (uint16, listed in ``bfloat16_leaves``; ``convert.load_jax_npz`` widens
+    them back to f32, exactly); every other leaf in f32. The draws:
+    ``heldout_rot_k`` (``heldout_rot_k_2d``) and, for an expander,
+    ``heldout_adj_bits`` (``np.packbits`` of the (N, N) topology).
+
+        JAX_PLATFORMS=cpu python -c "from tests.torch_assets import export_2d_assets; \\
+            export_2d_assets('diffusion2d_discrete_rot6')"
+    """
+    import json
+
+    import jax
+    from flax.traverse_util import flatten_dict
+
+    step, protocol = ASSETS_2D[name]
+    params = params_2d(name)
+    if reference is None:
+        reference = jax_reference_2d(name, "bfloat16", params=params)
+    arrays, bf16 = {}, []
+    for k, v in flatten_dict(params).items():
+        key = "/".join(k)
+        if k[-1] in ("kernel", "embedding"):
+            arrays[key] = bf16_bits(np.asarray(v))
+            bf16.append(key)
+        else:
+            arrays[key] = np.asarray(v, dtype=np.float32)
+    arrays.update(
+        bfloat16_leaves=np.array(bf16),
+        config=np.array(json.dumps(json.loads((ROOT / "weights" / name / "config.json").read_text()),
+                                   sort_keys=True)),
+        protocol=np.array(json.dumps(protocol, sort_keys=True)),
+        heldout_rot_k=heldout_rot_k_2d(protocol),
+        jax_cpu_bfloat16=np.array(json.dumps(reference, sort_keys=True)),
+        jax_version=np.array(jax.__version__),
+        jax_threefry_partitionable=np.array(bool(jax.config.jax_threefry_partitionable)),
+        step=np.array(step, dtype=np.int64),
+    )
+    if protocol["degree"] not in (-1, "-1"):
+        arrays["heldout_adj_bits"] = np.packbits(np.asarray(protocol_corpus_2d(protocol, 0).adj))
+    out_path = Path(out_path or asset_path_2d(name))
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(out_path, **arrays)
+    return out_path
