@@ -175,7 +175,35 @@ Phases, each ending in a line with the elapsed seconds:
    CPU's on the same seeded weights and draws; ``vnn`` and the split message
    passing hold their f32 gradients with the kernels to those with plain
    attention. Every step has each kernel once a layer per denoiser pass, one
-   layer on the CUDA cores, finite losses and nonzero gradients.
+   layer on the CUDA cores, finite losses and nonzero gradients;
+17. the light encoders and the GCN backbone: ``run_2d`` of the rotation CLI
+   at the flagship's flags (30×30 over the 10% expander, exophormer, bf16,
+   batch 8) from seeded weights with ``--backbone convnet`` and ``tiny`` (2
+   steps, a checkpoint, a resume to 3; each step 4 + 4 + 4 tensor-core
+   launches) and with ``--architecture gcn`` (2 steps: no attention launch
+   at all, the sanity evaluation's included); each first holds its seeded
+   f32 loss on the card to the CPU's (``card_vs_cpu_loss_2d``); s/step by
+   host clock and CUDA events and peak memory beside phase 6's;
+18. ``visual_pretrained``: a features npz in the layout of a converted timm
+   file (the encoder subtree of ``weights/efficientnet_b0_pose30hf.npz``);
+   after ``init`` the encoder equals the file, and a patch's bf16 features
+   agree within 1/64 of the largest in batches of 4 and 16 (the BatchNorms
+   folded affine); then 2 steps through ``train_2d_rot --visual_pretrained
+   true``;
+19. ``cli/train_2d_missing.py`` (``--missing 20``) with the flagship's
+   flags: 2 steps after its sanity evaluation, every puzzle with 720 valid
+   pieces of 900;
+20. ``cli/evaluate.py`` on the trained flagship and ``diffusion2d_rot_ms``
+   written as runs of the port: one batch of 4 each, 120 forward launches on
+   the tensor cores; rot_ms's OrientationNorm statistics calibrated over 2
+   training batches into ``norm_stats.npz`` and its 120 step images (``.npy``
+   where PIL is missing) counted;
+21. ``run_3d --evaluate --export_meshes`` on the trained
+   ``diffusion3d_easy`` cut to 4 objects: 120 ``.ply`` and 4 ``_traj.npz``,
+   each trajectory's last step bit-equal to a ``sample`` without one; then
+   one ``Trainer`` step of the 3D model with the easy run's flags under DDP
+   in a world of one over NCCL, bit-equal to the plain step (8 + 8 + 8
+   launches a step).
 
 ``python3 chip_smoke.py --profile train-device`` profiles one step of the
 recipe instead, ``--profile eval3d`` one 3D held-out call of 16 objects,
@@ -417,6 +445,10 @@ TRAIN3D_ONE_STEP = {
 }
 GRADIENT_PARITY_3D = ("vnn", "vn_dgcnn_equiv_inv_mp")  # kernel vs plain-attention gradients: Dh 271; 136 dual
 LOSS_CPU_OBJECTS = 2  # objects of the first batch in the f32 card-vs-CPU loss check
+# phases 17-19: the flagship's training flags with the light encoders, the GCN backbone, pretrained
+# features and missing pieces: 2 steps, and for the light encoders a resume to step 3
+LIGHT_STEPS, LIGHT_RESUME_TO = 2, 3
+MISSING_PERC = 20  # cli/train_2d_missing.py's default
 
 _T0 = time.perf_counter()
 
@@ -485,8 +517,14 @@ def environment() -> tuple[str, str, int]:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    try:  # the drawings are PNGs with PIL, .npy pixels without
+        import PIL
+
+        pil = f"PIL {PIL.__version__}"
+    except ImportError:
+        pil = "no PIL"
     phase(f"environment: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | "
-          f"device {name} | count {count}")
+          f"device {name} | count {count} | {pil}")
     return smi, name, count
 
 
@@ -1065,15 +1103,17 @@ def card_vs_cpu_training() -> None:
           f"worst err/tol {worst:.3f}, {undetermined} entries with a gradient at rounding noise")
 
 
-def drive_trainer(argvs: list[list[str]], label: str) -> tuple[list[dict], list[int]]:
-    """Run the rotation CLI's ``main`` (``run_2d``, the ``Trainer``) once per
-    argv; each train step is timed (host clock to a synchronize, and CUDA
-    events) and its launches counted. Returns (steps, the number of steps of
-    each run)."""
+def drive_trainer(argvs: list[list[str]], label: str, cli=None) -> tuple[list[dict], list[int]]:
+    """Run a 2D CLI's ``main`` (default the rotation CLI's; ``run_2d``, the
+    ``Trainer``) once per argv; each train step is timed (host clock to a
+    synchronize, and CUDA events), its launches counted and its puzzles'
+    valid pieces recorded. Returns (steps, the number of steps of each run)."""
     import torch
 
     from diffassemble_tpu_torch.cli import train_2d_rot
     from diffassemble_tpu_torch.train import trainer as trainer_mod
+
+    cli = cli or train_2d_rot
 
     steps = []
     make_step = trainer_mod.make_train_step
@@ -1092,6 +1132,7 @@ def drive_trainer(argvs: list[list[str]], label: str) -> tuple[list[dict], list[
             launched = {k: v - before[k] for k, v in read_counts().items()}
             rec = {"step": new.step, "seconds": time.perf_counter() - start, "ms": ev[0].elapsed_time(ev[1]),
                    "launches": launched, "routes": routes_since(before_routes),
+                   "valid": batch.node_mask.sum(-1).tolist(),
                    **{k: float(aux[k]) for k in ("grad_norm", "grad_norm/encoder", "grad_norm/denoiser",
                                                  "grad_nonfinite")},
                    "total_loss": float(aux.get("total_loss", aux["loss"]))}
@@ -1107,16 +1148,18 @@ def drive_trainer(argvs: list[list[str]], label: str) -> tuple[list[dict], list[
     with mock.patch.object(trainer_mod, "make_train_step", counted_make_train_step):
         for argv in argvs:
             before = len(steps)
-            with mock.patch.object(sys, "argv", ["train_2d_rot", *argv]):
-                train_2d_rot.main()
+            with mock.patch.object(sys, "argv", [cli.__name__.rsplit(".", 1)[-1], *argv]):
+                cli.main()
             runs.append(len(steps) - before)
     return steps, runs
 
 
-def training(run_dir: Path) -> tuple[dict[str, int], dict[str, dict[str, int]], list[float]]:
+def training(run_dir: Path) -> tuple[dict[str, int], dict[str, dict[str, int]], list[float], dict]:
     """The second main path: ``run_2d`` of the rotation CLI at full width,
     batch 8, 30×30; then a resume from its checkpoint. Each train step is
-    timed (host clock to a synchronize) and its launches counted."""
+    timed (host clock to a synchronize) and its launches counted. Returns
+    (launches, by route, the steady steps' host seconds, those steps' host
+    seconds and CUDA-event ms with the peak memory)."""
     import torch
 
     argv = [*TRAIN_FLAGS, "--run_dir", str(run_dir)]
@@ -1145,7 +1188,8 @@ def training(run_dir: Path) -> tuple[dict[str, int], dict[str, dict[str, int]], 
           f"steady s/step {sum(steady) / len(steady):.3f} ({', '.join(f'{x:.3f}' for x in steady)}), "
           f"max_memory_allocated {peak / 2**30:.2f} GiB, checkpoints {ckpts}, "
           f"sanity piece_acc {[m['sanity/overall__piece_acc'] for m in sanity]}")
-    return counts, routes, steady
+    steady_ms = [s["ms"] for i, s in enumerate(steps) if i not in (0, first_run)]
+    return counts, routes, steady, {"host_s": steady, "cuda_ms": steady_ms, "max_memory_allocated": peak}
 
 
 def heldout_setup(n_puzzles: int):
@@ -1283,7 +1327,9 @@ def recipe_argv(run_dir: str, data_recipe: dict, max_steps: int, train_n: int, e
     flagship's: widths, sampler, backbone and, with ``encoder_init``, its
     pretrained encoder) and a data recipe (``data.json``: sizes, graph, image
     knobs, seed), at ``batch`` with ``ema_decay``, cut to the given corpora
-    and steps; no reconstruction images (the card machine has no PIL)."""
+    and steps; each evaluation draws its first puzzle as the recipe's default
+    ``--viz_every_eval 1`` does (an ``.npy`` of the pixels where PIL is
+    missing, as on the card)."""
     cfg = json.loads(config.read_text())
     encoder_init = str(ROOT / cfg["encoder_init"]) if encoder_init and cfg["encoder_init"] else ""
     return [
@@ -1297,8 +1343,7 @@ def recipe_argv(run_dir: str, data_recipe: dict, max_steps: int, train_n: int, e
         "--warmup_steps", str(cfg["warmup_steps"]), "--aux_loss_weight", str(cfg["aux_loss_weight"]),
         "--encoder_init", encoder_init, "--hf_detail", str(data_recipe["hf_detail"]),
         "--canonical", str(data_recipe["canonical"]), "--style", data_recipe["style"],
-        "--seed", str(data_recipe["seed"]), "--ema_decay", str(ema_decay), "--viz_every_eval", "0",
-        "--device", "cuda",
+        "--seed", str(data_recipe["seed"]), "--ema_decay", str(ema_decay), "--device", "cuda",
     ]
 
 
@@ -1433,6 +1478,10 @@ def recipe(workdir: Path) -> tuple[dict[str, int], dict[str, dict[str, int]], di
             "train_n": RECIPE_TRAIN_N}
     if written != want:
         raise AssertionError(f"data.json {written} differs from the arguments {want}")
+    # every evaluation drew its first puzzle (the default --viz_every_eval 1): a PNG, or its pixels as .npy
+    drawn = sorted(p.name for p in (run_dir / "viz").iterdir())
+    if len(drawn) != len(evals) + len(more_evals) or not all(f.endswith((".png", ".png.npy")) for f in drawn):
+        raise AssertionError(f"recipe reconstructions: {drawn}")
     hwtag = "x".join(map(str, data_recipe["hw"]))
     corpus = 0
     for f in (workdir / "runs" / "_corpus").glob(f"*-hw{hwtag}-*.npz"):
@@ -1448,7 +1497,8 @@ def recipe(workdir: Path) -> tuple[dict[str, int], dict[str, dict[str, int]], di
     phase(f"recipe: {len(steady) + 2} steps in two runs, {seconds:.1f} s with corpora, evaluations and "
           f"checkpoints; steady s/step by host clock {_spread(result['steady_host_s'])}, by CUDA events (ms) "
           f"{_spread(result['steady_cuda_ms'])}; max_memory_allocated {peak / 2**30:.2f} GiB; both corpora "
-          f"{corpus} bytes on the device; checkpoints {first} then {after}; launches {counts}")
+          f"{corpus} bytes on the device; checkpoints {first} then {after}; launches {counts}; "
+          f"reconstructions {drawn}")
     return counts, routes, result
 
 
@@ -1832,12 +1882,12 @@ def _finite(m: dict) -> bool:
         _finite(v) for v in m.values() if isinstance(v, dict))
 
 
-def cli_evaluate_3d(run_dir: Path, model, cfg, step: int, protocol: dict):
+def cli_evaluate_3d(run_dir: Path, model, cfg, step: int, protocol: dict, *extra: str):
     """A trained model written as a run of the port (config.json and a
     checkpoint of ``train/checkpoint.py``) and evaluated by
-    ``cli/train_3d.py``'s ``run_3d --evaluate`` over the protocol's corpus
-    in calls of its batch: (the CLI's metrics, seconds, launches, launches by
-    route), the launches counted from 0."""
+    ``cli/train_3d.py``'s ``run_3d --evaluate`` (with the flags ``extra``)
+    over the protocol's corpus in calls of its batch: (the CLI's metrics,
+    seconds, launches, launches by route), the launches counted from 0."""
     import argparse
 
     import torch
@@ -1859,7 +1909,7 @@ def cli_evaluate_3d(run_dir: Path, model, cfg, step: int, protocol: dict):
         "--max_num_part", str(p["max_num_part"]), "--min_num_part", str(p["min_num_part"]),
         "--wall_detail", str(p["wall_detail"]), "--wall_boost", str(p["wall_boost"]),
         "--wall_surface", str(int(p.get("wall_surface", 0))), "--wall_freq", str(p.get("wall_freq", 14.0)),
-        "--synthetic_canonical", str(p["canonical"]), "--seed", str(p["seed"]), "--device", "cuda"])
+        "--synthetic_canonical", str(p["canonical"]), "--seed", str(p["seed"]), "--device", "cuda", *extra])
     torch.cuda.synchronize()
     reset_counts()
     start = time.perf_counter()
@@ -2829,10 +2879,11 @@ def train_discrete(workdir: Path) -> tuple[dict[str, int], dict[str, dict[str, i
     return counts, routes, result
 
 
-def _check_trainer_steps(steps: list[dict], label: str) -> None:
-    """Every step 4 + 4 + 4 launches on the tensor cores, finite, with gradients in encoder and denoiser."""
-    want = dict.fromkeys(KERNEL_SOURCES, 4)
-    on_tc = dict.fromkeys(KERNEL_SOURCES, {"tensor_cores": 4, "cuda_cores": 0})
+def _check_trainer_steps(steps: list[dict], label: str, launches: int = 4) -> None:
+    """Every step ``launches`` of each kernel (default 4 + 4 + 4), all on the
+    tensor cores, finite, with gradients in encoder and denoiser."""
+    want = dict.fromkeys(KERNEL_SOURCES, launches)
+    on_tc = dict.fromkeys(KERNEL_SOURCES, {"tensor_cores": launches, "cuda_cores": 0})
     for s in steps:
         if s["launches"] != want or s["routes"] != on_tc:
             raise AssertionError(f"{label} step {s['step']}: launches {s['launches']} by route {s['routes']}")
@@ -3141,16 +3192,348 @@ def profile_train3d_step() -> None:
     phase(f"profile: max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
+# ------------------------------------------------------------------ phases 17-21: the rest of the 2D and 3D family
+
+
+def _train_argv(run_dir: Path, *flags: str) -> list[str]:
+    """The flagship's training flags (``TRAIN_FLAGS``) with ``flags`` after them, in ``run_dir``."""
+    return [*TRAIN_FLAGS, *flags, "--run_dir", str(run_dir)]
+
+
+def _seeded_loss_2d(label: str, **cfg_changes) -> dict[str, float]:
+    """``card_vs_cpu_loss_2d`` of the flagship's config in f32 with
+    ``cfg_changes`` and seeded weights, on two 6×6 puzzles over the 60%
+    expander with numpy draws of t and the noise."""
+    import dataclasses
+
+    import numpy as np
+
+    from diffassemble_tpu_torch.models import Diffusion2D
+
+    cfg = dataclasses.replace(flagship_config(), compute_dtype="float32", encoder_init="", **cfg_changes)
+    rng = np.random.default_rng(LOSS3D_SEED)
+    host = seeded_puzzles(6, 2, cfg.rotation, rng, degree="60%")
+    draws = {"t_graph": rng.integers(0, cfg.steps, 2), "noise": rng.standard_normal(host.x0.shape, dtype=np.float32)}
+    return card_vs_cpu_loss_2d(lambda device: Diffusion2D(cfg, device=device, seed=0), host, draws, label)
+
+
+def _run_2d_phase(label: str, argvs: list[list[str]], launches: int, cli=None) -> tuple[dict, dict, dict]:
+    """``drive_trainer`` over ``argvs`` with the counts from 0: every step
+    ``launches`` of each kernel on the tensor cores, finite, with gradients;
+    each run's sanity evaluation 120 forward launches (none with
+    ``launches`` 0). Returns (launches, by route, the result: s/step by host
+    clock and CUDA events, peak memory, losses, steps)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start = time.perf_counter()
+    steps, runs = drive_trainer(argvs, label, cli)
+    seconds = time.perf_counter() - start
+    counts, routes = read_counts(), read_routes()
+    peak = torch.cuda.max_memory_allocated()
+    _check_trainer_steps(steps, label, launches)
+    in_steps = {k: sum(s["launches"][k] for s in steps) for k in KERNEL_SOURCES}
+    sanity = {k: counts[k] - in_steps[k] for k in KERNEL_SOURCES}
+    per_call = 4 * 30 if launches else 0  # 4 layers × 30 DDIM steps a sanity call
+    if sanity != {"masked_attention_fwd": len(argvs) * per_call, "masked_attention_bwd_dq": 0,
+                  "masked_attention_bwd_dkv": 0} or any(r["cuda_cores"] for r in routes.values()):
+        raise AssertionError(f"{label}: sanity evaluations launched {sanity}, by route {routes}")
+    steady = [s for i, s in enumerate(steps) if i not in (0, runs[0])] or steps[1:]
+    result = {"seconds": seconds, "runs": runs, "max_memory_allocated": peak,
+              "losses": [s["total_loss"] for s in steps], "host_s": [s["seconds"] for s in steps],
+              "cuda_ms": [s["ms"] for s in steps], "steady_host_s": [s["seconds"] for s in steady],
+              "steady_cuda_ms": [s["ms"] for s in steady], "steps": steps}
+    return counts, routes, result
+
+
+def _beside_phase_6(label: str, result: dict, baseline: dict) -> None:
+    phase(f"{label}: steady s/step by host clock {_spread(result['steady_host_s'])}, CUDA events "
+          f"{_spread(result['steady_cuda_ms'])} ms, max_memory_allocated {result['max_memory_allocated'] / 2**30:.2f} "
+          f"GiB | efficientnet_b0 (phase 6): {_spread(baseline['host_s'])} s, {_spread(baseline['cuda_ms'])} ms, "
+          f"{baseline['max_memory_allocated'] / 2**30:.2f} GiB")
+
+
+def light_2d(workdir: Path, baseline: dict) -> dict[str, tuple]:
+    """Phase 17, the fifteenth and sixteenth main paths: ``run_2d`` of the
+    rotation CLI at the flagship's widths (``TRAIN_FLAGS``: 30×30 over the
+    10% expander, exophormer, bf16, batch 8) from seeded weights with the
+    light encoders ``convnet`` and ``tiny``: 2 steps, a checkpoint, a resume
+    to 3, each step 4 + 4 + 4 tensor-core launches; and with the ``gcn``
+    backbone (efficientnet_b0) for 2 steps, with no attention launch at all.
+    Each first holds its seeded f32 loss on the card to the CPU's. Returns,
+    by name, (launches, by route, the result)."""
+    out = {}
+    for name, flags, launches in (("convnet", ["--backbone", "convnet"], 4), ("tiny", ["--backbone", "tiny"], 4),
+                                  ("gcn", ["--architecture", "gcn"], 0)):
+        change = {flags[0][2:]: flags[1]}
+        loss = _seeded_loss_2d(f"{name} loss", **change)
+        argv = _train_argv(workdir / name, *flags)
+        argvs = [argv + ["-max_steps", str(LIGHT_STEPS)]]
+        if launches:
+            argvs.append(argv + ["-max_steps", str(LIGHT_RESUME_TO)])
+        counts, routes, result = _run_2d_phase(name, argvs, launches)
+        if launches == 0 and any(counts.values()):
+            raise AssertionError(f"gcn launched attention kernels: {counts}")
+        want = list(range(1, (LIGHT_RESUME_TO if launches else LIGHT_STEPS) + 1))
+        if [s["step"] for s in result["steps"]] != want:
+            raise AssertionError(f"{name}: steps {[s['step'] for s in result['steps']]}, expected {want}")
+        saved = json.loads((workdir / name / "checkpoints" / "config.json").read_text())
+        if saved[flags[0][2:]] != flags[1]:
+            raise AssertionError(f"{name}: config {saved}")
+        result["loss_f32_card"] = loss
+        _beside_phase_6(f"{name} training ({len(result['steps'])} steps, launches {counts})", result, baseline)
+        out[name] = (counts, routes, result)
+    return out
+
+
+def pretrained_features(workdir: Path, baseline: dict) -> tuple[dict, dict, dict]:
+    """Phase 18, the seventeenth main path: ``visual_pretrained`` from a
+    features npz in the layout of a converted timm file (the encoder subtree
+    of ``weights/efficientnet_b0_pose30hf.npz``, keys without ``encoder/``).
+    The model's ``init`` loads it: the encoder equals the file; with the
+    BatchNorms folded affine a patch's features are the same, within bf16
+    rounding (1/64 of the largest feature), in batches of 4 and of 16. Then
+    ``train_2d_rot --visual_pretrained true`` for 2 steps (4 + 4 + 4
+    tensor-core launches each)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from diffassemble_tpu_torch import convert
+    from diffassemble_tpu_torch.models import Diffusion2D
+    from diffassemble_tpu_torch.utils.params import load_params
+
+    npz = workdir / "efficientnet_b0_features.npz"
+    with np.load(ENCODER_INIT) as z:
+        np.savez(npz, **{k[len("encoder/"):]: z[k] for k in z.files if k.startswith("encoder/")})
+    cfg = dataclasses.replace(flagship_config(), encoder_init="", visual_pretrained=True, visual_weights=str(npz))
+    model = Diffusion2D(cfg, device="cuda", seed=3)
+    model.init(0)
+    want = convert.convert_params({"encoder": load_params(npz)})
+    got = model.encoder.state_dict()
+    if got.keys() != {k[len("encoder."):] for k in want} or \
+            not all(torch.equal(v.cpu(), want[f"encoder.{k}"]) for k, v in got.items()):
+        raise AssertionError("the pretrained encoder differs from its file after init")
+    patches = torch.as_tensor(np.random.default_rng(5).random((16, 32, 32, 3), dtype=np.float32), device="cuda")
+    with torch.no_grad():
+        f16, f4 = model.encoder(patches).float(), model.encoder(patches[:4]).float()
+    err, scale = (f16[:4] - f4).abs().max().item(), f16.abs().max().item()
+    if not (math.isfinite(err) and err <= scale / 64):
+        raise AssertionError(f"pretrained features depend on the batch: max|d| {err} of {scale}")
+    phase(f"pretrained features: the encoder equals {npz.name} after init ({len(got)} tensors); a patch's bf16 "
+          f"features in batches of 4 and 16: max|d| {err:.3e} of max {scale:.3e} (gate 1/64 of it)")
+    del model
+    argv = _train_argv(workdir / "pretrained", "--visual_pretrained", "true", "--visual_weights", str(npz))
+    counts, routes, result = _run_2d_phase("pretrained", [argv + ["-max_steps", str(LIGHT_STEPS)]], 4)
+    result["batch_4_vs_16_max_abs"] = err
+    _beside_phase_6(f"pretrained training ({len(result['steps'])} steps, launches {counts})", result, baseline)
+    return counts, routes, result
+
+
+def missing_pieces(workdir: Path) -> tuple[dict, dict, dict]:
+    """Phase 19, the eighteenth main path: ``cli/train_2d_missing.py`` at its
+    default ``--missing 20`` with the flagship's flags (rotation, x₀, the
+    exophormer with 8 virtual nodes) for 2 steps after its sanity
+    evaluation: every puzzle of every step has 720 valid pieces of 900."""
+    from diffassemble_tpu_torch.cli import train_2d_missing
+
+    argv = _train_argv(workdir / "missing", "--rotation", "true", "--predict_xstart", "true", "--architecture",
+                       "exophormer", "--virt_nodes", "8", "-max_steps", str(LIGHT_STEPS))
+    counts, routes, result = _run_2d_phase("missing", [argv], 4, train_2d_missing)
+    valid = sorted({v for s in result["steps"] for v in s["valid"]})
+    if valid != [900 - math.ceil(900 * MISSING_PERC / 100)]:
+        raise AssertionError(f"missing pieces: valid pieces per puzzle {valid}")
+    metrics = [json.loads(line) for line in (workdir / "missing" / "metrics.jsonl").read_text().splitlines()]
+    sanity = [m["sanity/overall__piece_acc"] for m in metrics if "sanity/overall__piece_acc" in m]
+    result.update(valid_pieces=valid, sanity_piece_acc=sanity)
+    phase(f"missing pieces: {len(result['steps'])} steps of puzzles with {valid} valid pieces of 900, launches "
+          f"{counts}, sanity piece_acc {sanity}, steady s/step {_spread(result['steady_host_s'])}")
+    return counts, routes, result
+
+
+def _port_run_2d(run_dir: Path, model, cfg, step: int) -> None:
+    """A trained 2D model written as a run of the port: config.json and a checkpoint at ``step``."""
+    import torch
+
+    from diffassemble_tpu_torch.train.checkpoint import CheckpointManager
+    from diffassemble_tpu_torch.train.train_state import TrainState
+
+    ckpt = CheckpointManager(run_dir / "checkpoints")
+    ckpt.save_config(cfg)
+    ckpt.save(step, TrainState(dict(model.named_parameters()), {}, step, torch.Generator(device="cuda").manual_seed(0)))
+
+
+def evaluate_cli(workdir: Path) -> dict[str, tuple]:
+    """Phase 20, the nineteenth main path: ``cli/evaluate.py`` on trained
+    checkpoints written as runs of the port. The flagship (the EMA of
+    ``weights/diffusion2d_rot30`` at step 32000): one batch of 4 synthetic
+    30×30 puzzles, fully connected, no images; 120 forward launches on the
+    tensor cores. ``diffusion2d_rot_ms`` (step 7000): 6×6, its OrientationNorm
+    statistics calibrated over 2 training batches and written as
+    ``norm_stats.npz``, one batch of 4 with every step's reconstruction saved
+    (``.npy`` where PIL is missing): 120 forward launches, 120 files.
+    Returns, by checkpoint, (launches, by route, the result)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from diffassemble_tpu_torch import convert
+    from diffassemble_tpu_torch.cli import evaluate
+    from diffassemble_tpu_torch.models import Diffusion2D
+    from diffassemble_tpu_torch.nn.visual import norm_layers
+    from diffassemble_tpu_torch.train.heldout import load_asset
+
+    out = {}
+    state, _ = convert.load_jax_npz(ASSET)
+    cfg = dataclasses.replace(flagship_config(), encoder_init="")
+    model = Diffusion2D(cfg, device="cuda")
+    model.load_state_dict(state, strict=True)
+    _port_run_2d(workdir / "eval_rot30", model, cfg, 32000)
+    model, cfg, _, _ = load_asset("diffusion2d_rot_ms", "cuda")
+    _port_run_2d(workdir / "eval_rot_ms", model, cfg, 7000)
+    n_norms = len(norm_layers(model.encoder))
+    del model
+    runs = {"rot30": ["--puzzle_sizes", "30", "--batch_size", "4", "--n_batches", "1", "--save_images", "false"],
+            "rot_ms": ["--puzzle_sizes", "6", "--batch_size", "4", "--n_batches", "1", "--calibrate_norm", "2",
+                       "--save_images", "true"]}
+    for name, flags in runs.items():
+        run_dir = workdir / f"eval_{name}"
+        torch.cuda.synchronize()
+        reset_counts()
+        start = time.perf_counter()
+        metrics = evaluate.main(["--run_dir", str(run_dir), *flags, "--device", "cuda"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        counts, routes = read_counts(), read_routes()
+        if counts != {"masked_attention_fwd": 120, "masked_attention_bwd_dq": 0, "masked_attention_bwd_dkv": 0} \
+                or routes["masked_attention_fwd"]["cuda_cores"] or not all(math.isfinite(m["piece_acc"])
+                                                                            for m in metrics):
+            raise AssertionError(f"evaluate {name}: launches {counts}, by route {routes}, metrics {metrics}")
+        files = sorted(p.name for p in (run_dir / "preds").iterdir()) if (run_dir / "preds").exists() else []
+        result = {"metrics": metrics, "seconds": seconds, "files": len(files)}
+        if name == "rot_ms":
+            with np.load(run_dir / "norm_stats.npz") as z:
+                stats = {k: z[k] for k in z.files}
+            if len(stats) != 2 * n_norms or not all(np.isfinite(v).all() for v in stats.values()):
+                raise AssertionError(f"evaluate rot_ms: norm_stats.npz holds {len(stats)} arrays for {n_norms} layers")
+            if len(files) != 4 * 30 or not all(f.endswith((".png", ".png.npy")) for f in files):
+                raise AssertionError(f"evaluate rot_ms: {len(files)} images, expected 120: {files[:3]}")
+            result["norm_stats_arrays"] = len(stats)
+        elif files:
+            raise AssertionError(f"evaluate rot30 saved images: {files[:3]}")
+        phase(f"evaluate {name}: {seconds:.2f} s, piece_acc {[m['piece_acc'] for m in metrics]}, launches {counts} "
+              f"(forward by route {routes['masked_attention_fwd']}), {len(files)} images"
+              + (f" ({files[0].split('.', 1)[1]}), norm_stats.npz with {len(stats)} arrays" if name == "rot_ms" else ""))
+        out[f"evaluate_{name}"] = (counts, routes, result)
+    return out
+
+
+def export_meshes_3d(workdir: Path) -> tuple[dict, dict, dict]:
+    """Phase 21a, the twentieth main path: ``run_3d --evaluate
+    --export_meshes`` on the trained ``diffusion3d_easy`` (step 12000)
+    written as a run of the port, its protocol cut to 4 objects in one call:
+    the trajectories of the 4 objects (30 ``.ply`` and one ``_traj.npz``
+    each), then the evaluation; 120 forward launches each. The trajectory's last
+    step is, bit for bit, a ``sample`` of the same objects without a
+    trajectory on a generator seeded as the export's."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from diffassemble_tpu_torch.cli import train_3d
+    from diffassemble_tpu_torch.data.breaking_bad import collate_fragments
+    from diffassemble_tpu_torch.train.heldout3d import model_from_asset
+
+    model, cfg, protocol, step = model_from_asset(ASSET_3D, "cuda")
+    run_dir = workdir / "export3d"
+    cli, seconds, counts, routes = cli_evaluate_3d(run_dir, model, cfg, step, {**protocol, "test_n": 4, "batch": 4},
+                                                   "--export_meshes")
+    meshes = run_dir / "meshes"
+    ply = sorted(meshes.glob("*.ply"))
+    npz = sorted(meshes.glob("*_traj.npz"))
+    if len(ply) != 4 * 30 or len(npz) != 4:
+        raise AssertionError(f"export_meshes: {len(ply)} .ply and {len(npz)} _traj.npz files")
+    if counts != {"masked_attention_fwd": 2 * 120, "masked_attention_bwd_dq": 0, "masked_attention_bwd_dkv": 0}:
+        raise AssertionError(f"export_meshes: launches {counts}")
+    ap = train_3d.argparse.ArgumentParser()
+    train_3d.add_3d_args(ap)
+    args = ap.parse_args(["--dataset", "synthetic", "--test_n", "4", "--num_points", str(protocol["num_points"]),
+                          "--max_num_part", str(protocol["max_num_part"]), "--min_num_part",
+                          str(protocol["min_num_part"]), "--wall_detail", str(protocol["wall_detail"]),
+                          "--wall_boost", str(protocol["wall_boost"]), "--synthetic_canonical",
+                          str(protocol["canonical"]), "--seed", str(protocol["seed"])])
+    _, test_ds, _ = train_3d.datasets_3d(args)
+    nb = collate_fragments([test_ds[i] for i in range(4)], protocol["max_num_part"])
+    final = model.sample(nb.to("cuda"), torch.Generator(device="cuda").manual_seed(1)).final.cpu().numpy()
+    for b, path in enumerate(npz):
+        with np.load(path) as z:
+            if not np.array_equal(z["trajectory"][-1], final[b]):
+                raise AssertionError(f"{path.name}: the trajectory's last step differs from the sample")
+    result = {"seconds": seconds, "ply": len(ply), "traj_npz": len(npz),
+              "ply_bytes": sum(p.stat().st_size for p in ply), "metrics": {k: v[0] for k, v in cli.items()}}
+    phase(f"export_meshes: {len(ply)} .ply ({result['ply_bytes'] / 2**20:.1f} MiB) and {len(npz)} _traj.npz in "
+          f"{seconds:.2f} s with the evaluation of 4 objects; launches {counts}; each trajectory's last step "
+          f"bit-equal to a sample without one")
+    del model
+    return counts, routes, result
+
+
+def ddp_world_of_one_3d() -> tuple[dict, dict]:
+    """Phase 21b, the twenty-first main path: one ``Trainer`` step of the 3D
+    model with the easy run's flags (``TRAIN3D_FLAGS``: vn_dgcnn_rich from
+    its encoder_init, batch 16, the relative-pose losses) on the run's first
+    batch without a process group, under DDP in a world of one over NCCL,
+    and without again: parameters and gradients bit-equal. Each step 8 + 8
+    + 8 launches (6 on the tensor cores, 2 on the CUDA cores). A second card
+    would let 2 NCCL ranks run against one process; one card does not."""
+    import torch
+
+    from diffassemble_tpu_torch.cli import train_3d
+    from diffassemble_tpu_torch.models import Diffusion3D
+    from diffassemble_tpu_torch.parallel.dryrun import one_rank_ddp_matches
+
+    args = train3d_args("")
+    batch = loss_inputs_3d(args)[0].to("cuda")
+    reset_counts()
+    n = one_rank_ddp_matches(lambda: Diffusion3D(train_3d.config_from_args(args), device="cuda", seed=0), batch,
+                             "nccl")
+    counts, routes = read_counts(), read_routes()
+    if counts != dict.fromkeys(KERNEL_SOURCES, 3 * 8) or routes["masked_attention_fwd"]["cuda_cores"] != 3 * 2:
+        raise AssertionError(f"3D ddp: launches {counts} by route {routes}, expected 8 (6 + 2) in each of 3 steps")
+    phase(f"3D ddp: a world of one over NCCL, one Trainer step bit-equal to the plain step ({n} parameters and "
+          f"their gradients; a second plain step equal too); launches {counts}; 2 NCCL ranks against one process: "
+          f"not run (this smoke drives one card; the machine has {torch.cuda.device_count()})")
+    return counts, routes
+
+
+def rest_of_the_family(baseline: dict) -> dict[str, tuple]:
+    """Phases 17-21 by path: (launches, by route[, the result])."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rest_") as tmp:
+        rest = light_2d(Path(tmp), baseline)
+        rest["pretrained"] = pretrained_features(Path(tmp), baseline)
+        rest["missing"] = missing_pieces(Path(tmp))
+        rest.update(evaluate_cli(Path(tmp)))
+        rest["export_meshes_3d"] = export_meshes_3d(Path(tmp))
+    rest["ddp_3d"] = ddp_world_of_one_3d()
+    return rest
+
+
 def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, train: tuple, heldout: tuple,
                 recipe_: tuple, mixed_: tuple, ddp: tuple, eval3d_: tuple, train3d_: tuple, e_more: dict,
-                t_more: dict, more_2d: dict) -> dict:
+                t_more: dict, more_2d: dict, rest: dict) -> dict:
     """The kernels' JSON line; ``serve`` and ``train`` are (launches,
     launches by route, seconds per request or per steady step), ``heldout``,
     ``recipe_``, ``mixed_``, ``eval3d_`` and ``train3d_`` (launches, launches
     by route, the phase's result), ``ddp`` (launches, launches by route),
     ``e_more`` and ``t_more`` the results of ``eval3d_more`` and
     ``train3d_more``, ``more_2d`` the equivariant 2D family's paths by name
-    (launches, launches by route, the phase's result)."""
+    and ``rest`` those of phases 17-21 (launches, launches by route, the
+    phase's result, or for the 3D DDP step no result)."""
     from diffassemble_tpu_torch import REFERENCE_PACKAGE
     from diffassemble_tpu_torch.ops import cuda_attention
 
@@ -3159,7 +3542,7 @@ def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, t
              "ddp": ddp, "eval3d_cli": cli3d, "eval3d_heldout": eval3d_, "train3d": train3d_,
              **{f"eval3d_{name}_cli": (v[2]["cli_launches"], v[2]["cli_routes"]) for name, v in e_more.items()},
              **{f"eval3d_{name}": v for name, v in e_more.items()},
-             **{f"train3d_{label}": v for label, v in t_more.items()}, **more_2d}
+             **{f"train3d_{label}": v for label, v in t_more.items()}, **more_2d, **rest}
     out = []
     for kernel, source in KERNEL_SOURCES.items():
         # the forward kernel's figures are per denoiser step at the serving
@@ -3202,6 +3585,8 @@ def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, t
                              for name, r in e_more.items()}
     out[1]["train3d_more"] = {label: r[2] for label, r in t_more.items()}
     out[0]["equivariant_2d"] = {name: r[2] for name, r in more_2d.items()}
+    out[1]["rest_2d_3d"] = {name: {k: v for k, v in r[2].items() if k != "steps"} for name, r in rest.items()
+                            if len(r) > 2}
     return {"kernels": out}
 
 
@@ -3262,23 +3647,26 @@ def main() -> None:
         e_more = eval3d_more(Path(tmp))
         t_more = train3d_more(Path(tmp))
     rows += rows3d + rows_t3d + attach_launches_3d(rows_w, e_more, t_more)
+    rest = rest_of_the_family(train[3])
     paths = {"serve": serve[0], "train": train[0], "held-out eval": heldout[0], "recipe": rec[0],
              "mixed": mix[0], "ddp": ddp[0], "3D run_3d --evaluate": e3d[2]["cli_launches"],
              "3D held-out": e3d[0], "3D train": t3d[0],
              **{f"3D {name} run_3d --evaluate": v[2]["cli_launches"] for name, v in e_more.items()},
              **{f"3D {name} held-out": v[0] for name, v in e_more.items()},
              **{f"3D train {label}": v[0] for label, v in t_more.items()},
-             **{name: v[0] for name, v in more_2d.items()}}
+             **{name: v[0] for name, v in more_2d.items()}, **{name: v[0] for name, v in rest.items()}}
     # these launch the forward kernel alone
     sampling_only = {"serve", "held-out eval", "3D run_3d --evaluate", "3D held-out", "rot_ms_heldout",
-                     "discrete_heldout", "serve_norm_stats", "angle_sample",
+                     "discrete_heldout", "serve_norm_stats", "angle_sample", "evaluate_rot30", "evaluate_rot_ms",
+                     "export_meshes_3d",
                      *(f"3D {name} {what}" for name in e_more for what in ("run_3d --evaluate", "held-out"))}
-    idle = {path: counts for path, counts in paths.items()
-            if any(v == 0 for k, v in counts.items() if path not in sampling_only or k == "masked_attention_fwd")}
+    no_attention = {"gcn"}  # its backbone is matrix products: it must launch no kernel (phase 17)
+    idle = {path: counts for path, counts in paths.items() if path not in no_attention and
+            any(v == 0 for k, v in counts.items() if path not in sampling_only or k == "masked_attention_fwd")}
     if idle:
         raise AssertionError(f"a kernel of a main path was not launched: {idle}")
     line = kernel_line(errs, rows, sweep, serve, train, heldout, rec, mix, ddp, tuple(e3d), tuple(t3d), e_more,
-                       t_more, more_2d)
+                       t_more, more_2d, rest)
     phase("done")
     print(smi, flush=True)
     print(json.dumps(line), flush=True)

@@ -4,9 +4,9 @@ reference's argparse surface → config + datasets + trainer.
 The flags are the JAX CLI's, plus ``--device`` (default ``cuda``; the CPU
 only when asked for). ``--discrete`` builds the D3PM models (with
 ``--rotation``, the two-chain one; ``--cold_diffusion``, ``--only_rotation``),
-K = ``puzzle_sizes[0]``² classes. The backbones are efficientnet_b0 and the
-equivariant ResNets; "tiny" and "convnet" are not ported yet (ROADMAP Queue
-1 item 6). ``-gpus N``
+K = ``puzzle_sizes[0]``² classes. Every backbone and architecture of the
+JAX CLI is there (``nn/visual.py:BACKBONES``; transformer, exophormer and
+gcn). ``-gpus N``
 trains data-parallel over min(N, the run's processes) ranks: launch one
 process per card, e.g. ``torchrun --nproc_per_node N -m
 diffassemble_tpu_torch.cli.train_2d_rot ...``; a single process uses one
@@ -106,10 +106,9 @@ def add_2d_args(ap: argparse.ArgumentParser) -> None:
 
 
 def check_backbone(backbone: str) -> None:
-    """Raise, naming its ROADMAP item, for a backbone the port does not have."""
+    """Raise ValueError, before anything is built, for a backbone of no encoder."""
     if backbone not in BACKBONES:
-        raise NotImplementedError(
-            f"backbone {backbone!r} is not ported yet (only {', '.join(BACKBONES)}): ROADMAP Queue 1 item 6")
+        raise ValueError(f"unknown visual backbone {backbone!r} (one of {', '.join(BACKBONES)})")
 
 
 def build_2d_model(args) -> Diffusion2D:

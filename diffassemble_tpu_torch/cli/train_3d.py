@@ -26,10 +26,16 @@ always read). Without a checkpoint it evaluates the seeded weights and
 and ``--equiv_inv_mp 1`` (or ``--use_vn_dgcnn_equiv_inv_mp``) trains and
 evaluates with split equivariant/invariant message passing.
 
-Not ported: training over ``--gpus`` > 1 (ROADMAP Queue 1 item 19: the JAX
-step's batch means and the relative-pose loss's contact counts are global
-over the mesh, and DDP needs them made global by hand) and
-``--export_meshes`` (item 11).
+``--gpus N`` trains data-parallel over min(N, the run's processes) ranks,
+one process per card (``torchrun --nproc_per_node N -m
+diffassemble_tpu_torch.cli.train_3d --gpus N ...``): the loss's draws are
+drawn for the whole batch on every rank and the relative-pose losses divide
+by the whole batch's counts (``parallel/mesh.py:data_parallel_loss``), so a
+step is the single-process step on the whole batch. ``--evaluate true
+--export_meshes`` first samples the first 4 held-out objects with their
+trajectories and writes, per object, a ``.ply`` of the posed parts at every
+step and the ``_traj.npz`` under ``<run_dir>/meshes`` (as the JAX CLI, the
+flag does nothing without ``--evaluate``).
 """
 
 from __future__ import annotations
@@ -192,17 +198,16 @@ def run_3d(args) -> dict[str, tuple[float, float]] | None:
     import torch
 
     from ..parallel.distributed import initialize
+    from ..parallel.mesh import make_mesh
     from ..train.checkpoint import restore_explicit
     from ..train.train_state import TrainState, eval_params
     from ..train.trainer import Trainer, fragment_adapter
     from .common import device_count
 
-    if args.export_meshes:
-        raise NotImplementedError("--export_meshes (fragment trajectories) is not ported yet: ROADMAP Queue 1 item 11")
     initialize(device=args.device)  # no-op for a single process
-    if not args.evaluate and (args.gpus > 1 or device_count() > 1):
-        raise NotImplementedError("3D training over more than one device (--gpus > 1) is not ported yet: "
-                                  "ROADMAP Queue 1 item 19")
+    if args.gpus > device_count():
+        print(f"--gpus {args.gpus}: this run has {device_count()} process(es), one device each; "
+              f"using {device_count()}", flush=True)
     run_dir = args.run_dir or f"runs/3d-{args.dataset}-{args.backbone}"
     config = saved_config(args.checkpoint_path or run_dir) if args.evaluate else None
     model, train_ds, test_ds, cats = build_3d(args, config)
@@ -217,6 +222,7 @@ def run_3d(args) -> dict[str, tuple[float, float]] | None:
         adapter=fragment_adapter(args.max_num_part, cats, missing_perc=args.missing, seed=args.seed),
         deadline_margin=args.deadline_margin,
         ema_decay=args.ema_decay or None,
+        mesh=make_mesh(min(args.gpus, device_count()), tp=1),
     )
     if not args.evaluate:
         trainer.fit(train_ds, test_ds)
@@ -236,10 +242,32 @@ def run_3d(args) -> dict[str, tuple[float, float]] | None:
             params = template.params
         else:
             params = eval_params(restored)
+    if args.export_meshes:
+        export_meshes(model, params, trainer.adapter.collate([test_ds[i] for i in range(min(4, len(test_ds)))],
+                                                             args.max_num_part), Path(run_dir) / "meshes")
     runs = [trainer.evaluate(params, test_ds, tag=f"test_{it}") for it in range(args.num_iter)]
     agg = {k: (float(np.mean([r[k] for r in runs])), float(np.std([r[k] for r in runs]))) for k in runs[0]}
     print({k: f"{m:.4f}±{s:.4f}" for k, (m, s) in agg.items()}, flush=True)
     return agg
+
+
+def export_meshes(model, params: dict, nb, out_dir: Path) -> None:
+    """Sample host batch ``nb`` with ``params`` (a generator seeded 1) keeping
+    the trajectory, and export each object's (``export_fragment_trajectory``:
+    ``obj<b>_step<s>.ply`` and ``obj<b>_traj.npz``) under ``out_dir``."""
+    import torch
+
+    from ..data.batch import FragmentBatch
+    from ..train.trainer import swapped_params
+    from ..utils.viz import export_fragment_trajectory
+
+    batch = FragmentBatch(*nb).to(model.device)
+    with swapped_params(model, params):
+        traj = model.sample(batch, torch.Generator(device=model.device).manual_seed(1),
+                            keep_trajectory=True).trajectory.cpu().numpy()  # (S, B, P, C)
+    for b in range(traj.shape[1]):
+        export_fragment_trajectory(out_dir, np.asarray(nb.pcds[b]), traj[:, b], np.asarray(nb.node_mask[b]),
+                                   name=f"obj{b}")
 
 
 def main() -> None:

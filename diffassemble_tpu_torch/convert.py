@@ -14,12 +14,12 @@ Linear weight (out, in), and so does a VN linear's bias-free channel mix (C,
 D); a conv kernel HWIO becomes OIHW (a depthwise (kh, kw, 1, C) kernel
 becomes (C, 1, kh, kw)), but a group convolution's (``GroupConvP4_i`` ...)
 keeps the JAX shape, as ``nn/visual.py`` holds it; Embed tables,
-OrientationNorm, LayerNorm, BatchNorm2D and VNNorm
+OrientationNorm, LayerNorm, GroupNorm, BatchNorm2D and VNNorm
 scales become ``weight``; biases, the Exophormer's ``virt_embedding`` and the
 relative-pose head's raw projections ``U`` and ``V`` (C, k) carry over as
 they are. Module names follow the port's (``Exophormer_0`` or
 ``DualStreamGraphTransformer_0`` → ``gnn``, ``layer_3`` → ``layers.3``,
-``blocks_2_1`` → ``blocks.2.1``, ``VNLinearLeakyReLU_4`` → ``layers.4``,
+``blocks_2_1`` → ``blocks.2.1``, ``GCN_0`` → ``gnn``, ``VNLinearLeakyReLU_4`` → ``layers.4``,
 ``VNNorm_0`` → ``norm``, ``VNStdFeature_0`` → ``std_feature``,
 ``PointMLP_1`` → ``mlps.1``, ``TNet_0`` → ``tnets.0``, ``relpose`` →
 ``rel_head``, ...); some renames hold under one parent only (``Dense_0`` is
@@ -31,7 +31,12 @@ under ``encoder``; the equivariant ResNet's ``GroupConvZ2_0`` and
 ``stem_norm``, and in an ``EquivariantBasicBlock_k`` or
 ``EquivariantBottleneck_k`` (→ ``blocks.k``) ``GroupConvP4_i`` and
 ``OrientationNorm_i`` are ``conv{i+1}`` and ``norm{i+1}`` but the last of a
-block with a projected shortcut, ``shortcut`` and ``shortcut_norm``). The
+block with a projected shortcut, ``shortcut`` and ``shortcut_norm``; the
+"convnet" encoder's ``ConvBlock_i`` and ``ResidualConvBlock_i`` are
+``down.i`` and ``res.i``, in which ``ConvBlock_0``, ``Conv_0``, ``Conv_1``
+and ``GroupNorm_0`` are ``block``, ``conv``, ``shortcut`` and ``norm``; a
+"tiny" encoder, ``Dense_0`` and ``Dense_1`` alone, has ``fc1`` and
+``fc2``). The
 denoiser's Dense→GELU→Dense heads are
 ``Sequential``s built inside its compact method, so their layers sit at the
 denoiser's top level as ``Dense_0`` ... in creation order: the position MLP,
@@ -58,7 +63,7 @@ _SEGMENT_RULES = tuple((parent and re.compile(parent), re.compile(seg), repl) fo
     (r"^encoder$", r"^VNLinear_0$", "vn_out"),  # VNPointNetEncoder's last VN layer
     (r"^encoder$", r"^Dense_0$", "out"),  # and its projection
     (r"^corr$", r"^LayerNorm_0$", "norm"),  # CorrespondencePairs' descriptor norm
-    (None, r"^(Exophormer|GraphTransformer|DualStreamGraphTransformer)_0$", "gnn"),
+    (None, r"^(Exophormer|GraphTransformer|DualStreamGraphTransformer|GCN)_0$", "gnn"),
     (None, r"^layer_(\d+)$", r"layers.\1"),
     (None, r"^blocks_(\d+)_(\d+)$", r"blocks.\1.\2"),
     (None, r"^Dense_0$", "fc1"),
@@ -69,6 +74,13 @@ _SEGMENT_RULES = tuple((parent and re.compile(parent), re.compile(seg), repl) fo
     (None, r"^PointMLP_(\d+)$", r"mlps.\1"),
     (None, r"^TNet_(\d+)$", r"tnets.\1"),
     (None, r"^relpose$", "rel_head"),
+    # the "convnet" encoder: its stride-2 blocks and residual blocks under the encoder, their layers
+    (r"^encoder$", r"^ConvBlock_(\d+)$", r"down.\1"),
+    (r"^encoder$", r"^ResidualConvBlock_(\d+)$", r"res.\1"),
+    (r"^ResidualConvBlock_\d+$", r"^ConvBlock_0$", "block"),
+    (r"^ResidualConvBlock_\d+$", r"^Conv_1$", "shortcut"),
+    (r"^(ConvBlock|ResidualConvBlock)_\d+$", r"^Conv_0$", "conv"),
+    (r"^(ConvBlock|ResidualConvBlock)_\d+$", r"^GroupNorm_0$", "norm"),
     # the equivariant ResNets: the stem under the encoder, the blocks' convs and norms by creation order
     (r"^encoder$", r"^GroupConvZ2_0$", "stem"),
     (r"^encoder$", r"^OrientationNorm_0$", "stem_norm"),
@@ -85,6 +97,7 @@ _GROUP_CONV = re.compile(r"^GroupConv(Z2|P4|Z2M|P4M)_\d+$")
 _HEADS_2D = {4: ("pos_mlp", "final"), 6: ("pos_mlp", "final_t", "final_r")}
 _HEADS_2D_DISCRETE = ("final_pos", "final_rot")
 HEADS_3D = ("pos_mlp", "mlp_t", "mlp_r")
+_TINY = {"Dense_0", "Dense_1"}  # the whole of a "tiny" encoder's subtree
 
 
 def _rename(segment: str, parent: str | None = None) -> str:
@@ -167,6 +180,8 @@ def convert_params(params: dict, heads: tuple[str, ...] | None = None) -> dict[s
     denoiser's."""
     if "denoiser" in params:
         params = {**params, "denoiser": _denoiser_heads(params["denoiser"], heads)}
+    if set(params.get("encoder", ())) == _TINY:  # the "tiny" encoder: its two Dense layers alone
+        params = {**params, "encoder": {"fc1": params["encoder"]["Dense_0"], "fc2": params["encoder"]["Dense_1"]}}
     out = {}
     for path, arr in _flatten(params):
         name, value = _leaf(path[-1], np.asarray(arr, dtype=np.float32), path[-2] if len(path) > 1 else None)

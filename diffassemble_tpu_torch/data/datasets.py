@@ -8,10 +8,10 @@
   unique-graph / random-dropout topology;
 - ``get_dataset``: (train, test, puzzle_sizes).
 
-Image folders (CelebA-HQ, WikiArt, ...) and resizing need PIL, which the port
-does not import yet: ``ImageFolder`` and a resize raise NotImplementedError
-(ROADMAP Queue 1 item 11). Synthetic images are generated at their size and
-never need a resize.
+- ``ImageFolder``: images on disk (CelebA-HQ, WikiArt, ...), decoded by PIL,
+  which is imported only when a folder is made;
+- ``_resize``: PIL's resize, or nearest-neighbour indexing where PIL is
+  missing (as on the card), as the JAX package falls back.
 """
 
 from __future__ import annotations
@@ -210,13 +210,30 @@ class SyntheticImages:
 
 
 class ImageFolder:
-    """Images from a directory or a file-list split: needs PIL, not ported yet."""
+    """Images from a directory or a file-list split (CelebA-HQ / WikiArt style:
+    reference celeba_dt.py / wikiart_dt.py read data_splits/*.txt), decoded by
+    PIL as (H, W, 3) float32 in [0, 1]; PIL is imported when a folder is made."""
 
     def __init__(self, root: str, split_file: str | None = None, size_hw: tuple[int, int] = (192, 192)):
-        raise NotImplementedError(
-            f"image folder datasets ({root}) need PIL, which the port does not use yet: "
-            "ROADMAP Queue 1 item 11; use dataset 'synthetic' or 'synthetic_art'"
-        )
+        from PIL import Image  # noqa: F401 — fail here, not at the first image
+
+        self.root = Path(root)
+        if split_file:
+            names = [ln.strip() for ln in open(split_file) if ln.strip()]
+            self.files = [self.root / n for n in names]
+        else:
+            exts = {".jpg", ".jpeg", ".png", ".webp", ".bmp"}
+            self.files = sorted(p for p in self.root.rglob("*") if p.suffix.lower() in exts)
+        self.size_hw = size_hw
+
+    def __len__(self) -> int:
+        return len(self.files)
+
+    def __getitem__(self, idx: int) -> np.ndarray:
+        from PIL import Image
+
+        img = Image.open(self.files[idx]).convert("RGB")
+        return np.asarray(img, dtype=np.float32) / 255.0
 
 
 class PuzzleDataset:
@@ -306,10 +323,17 @@ class PuzzleDataset:
 
 
 def _resize(img: np.ndarray, size_hw: tuple[int, int]) -> np.ndarray:
-    raise NotImplementedError(
-        f"resizing an image {img.shape[:2]} to {size_hw} needs PIL, which the port does not "
-        "use yet: ROADMAP Queue 1 item 11"
-    )
+    """(H, W, 3) in [0, 1] → ``size_hw``: PIL's default resample of the uint8
+    image, or without PIL nearest-neighbour indexing."""
+    try:
+        from PIL import Image
+    except ImportError:
+        h, w = size_hw
+        yi = (np.arange(h) * img.shape[0] / h).astype(int)
+        xi = (np.arange(w) * img.shape[1] / w).astype(int)
+        return img[yi][:, xi]
+    pil = Image.fromarray((img * 255).astype(np.uint8)).resize((size_hw[1], size_hw[0]))
+    return np.asarray(pil, dtype=np.float32) / 255.0
 
 
 def get_dataset(

@@ -10,8 +10,8 @@ step; the encoder is any of ``nn/visual.py:make_visual_encoder``
 mean of the features of the four rot90 copies of every patch, and frozen
 OrientationNorm statistics while ``norm_stats`` holds them
 (``calibrate_norm_stats``). Training: ``loss`` (per-graph t, huber/l1/l2 on
-ε or x₀, the aux head), ``init`` (seeded weights plus the ``encoder_init``
-npz) and ``make_optimizer`` (Adafactor with the HF relative schedule).
+ε or x₀, the aux head), ``init`` (seeded weights, the ``visual_pretrained``
+features, the ``encoder_init`` npz) and ``make_optimizer`` (Adafactor with the HF relative schedule).
 Evaluation: ``evaluate``, ``metrics_from_final`` and ``piece_table``.
 """
 
@@ -26,6 +26,7 @@ from torch import nn
 from .. import convert
 from ..data.batch import PuzzleBatch
 from ..nn.denoiser import GraphDenoiser2D
+from ..nn.efficientnet import load_pretrained_features
 from ..nn.layers import init_weights
 from ..nn.visual import FEATURE_DIM, calibrate_norm_stats, make_visual_encoder, norm_layers, set_norm_stats
 from ..ops.assignment import greedy_assignment_batch
@@ -172,13 +173,14 @@ class Diffusion2D(nn.Module):
 
     @torch.no_grad()
     def init(self, seed: int = 0) -> None:
-        """Fresh seeded weights, then the ``encoder_init`` npz if the config
-        names one (the JAX ``init``). The npz is the JAX package's flattened
-        parameter tree (``utils/params.py``)."""
-        if self.cfg.visual_pretrained:
-            raise NotImplementedError(
-                "visual_pretrained (load_pretrained_features) is not ported yet: ROADMAP Queue 1 item 6")
+        """Fresh seeded weights, then with ``visual_pretrained`` the converted
+        ``visual_weights`` (``load_pretrained_features``), then the
+        ``encoder_init`` npz if the config names one, in the JAX ``init``'s
+        order. The npz is the JAX package's flattened parameter tree
+        (``utils/params.py``)."""
         init_weights(self, torch.Generator().manual_seed(seed))
+        if self.cfg.visual_pretrained:
+            load_pretrained_features(self.encoder, self.cfg.visual_weights)
         if self.cfg.encoder_init:
             loaded = convert.convert_params({"encoder": load_params(self.cfg.encoder_init)["encoder"]})
             own = {f"encoder.{k}": v for k, v in self.encoder.state_dict().items()}

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from ..data.batch import PuzzleBatch
 from ..nn.denoiser import GraphDenoiser2D
+from ..nn.efficientnet import load_pretrained_features
 from ..nn.layers import init_weights
 from ..nn.visual import FEATURE_DIM
 from ..ops.gaussian import SampleLoopResult
@@ -151,11 +152,11 @@ class DiscreteDiffusion2D(Diffusion2D):
 
     @torch.no_grad()
     def init(self, seed: int = 0) -> None:
-        """Fresh seeded weights; like the JAX package's discrete ``init``, no ``encoder_init``."""
-        if self.cfg.visual_pretrained:
-            raise NotImplementedError(
-                "visual_pretrained (load_pretrained_features) is not ported yet: ROADMAP Queue 1 item 6")
+        """Fresh seeded weights, then with ``visual_pretrained`` the converted
+        ``visual_weights``; like the JAX package's discrete ``init``, no ``encoder_init``."""
         init_weights(self, torch.Generator().manual_seed(seed))
+        if self.cfg.visual_pretrained:
+            load_pretrained_features(self.encoder, self.cfg.visual_weights)
 
     def denoise_logits(self, x_idx, t, feats, adj, node_mask, rot_idx=None, return_aux: bool = False):
         """The denoiser's logits (a tensor, or {"pos", "rot"}) in f32; with

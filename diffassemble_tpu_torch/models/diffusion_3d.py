@@ -137,6 +137,7 @@ class Diffusion3D(nn.Module):
             persistent=False)
         init_weights(self, torch.Generator().manual_seed(seed))
         self.to(device)
+        self.stats_group = None  # a process group: the relative-pose losses' counts span it (loss)
 
     @property
     def device(self) -> torch.device:
@@ -233,8 +234,12 @@ class Diffusion3D(nn.Module):
         pairwise head's losses on the ground truth's contact pairs.
 
         The draws (``loss_draws``) come from ``generator`` unless all are
-        given (the tests feed the JAX package's). Returns (total, the loss
-        dict with ``loss`` the total), 0-dim tensors."""
+        given (the tests feed the JAX package's). While ``stats_group`` holds
+        a process group, the relative-pose losses divide by the whole batch's
+        contact and pair counts across the group over its size
+        (``relative_pose_loss``); every other term is a mean over objects,
+        which the ranks' mean gets right. Returns (total, the loss dict with
+        ``loss`` the total), 0-dim tensors."""
         cfg = self.cfg
         b, p = batch.x0.shape[:2]
         dev = batch.x0.device
@@ -291,7 +296,7 @@ class Diffusion3D(nn.Module):
             total = total + cfg.aux_pose_weight * aux
         if self.use_rel and cfg.rel_pose_weight > 0:
             contact = losses_3d.contact_matrix(batch.pcds, gt_q, gt_t, v, thresh=cfg.contact_thresh)
-            rel_losses = losses_3d.relative_pose_loss(*rel, gt_q, gt_t, contact, v)
+            rel_losses = losses_3d.relative_pose_loss(*rel, gt_q, gt_t, contact, v, group=self.stats_group)
             loss_dict.update(rel_losses)
             total = total + cfg.rel_pose_weight * sum(rel_losses.values())
         loss_dict["loss"] = total
@@ -353,15 +358,21 @@ class Diffusion3D(nn.Module):
 
     @torch.no_grad()
     def sample(self, batch: FragmentBatch, generator: torch.Generator | None = None,
-               keep_trajectory: bool = False, inference_ratio: int | None = None) -> SampleLoopResult:
+               keep_trajectory: bool = False, inference_ratio: int | None = None,
+               noise: torch.Tensor | None = None) -> SampleLoopResult:
         """The reverse process at ``inference_ratio`` (default: the config's);
-        ``batch`` holds tensors on the model's device. Returns
-        SampleLoopResult with final (B, P, 7) f32 (13 with 6-DoF)."""
+        ``batch`` holds tensors on the model's device. Rotations start at the
+        identity, translations at ``noise_weight`` × a unit normal (B, P, 3)
+        drawn from ``generator`` unless ``noise`` gives it. Returns
+        SampleLoopResult with final (B, P, 7) f32 (13 with 6-DoF) and, with
+        ``keep_trajectory``, every step's state (S, B, P, 7)."""
         cfg = self.cfg
         b, p = batch.x0.shape[:2]
         ratio = inference_ratio or cfg.inference_ratio
         dev = self.device
-        tr0 = torch.randn((b, p, 3), generator=generator, device=dev) * cfg.noise_weight
+        if noise is None:
+            noise = torch.randn((b, p, 3), generator=generator, device=dev)
+        tr0 = noise * cfg.noise_weight
         q0 = torch.tensor([1.0, 0, 0, 0], device=dev).expand(b, p, 4)
         x = torch.cat([q0, tr0], dim=-1)
         if cfg.use_6dof:

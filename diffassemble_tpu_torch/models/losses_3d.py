@@ -95,7 +95,9 @@ DEFAULT_LOSS_WEIGHTS = {
 
 def reassembly_loss_dict(pts, pred_t, gt_t, pred_q, gt_q, valids) -> dict:
     """The five terms of the reference's p_losses, batch-meaned; the caller
-    weights them (``DEFAULT_LOSS_WEIGHTS``)."""
+    weights them (``DEFAULT_LOSS_WEIGHTS``). Each is a mean over objects of a
+    per-object value, so under data-parallel training with equal slices per
+    rank the ranks' mean, which DDP takes, is the whole batch's as it is."""
     return {
         "trans_loss": trans_l2_loss(pred_t, gt_t, valids).mean(),
         "rot_pt_cd_loss": rot_points_cd_loss(pts, pred_q, gt_q, valids).mean(),
@@ -170,21 +172,34 @@ def relative_pose_targets(gt_q, gt_t):
     return r_ij, o_ij
 
 
-def relative_pose_loss(rot_raw, offset, conf, gt_q, gt_t, contact, valids) -> dict:
+def relative_pose_loss(rot_raw, offset, conf, gt_q, gt_t, contact, valids, group=None) -> dict:
     """The pairwise head's losses: the raw bilinear rotation's Frobenius
     error and the offset's L2 on contact pairs (each divided by the batch's
-    contact count), and the BCE of the contact logit over valid i ≠ j pairs.
-    The raw output is supervised, not its SO(3) projection: its gradients
-    stay finite everywhere."""
+    contact count), and the BCE of the contact logit over valid i ≠ j pairs
+    (divided by their count). The raw output is supervised, not its SO(3)
+    projection: its gradients stay finite everywhere.
+
+    With a process ``group`` (data-parallel training, each rank holding an
+    equal slice of the batch) the two counts are the whole batch's, summed
+    over the group's ranks, over the group's size: the ranks' mean of these
+    losses, which DDP takes, is then the whole batch's, as the JAX package's
+    global sums under pjit give it."""
     r_gt, o_gt = relative_pose_targets(gt_q, gt_t)
     c = contact.float()
-    denom = torch.clamp(c.sum(), min=1.0)
-    rot_l = (c * ((rot_raw - r_gt) ** 2).mean(dim=(-2, -1))).sum() / denom
-    off_l = (c * ((offset - o_gt) ** 2).sum(-1)).sum() / denom
     p = conf.shape[-1]
     eye = torch.eye(p, dtype=torch.bool, device=conf.device)
     pvf = (valids[:, :, None].bool() & valids[:, None, :].bool() & ~eye).float()
+    counts = torch.stack([c.sum(), pvf.sum()])
+    world = 1
+    if group is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(counts, group=group)
+        world = dist.get_world_size(group)
+    denom, pairs = torch.clamp(counts, min=1.0) / world
+    rot_l = (c * ((rot_raw - r_gt) ** 2).mean(dim=(-2, -1))).sum() / denom
+    off_l = (c * ((offset - o_gt) ** 2).sum(-1)).sum() / denom
     # BCE with logits, masked to the valid i ≠ j pairs
     bce = torch.clamp(conf, min=0.0) - conf * c + torch.log1p(torch.exp(-conf.abs()))
-    conf_l = (pvf * bce).sum() / torch.clamp(pvf.sum(), min=1.0)
+    conf_l = (pvf * bce).sum() / pairs
     return {"rel_rot_loss": rot_l, "rel_off_loss": off_l, "rel_conf_loss": conf_l}

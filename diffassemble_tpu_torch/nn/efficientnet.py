@@ -15,6 +15,7 @@ Symmetric k//2 padding, SE ratio 0.25 of the block input channels, SiLU.
 Submodule names follow timm's (conv_stem, bn1, blocks.{s}.{b}.{conv_pw, bn1,
 conv_dw, bn2, se_reduce, se_expand, conv_pwl, bn3}), which are also the JAX
 package's names, so ``convert.py`` maps the parameters one to one.
+``load_pretrained_features`` loads a converted timm checkpoint into it.
 """
 
 from __future__ import annotations
@@ -109,3 +110,35 @@ class EfficientNetB0Features(nn.Module):
             if s in _TAPS:
                 taps.append(x.reshape(b, -1))  # NCHW flatten, as the JAX tower does
         return torch.cat(taps, dim=-1)
+
+
+def load_pretrained_features(encoder: nn.Module, npz_path) -> None:
+    """Load converted pretrained weights (``scripts/convert_efficientnet.py``:
+    the JAX package's parameter paths joined by ``/``, BatchNorms folded into
+    ``scale``/``bias`` for the "affine" mode) into ``encoder``, in place.
+
+    Raises ValueError, before anything is loaded, when the file's leaves do
+    not cover the encoder's one for one (missing or extra leaves, named as
+    the port names them) or when a shape differs."""
+    import numpy as np
+
+    from .. import convert
+
+    tree: dict = {}
+    with np.load(npz_path) as z:
+        for key in z.files:
+            *parents, leaf = key.split("/")
+            node = tree
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = z[key]
+    loaded = {k[len("encoder."):]: v for k, v in convert.convert_params({"encoder": tree}).items()}
+    own = encoder.state_dict()
+    missing, extra = sorted(own.keys() - loaded.keys()), sorted(loaded.keys() - own.keys())
+    if missing or extra:
+        raise ValueError(f"pretrained weight structure mismatch: missing={missing[:5]} extra={extra[:5]} "
+                         f"(encoder has {len(own)} leaves, file has {len(loaded)})")
+    for key, arr in loaded.items():
+        if arr.shape != own[key].shape:
+            raise ValueError(f"shape mismatch at {key}: file {tuple(arr.shape)} vs model {tuple(own[key].shape)}")
+    encoder.load_state_dict(loaded)

@@ -5,6 +5,8 @@
 - ``Exophormer``: the transformer stack plus V learned virtual global nodes,
   appended as always-valid rows bridging every valid real node and stripped
   before output.
+- ``GCN``: two GCNConv layers over the self-looped, degree-normalised
+  adjacency (matrix products, no attention; it returns no weights).
 - ``DualStreamGraphTransformer``: equivariant/invariant split message
   passing over two feature streams through one set of weights per layer
   (``_DualConvLayer``): the equivariant stream's queries and skip attend to
@@ -106,6 +108,34 @@ class DualStreamGraphTransformer(nn.Module):
         return out if return_weights else (out, None)
 
 
+class GCN(nn.Module):
+    """Two GCNConv layers (the reference's GCN baseline): the adjacency with
+    self loops, symmetrically normalised by the degrees, times a Dense layer
+    of the nodes, ReLU between the two. Plain matrix products: no attention,
+    so it returns no weights."""
+
+    def __init__(self, in_features: int, hidden_dim: int = 256, output_size: int = 256,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.fc1 = Dense(in_features, hidden_dim, dtype=dtype)
+        self.fc2 = Dense(hidden_dim, output_size, dtype=dtype)
+        self.compute_dtype = dtype
+
+    @staticmethod
+    def norm_adj(adj: torch.Tensor) -> torch.Tensor:
+        """D^-1/2 max(A, I) D^-1/2 in f32 for (B, N, N) ``adj``, 0 where a degree is 0."""
+        a = torch.maximum(adj.float(), torch.eye(adj.shape[-1], device=adj.device)[None])
+        deg = a.sum(-1)
+        dinv = torch.where(deg > 0, 1.0 / torch.sqrt(deg), 0.0)
+        return a * dinv[:, :, None] * dinv[:, None, :]
+
+    def forward(self, x, adj, node_mask, return_weights: bool = False):
+        del node_mask  # validity already folded into adj
+        a = self.norm_adj(adj).to(self.compute_dtype)
+        x = torch.relu(a @ self.fc1(x))
+        return a @ self.fc2(x), None
+
+
 class Exophormer(nn.Module):
     def __init__(self, in_features: int, hidden_dim: int = 256, heads: int = 8,
                  output_size: int = 256, n_layers: int = 4, virt_nodes: int = 4,
@@ -136,9 +166,11 @@ def make_gnn(
     virt_nodes: int = 4,
     dtype: torch.dtype = torch.float32,
 ) -> nn.Module:
-    """Architecture switch ("transformer" or "exophormer")."""
+    """Architecture switch ("transformer", "gcn" or "exophormer")."""
     if architecture == "transformer":
         return GraphTransformer(in_features, hidden_dim, heads, output_size, n_layers, dtype)
+    if architecture == "gcn":
+        return GCN(in_features, hidden_dim, output_size, dtype)
     if architecture == "exophormer":
         return Exophormer(in_features, hidden_dim, heads, output_size, n_layers, virt_nodes, dtype)
     raise ValueError(f"unknown architecture {architecture!r}")

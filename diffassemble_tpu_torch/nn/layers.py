@@ -143,16 +143,17 @@ class BatchNorm2D(nn.Module):
         return (xf * self.weight[:, None, None] + self.bias[:, None, None]).to(x.dtype)
 
 
-def _group_moments(x: torch.Tensor, group) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-channel mean and biased variance of (N, C, H, W) ``x`` over every
-    rank's slice of the batch (each rank holds as many entries): the f32 sum,
-    then the f32 sum of squared deviations from the global mean, each summed
-    over the ranks with its gradient."""
+def _group_moments(x: torch.Tensor, group, dims: tuple[int, ...] = (0, 2, 3)) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mean and biased variance of ``x`` over ``dims`` (default: per channel
+    of (N, C, H, W)), the batch axis 0 among them, over every rank's slice of
+    the batch (each rank holds as many entries): the sum, then the sum of
+    squared deviations from the global mean, each summed over the ranks with
+    its gradient."""
     import torch.distributed as dist
 
-    count = x.numel() // x.shape[1] * dist.get_world_size(group)
-    mean = _GroupSum.apply(x.sum(dim=(0, 2, 3), keepdim=True), group) / count
-    var = _GroupSum.apply((x - mean).square().sum(dim=(0, 2, 3), keepdim=True), group) / count
+    count = math.prod(x.shape[d] for d in dims) * dist.get_world_size(group)
+    mean = _GroupSum.apply(x.sum(dim=dims, keepdim=True), group) / count
+    var = _GroupSum.apply((x - mean).square().sum(dim=dims, keepdim=True), group) / count
     return mean, var
 
 

@@ -19,6 +19,10 @@
 - ``EquivariantResNet`` (18, 34) and ``EquivariantResNet50``: 32×32 patches
   → (B, 1088), two stage taps through 544-wide ``proj3`` and ``proj4``,
   which read the (H, W, orientation, C) flattening.
+- ``PatchConvEncoder`` ("convnet", conv → GroupNorm → SiLU blocks with
+  XLA's "SAME" padding, two NHWC-flattened taps) and ``TinyPatchEncoder``
+  ("tiny", a 4×4 average-pool grid through two Dense layers): 32×32
+  patches → (B, 1088).
 - ``make_visual_encoder``: the backbone switch.
 
 ``norm_layers(encoder)`` names each OrientationNorm by its JAX path
@@ -35,7 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Dense, _group_moments
+from .layers import Conv2d, Dense, _group_moments, gelu
 
 IMAGENET_MEAN = (0.4850, 0.4560, 0.4060)
 IMAGENET_STD = (0.2290, 0.2240, 0.2250)
@@ -354,21 +358,127 @@ def EquivariantResNet34(dtype: torch.dtype = torch.float32, patch_size: int = 32
 
 EQUIVARIANT_BACKBONES = {"resnet18equiv": EquivariantResNet18, "resnet34equiv": EquivariantResNet34,
                          "resnet50equiv": EquivariantResNet50}
-BACKBONES = ("efficientnet_b0", *EQUIVARIANT_BACKBONES)
+
+
+# ------------------------------------------------------------ the light encoders
+
+
+class _SameConv(Conv2d):
+    """A bias-free k×k convolution with XLA's "SAME" padding (``_same_pad``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        k, s = self.kernel_size[0], self.stride[0]
+        return F.conv2d(_same_pad(x.to(dt), k, s), self.weight.to(dt), stride=s)
+
+
+class GroupNorm(nn.GroupNorm):
+    """The JAX package's ``GroupNorm``: eps 1e-6, statistics in f32, output in ``compute_dtype``."""
+
+    def __init__(self, num_groups: int, channels: int, dtype: torch.dtype = torch.float32):
+        super().__init__(num_groups, channels, eps=1e-6)
+        self.compute_dtype = dtype
+
+    def reference_init(self, normal) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps)
+        return y.to(self.compute_dtype)
+
+
+class ConvBlock(nn.Module):
+    """3×3 conv ("SAME", ``stride``) → GroupNorm(min(8, C) groups) → SiLU."""
+
+    def __init__(self, c_in: int, features: int, stride: int = 1, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv = _SameConv(c_in, features, 3, stride, dtype=dtype)
+        self.norm = GroupNorm(min(8, features), features, dtype)
+
+    def forward(self, x):
+        return F.silu(self.norm(self.conv(x)))
+
+
+class ResidualConvBlock(nn.Module):
+    """ConvBlock → 3×3 conv → GroupNorm, added to the input (through a 1×1
+    ``shortcut`` when the width changes), then SiLU."""
+
+    def __init__(self, c_in: int, features: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.block = ConvBlock(c_in, features, dtype=dtype)
+        self.conv = _SameConv(features, features, 3, dtype=dtype)
+        self.norm = GroupNorm(min(8, features), features, dtype)
+        self.shortcut = _SameConv(c_in, features, 1, dtype=dtype) if c_in != features else None
+
+    def forward(self, x):
+        h = self.norm(self.conv(self.block(x)))
+        if self.shortcut is not None:
+            x = self.shortcut(x)
+        return F.silu(x + h)
+
+
+class PatchConvEncoder(nn.Module):
+    """"convnet": a multi-scale CNN over 32×32 patches → (B, 1088). Four
+    stride-2 ``down`` blocks, each followed by a ``res`` block, at widths
+    (32, 24, 40, 112); taps after the third (40 × 4×4 → 640) and the fourth
+    (112 × 2×2 → 448), each flattened in the JAX package's NHWC order."""
+
+    def __init__(self, width=(32, 24, 40, 112), dtype: torch.dtype = torch.float32):
+        super().__init__()
+        widths = (3, *width)
+        self.down = nn.ModuleList(ConvBlock(widths[i], widths[i + 1], 2, dtype) for i in range(4))
+        self.res = nn.ModuleList(ResidualConvBlock(w, w, dtype) for w in width)
+        self.feature_dim = width[2] * 16 + width[3] * 4
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) patches in [0, 1] → (B, 1088)."""
+        x = normalize_patches(x).permute(0, 3, 1, 2)
+        taps = []
+        for i, (down, res) in enumerate(zip(self.down, self.res)):
+            x = res(down(x))
+            if i >= 2:
+                taps.append(_flatten_nhwc(x))
+        return torch.cat(taps, dim=-1)
+
+
+class TinyPatchEncoder(nn.Module):
+    """"tiny": the mean of each cell of a 4×4 grid over the normalized patch
+    (NHWC order, 48 values) → Dense(128) → GELU (tanh) → Dense(1088). For fast
+    tests and dry runs, with the real encoders' output width."""
+
+    def __init__(self, dtype: torch.dtype = torch.float32, feature_dim: int = FEATURE_DIM):
+        super().__init__()
+        self.fc1 = Dense(48, 128, dtype=dtype)
+        self.fc2 = Dense(128, feature_dim, dtype=dtype)
+        self.feature_dim = feature_dim
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) patches in [0, 1] → (B, feature_dim)."""
+        x = normalize_patches(x)
+        b, h, w, c = x.shape
+        x = x.reshape(b, 4, h // 4, 4, w // 4, c).mean(dim=(2, 4)).reshape(b, -1)
+        return self.fc2(gelu(self.fc1(x)))
+
+
+BACKBONES = ("efficientnet_b0", "convnet", "tiny", *EQUIVARIANT_BACKBONES)
 
 
 def make_visual_encoder(name: str, dtype: torch.dtype = torch.float32, pretrained: bool = False) -> nn.Module:
     """The backbone switch: "efficientnet_b0" (its BatchNorms folded affine
-    with ``pretrained``, batch statistics otherwise) or an equivariant ResNet.
-    "tiny" and "convnet" are not ported (ROADMAP Queue 1 item 6)."""
+    with ``pretrained``, batch statistics otherwise), "convnet", "tiny" or an
+    equivariant ResNet."""
     if name == "efficientnet_b0":
         from .efficientnet import EfficientNetB0Features
 
         return EfficientNetB0Features(bn_mode="affine" if pretrained else "batch", dtype=dtype)
+    if name == "convnet":
+        return PatchConvEncoder(dtype=dtype)
+    if name == "tiny":
+        return TinyPatchEncoder(dtype=dtype)
     if name in EQUIVARIANT_BACKBONES:
         return EQUIVARIANT_BACKBONES[name](dtype=dtype)
-    if name in ("tiny", "convnet"):
-        raise NotImplementedError(f"backbone {name!r} is not ported yet: ROADMAP Queue 1 item 6")
     raise ValueError(f"unknown visual backbone {name!r}")
 
 

@@ -17,7 +17,7 @@ from torch import nn
 
 from ..ops.knn import knn_indices
 from ..ops.so3 import f32_matmuls
-from .layers import Dense
+from .layers import Dense, _group_moments
 
 _EPS = 1e-6
 
@@ -71,7 +71,14 @@ class VNNorm(nn.Module):
     """Stateless stand-in for VNBatchNorm: per-channel vector norms
     standardized over the point axes (``point_axes`` of the (..., C, 3)
     input), the gain soft-bounded at 16, each vector rescaled with its
-    direction kept."""
+    direction kept.
+
+    As in the JAX package, each point axis is shifted by one for the norms'
+    kept axis, so the statistics run over the axis before each one named:
+    (-3,) on (B, N, C, 3) is the batch axis, (-4, -3) on (B, N, k, C, 3) the
+    batch and point axes. While ``stats_group`` holds a process group
+    (``parallel.mesh.global_statistics``), statistics that span the batch
+    axis span the group's ranks, as XLA's are over a dp-sharded batch."""
 
     def __init__(self, channels: int, point_axes: tuple = (-3,), epsilon: float = 1e-5):
         super().__init__()
@@ -79,6 +86,7 @@ class VNNorm(nn.Module):
         self.epsilon = epsilon
         self.weight = nn.Parameter(torch.ones(channels))  # the JAX package's ``scale``
         self.bias = nn.Parameter(torch.zeros(channels))
+        self.stats_group = None
 
     def reference_init(self, normal) -> None:
         del normal
@@ -89,8 +97,12 @@ class VNNorm(nn.Module):
         dt = x.dtype
         norm = torch.sqrt(_sum(x * x, -1, keepdim=True) + _EPS**2)
         axes = tuple(a - 1 for a in self.point_axes)  # the keepdim axis
-        mu = _mean(norm, axes, keepdim=True)
-        var = norm.float().var(dim=axes, unbiased=False, keepdim=True).to(dt)
+        dims = tuple(a % norm.ndim for a in axes)
+        if self.stats_group is not None and 0 in dims:
+            mu, var = (m.to(dt) for m in _group_moments(norm.float(), self.stats_group, dims))
+        else:
+            mu = _mean(norm, axes, keepdim=True)
+            var = norm.float().var(dim=axes, unbiased=False, keepdim=True).to(dt)
         std = (norm - mu) * torch.reciprocal(torch.sqrt(var + self.epsilon))
         std = 16.0 * torch.tanh(std / 16.0)
         target = std * self.weight[:, None].to(dt) + self.bias[:, None].to(dt)

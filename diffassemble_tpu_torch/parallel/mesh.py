@@ -7,9 +7,12 @@ XLA insert the gradient all-reduce. Here each of the run's processes
 slice of the global batch (``shard_batch``) and the model runs under
 ``DistributedDataParallel`` (``data_parallel_loss``). What GSPMD makes global
 over a sharded batch is made global here by hand: the loss's random draws are
-drawn for the whole batch and sliced, "batch"-mode BatchNorm takes its
-statistics over every rank's patches, and the loss's masked means divide by
-the whole batch's valid nodes (``global_statistics``). The tensor-parallel
+drawn for the whole batch and sliced, "batch"-mode BatchNorm and
+OrientationNorm take their statistics over every rank's patches, the 3D
+encoders' VNNorm statistics that span the batch axis over every rank's
+parts, the 2D loss's masked means divide by the whole batch's valid nodes
+and the 3D relative-pose losses by its contact and pair counts
+(``global_statistics``). The tensor-parallel
 'tp' axis is not ported (ROADMAP Queue 1 item 16).
 """
 
@@ -80,9 +83,9 @@ def param_sharding_rules(mesh: Mesh, params):
 
 @contextlib.contextmanager
 def global_statistics(model: torch.nn.Module, group):
-    """Within, the model's "batch"-mode BatchNorm statistics and its loss's
-    masked means span ``group``'s ranks (every module with a
-    ``stats_group`` attribute)."""
+    """Within, the model's batch statistics (BatchNorm, OrientationNorm,
+    VNNorm) and its loss's batch-wide counts span ``group``'s ranks (every
+    module with a ``stats_group`` attribute)."""
     holders = [m for m in model.modules() if hasattr(m, "stats_group")]
     for m in holders:
         m.stats_group = group

@@ -23,7 +23,10 @@ batch on its own device, which gives the single-process metrics, while the
 other ranks go on to the next step and wait for it there. The ranks agree on
 every stop (preemption, deadline) before acting on it.
 
-Not ported: reconstruction images (``_save_viz``, ROADMAP Queue 1 item 11).
+Each evaluation draws its first batch's first ``viz_every_eval`` samples
+under ``<run_dir>/viz`` (``_save_viz``): a reconstruction image per puzzle
+(a PNG, or ``.npy`` pixels where PIL is missing), a ``.ply`` of the posed
+parts per 3D object; a drawing that fails is printed and training goes on.
 """
 
 from __future__ import annotations
@@ -169,6 +172,7 @@ class Trainer:
         deadline_margin: float | None = None,
         calibrate_eval: bool = True,
         calibrate_batches: int = 4,
+        viz_every_eval: int = 2,
     ):
         self.model = model
         self.device = model.device
@@ -195,6 +199,7 @@ class Trainer:
         self.dead_grad_patience = dead_grad_patience
         self.calibrate_eval = calibrate_eval
         self.calibrate_batches = calibrate_batches
+        self.viz_every_eval = viz_every_eval
 
     # the optimizer and the train step are made when first used, so that an
     # evaluation needs neither
@@ -349,6 +354,8 @@ class Trainer:
                     final = self.model.sample(db, gen).final
                     bm = {k: v.cpu().numpy() for k, v in self.model.metrics_from_final(final, db).items()}
                     self.adapter.fold_metrics(agg, bm, nb)
+                    if bi == 0 and self.viz_every_eval:
+                        self._save_viz(nb, final.cpu().numpy(), tag, step)
             finally:
                 # training must never see frozen statistics
                 if hasattr(self.model, "norm_stats"):
@@ -356,3 +363,28 @@ class Trainer:
         metrics = agg.compute()
         self._log(step, {f"{tag}/{k}": v for k, v in metrics.items()})
         return metrics
+
+    def _save_viz(self, nb, final: np.ndarray, tag: str, step: int) -> None:
+        """The first ``viz_every_eval`` samples of host batch ``nb`` with their
+        predicted poses ``final`` under ``<run_dir>/viz`` as
+        ``<tag>_step<step>_p<i>``: ``save_reconstruction`` for puzzles, a
+        ``.ply`` of the posed valid parts for 3D fragments."""
+        from ..utils.viz import export_fragments_ply, save_reconstruction
+
+        out = self.run_dir / "viz"
+        try:
+            if hasattr(nb, "patches"):
+                rot = final.shape[-1] >= 4 and getattr(self.model.cfg, "rotation", False)
+                for i in range(min(self.viz_every_eval, final.shape[0])):
+                    vm = np.asarray(nb.node_mask[i])
+                    x0 = np.asarray(nb.x0[i])
+                    save_reconstruction(out / f"{tag}_step{step}_p{i}.png", np.asarray(nb.patches[i])[vm],
+                                        final[i][vm, :2], x0[vm, :2], tuple(np.asarray(nb.patches_dim[i])),
+                                        pred_rot=final[i][vm, 2:4] if rot else None,
+                                        gt_rot=x0[vm, 2:4] if rot else None)
+            elif hasattr(nb, "pcds"):
+                for i in range(min(self.viz_every_eval, final.shape[0])):
+                    export_fragments_ply(out / f"{tag}_step{step}_p{i}.ply", np.asarray(nb.pcds[i]),
+                                         final[i][:, 4:7], final[i][:, :4], np.asarray(nb.node_mask[i]))
+        except Exception as e:  # a drawing must never stop a training run
+            print(f"viz skipped: {e}", flush=True)

@@ -168,9 +168,7 @@ def test_small_model_samples_three_steps_as_the_jax_package(monkeypatch):
 def test_training_entry_points_raise_naming_the_roadmap_item():
     """Nothing of the 3D model names a ROADMAP item any more: split
     equivariant/invariant message passing builds, on the VN encoders alone,
-    as in the JAX package; DDPM sampling raises as the JAX package's does
-    (the CLI's raises for items 11 and 19:
-    ``test_run_3d_refuses_training_and_mesh_export``)."""
+    as in the JAX package; DDPM sampling raises as the JAX package's does."""
     model = Diffusion3D(Diffusion3DConfig(**{**SMALL, "equiv_inv_mp": True}), device="cpu")
     assert model.denoiser.equiv_inv_mp and model.denoiser.equiv_dim == model.equiv_dim == 1536
     with pytest.raises(ValueError, match="vn_dgcnn"):
@@ -343,17 +341,33 @@ def test_run_3d_takes_the_ema_of_the_latest_checkpoint_or_an_explicit_checkpoint
     assert latest["rmse_t_AVG"][0] != explicit["rmse_t_AVG"][0]
 
 
-def test_run_3d_refuses_training_and_mesh_export(tmp_path):
-    """Training over more than one device (item 19) and the mesh export
-    (item 11) raise before anything is built; one device trains
-    (``tests/test_torch_3d_cli.py``), and several evaluate."""
-    with pytest.raises(NotImplementedError, match="item 19"):
-        train_3d.run_3d(_args(tmp_path, "--gpus", "2"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        train_3d.run_3d(_args(tmp_path, "--evaluate", "true", "--export_meshes"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        train_3d.run_3d(_args(tmp_path, "--export_meshes"))
-    assert not (tmp_path / "checkpoints").exists()
+def test_run_3d_refuses_training_and_mesh_export(tmp_path, capsys):
+    """Nothing is refused any more. ``--gpus 2`` in a single process trains
+    on its one device and says so (several processes: the 3D dryrun,
+    ``tests/test_torch_3d_parallel.py``); ``--evaluate true --export_meshes``
+    writes each of the first 4 held-out objects' trajectory (a ``.ply`` a
+    step and the ``_traj.npz``), whose last step is, bit for bit, the
+    model's own sample; as in the JAX CLI, the flag without ``--evaluate``
+    trains and exports nothing."""
+    train_3d.run_3d(_args(tmp_path / "gpus", "--gpus", "2", "--export_meshes", "--max_steps", "1", "--n_layers",
+                          "1", "--train_n", "2", "--test_n", "2"))
+    assert "--gpus 2: this run has 1 process(es)" in capsys.readouterr().out
+    assert (tmp_path / "gpus" / "checkpoints" / "1" / "state.pt").is_file()
+    assert not (tmp_path / "gpus" / "meshes").exists()
+
+    _, params, _ = _small_models(seed=5)
+    run, tm = _port_run(tmp_path, params)
+    train_3d.run_3d(_args(run, "--evaluate", "true", "--export_meshes"))
+    meshes = run / "meshes"
+    assert sorted(p.name for p in meshes.iterdir()) == sorted(
+        [f"obj{b}_traj.npz" for b in range(4)] + [f"obj{b}_step{s:03d}.ply" for b in range(4) for s in range(3)])
+    _, test_ds, _ = tbb.get_dataset_3d("synthetic", **DATA)
+    nb = tbb.collate_fragments([test_ds[i] for i in range(4)], SMALL["max_num_part"])
+    final = tm.sample(nb.to("cpu"), torch.Generator().manual_seed(1)).final.numpy()
+    for b in range(4):
+        with np.load(meshes / f"obj{b}_traj.npz") as z:
+            assert z["trajectory"].shape == (3, 4, 7) and np.array_equal(z["trajectory"][-1], final[b])
+            assert np.array_equal(z["pcds"], nb.pcds[b]) and np.array_equal(z["valids"], nb.node_mask[b])
 
 
 def test_fragment_adapter_and_metrics_match_the_jax_trainer():

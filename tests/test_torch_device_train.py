@@ -220,15 +220,21 @@ def test_profiling_hooks(tmp_path):
 
 
 def test_save_reconstruction_needs_pil_and_says_so(tmp_path, monkeypatch):
+    """A PNG through PIL; where PIL is missing (as on the card) no PNG and
+    no error, but the same pixels as ``<path>.npy``, as the JAX package
+    falls back (``tests/test_torch_viz_cli.py`` holds the bytes to its)."""
     rng = np.random.default_rng(0)
     patches = rng.integers(0, 255, (4, 8, 8, 3), dtype=np.uint8)
     grid = np.array([[-1, -1], [1, -1], [-1, 1], [1, 1]], np.float32)
     viz.save_reconstruction(tmp_path / "a.png", patches, grid, grid, (2, 2))
     assert (tmp_path / "a.png").read_bytes()[:4] == b"\x89PNG"
+    from PIL import Image
+
+    png = np.asarray(Image.open(tmp_path / "a.png"))
     monkeypatch.setitem(sys.modules, "PIL", None)  # PIL missing
-    with pytest.raises(ImportError):
-        viz.save_reconstruction(tmp_path / "b.png", patches, grid, grid, (2, 2))
+    viz.save_reconstruction(tmp_path / "b.png", patches, grid, grid, (2, 2))
     assert not (tmp_path / "b.png").exists()
+    assert np.array_equal(np.load(tmp_path / "b.png.npy"), png)
 
 
 def test_recipe_cli_trains_evaluates_and_resumes(tmp_path, monkeypatch):

@@ -76,15 +76,17 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                                     "nn.relpose", "models.diffusion_3d", "models.losses_3d", "train.heldout3d",
                                     "cli.train_3d", "nn.gnn", "nn.correspondence", "models.refine3d", "convert",
                                     "nn.visual", "models.diffusion_2d_discrete", "models.diffusion_2d_angle",
-                                    "train.heldout", "cli.serve"])
+                                    "train.heldout", "cli.serve", "cli.evaluate", "cli.preprocess",
+                                    "cli.train_2d_missing", "nn.efficientnet", "data.datasets"])
 def test_training_path_modules_import_alone_without_jax_or_pil(module):
     """Each module of the device-resident training path, of data-parallel
     training and of the 3D paths (the point encoders, split message passing,
     the refinement, the correspondence head and the readers of the 3D
     assets: ``train.heldout3d`` and ``convert``), imported alone in a fresh
     process, loads nothing of JAX, its relatives, PIL, trimesh or the JAX
-    package (``utils.viz`` imports PIL when it draws, never at import; the
-    real Breaking-Bad loader imports trimesh when it reads a mesh)."""
+    package (``utils.viz`` imports PIL when it draws, ``data.datasets`` when
+    it opens an image folder or resizes, never at import; the real
+    Breaking-Bad loader imports trimesh when it reads a mesh)."""
     child = _REFUSE + textwrap.dedent(
         f"""
         importlib.import_module("diffassemble_tpu_torch.{module}")

@@ -220,12 +220,32 @@ def test_datasets_identical(kw, deterministic_eigsh):
             assert np.array_equal(x, y)
 
 
-def test_image_folders_and_resizing_need_pil_and_say_so():
-    with pytest.raises(NotImplementedError, match="PIL"):
-        tdatasets.get_dataset("celeba", puzzle_sizes=[3])
-    train, _, _ = tdatasets.get_dataset("synthetic", puzzle_sizes=[3, (2, 4)], train_n=4, seed=5)
-    with pytest.raises(NotImplementedError, match="PIL"):
-        [train[i] for i in range(len(train))]  # a 2×4 puzzle cut from a 4×4 image needs a resize
+class _RefusePIL:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] == "PIL":
+            raise ImportError(f"the test refused {name}")
+        return None
+
+
+def test_image_folders_and_resizing_need_pil_and_say_so(monkeypatch):
+    """Where PIL is missing (as on the card), an image folder raises PIL's
+    ImportError in both packages, and a resize falls back to
+    nearest-neighbour indexing: a 2×4 puzzle cut from a 4×4 image is the JAX
+    package's byte for byte (with PIL: ``tests/test_torch_viz_cli.py``)."""
+    for name in [m for m in sys.modules if m.split(".")[0] == "PIL"]:
+        monkeypatch.delitem(sys.modules, name)
+    monkeypatch.setattr(sys, "meta_path", [_RefusePIL(), *sys.meta_path])
+    for pkg in (tdatasets, jdatasets):
+        with pytest.raises(ImportError, match="PIL"):
+            pkg.get_dataset("celeba", puzzle_sizes=[3])
+    kw = dict(puzzle_sizes=[3, (2, 4)], train_n=4, seed=5)
+    (train, _, _), (jtrain, _, _) = tdatasets.get_dataset("synthetic", **kw), jdatasets.get_dataset("synthetic", **kw)
+    shapes = set()
+    for i in range(len(train)):
+        a, b = train[i], jtrain[i]
+        assert a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+        shapes.add(tuple(a["patches_dim"]))
+    assert (2, 4) in shapes
 
 
 def _cli(*args, cwd):
@@ -252,25 +272,23 @@ def test_cli_trains_three_steps_then_evaluates_on_the_cpu(tmp_path, capsys, monk
 @pytest.mark.parametrize("backbone, item", [("tiny", 6), ("convnet", 6), ("resnet18equiv", 13),
                                             ("resnet34equiv", 13), ("resnet50equiv", 13)])
 def test_cli_refusal_names_the_backbones_roadmap_item(backbone, item):
-    """The light encoders are still refused, naming item 6; item 13's
-    equivariant ResNets are ported and build with their encoder."""
+    """No backbone is refused any more: item 6's light encoders and item
+    13's equivariant ResNets build with their encoder."""
+    from diffassemble_tpu_torch.nn.visual import EQUIVARIANT_BACKBONES, PatchConvEncoder, TinyPatchEncoder
+
     ap = argparse.ArgumentParser()
     common.add_2d_args(ap)
     args = ap.parse_args(["--device", "cpu", "--backbone", backbone, "--n_layers", "1"])
-    if item == 6:
-        with pytest.raises(NotImplementedError, match=rf"{backbone}.*ROADMAP Queue 1 item {item}$"):
-            common.build_2d_model(args)
-    else:
-        from diffassemble_tpu_torch.nn.visual import EQUIVARIANT_BACKBONES
-
-        model = common.build_2d_model(args)
-        assert model.cfg.backbone == backbone
-        assert type(model.encoder) is type(EQUIVARIANT_BACKBONES[backbone]())
+    model = common.build_2d_model(args)
+    assert model.cfg.backbone == backbone
+    want = {"tiny": TinyPatchEncoder, "convnet": PatchConvEncoder}.get(backbone) or \
+        type(EQUIVARIANT_BACKBONES.get(backbone, TinyPatchEncoder)())
+    assert type(model.encoder) is want
 
 
 def test_cli_builds_the_flagship_and_refuses_what_is_not_ported():
-    """The rotation CLI's defaults (resnet18equiv) and ``--discrete`` build;
-    a light encoder is refused."""
+    """The rotation CLI's defaults (resnet18equiv), a light encoder and
+    ``--discrete`` build; a backbone of no encoder is refused."""
     from diffassemble_tpu_torch.models import DiscreteDiffusion2D, DiscreteDiffusion2DRot
 
     ap = argparse.ArgumentParser()
@@ -279,8 +297,9 @@ def test_cli_builds_the_flagship_and_refuses_what_is_not_ported():
                     architecture="exophormer")
     args = ap.parse_args(["--device", "cpu", "--n_layers", "1"])
     assert common.build_2d_model(args).cfg.backbone == "resnet18equiv"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        common.build_2d_model(ap.parse_args(["--device", "cpu", "--backbone", "tiny"]))
+    assert common.build_2d_model(ap.parse_args(["--device", "cpu", "--backbone", "tiny"])).cfg.backbone == "tiny"
+    with pytest.raises(ValueError, match="resnet101"):
+        common.build_2d_model(ap.parse_args(["--device", "cpu", "--backbone", "resnet101"]))
     rot = common.build_2d_model(ap.parse_args(["--device", "cpu", "--backbone", "efficientnet_b0", "--n_layers", "1",
                                                "--discrete", "true", "-puzzle_sizes", "3"]))
     assert type(rot) is DiscreteDiffusion2DRot and rot.cfg.n_classes == 9
