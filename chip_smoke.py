@@ -188,16 +188,22 @@ Phases, each ending in a line with the elapsed seconds:
    file (the encoder subtree of ``weights/efficientnet_b0_pose30hf.npz``);
    after ``init`` the encoder equals the file, and a patch's bf16 features
    agree within 1/64 of the largest in batches of 4 and 16 (the BatchNorms
-   folded affine); then 2 steps through ``train_2d_rot --visual_pretrained
-   true``;
+   folded affine); its seeded f32 loss on the card held to the CPU's; then
+   2 steps through ``train_2d_rot --visual_pretrained true``;
 19. ``cli/train_2d_missing.py`` (``--missing 20``) with the flagship's
-   flags: 2 steps after its sanity evaluation, every puzzle with 720 valid
-   pieces of 900;
+   flags: its seeded f32 loss on 6×6 puzzles with 28 valid pieces of 36
+   held on the card to the CPU's, then 2 steps after its sanity
+   evaluation, every puzzle with 720 valid pieces of 900;
 20. ``cli/evaluate.py`` on the trained flagship and ``diffusion2d_rot_ms``
-   written as runs of the port: one batch of 4 each, 120 forward launches on
-   the tensor cores; rot_ms's OrientationNorm statistics calibrated over 2
-   training batches into ``norm_stats.npz`` and its 120 step images (``.npy``
-   where PIL is missing) counted;
+   written as runs of the port, in four calls of one batch of 4, each 120
+   forward launches on the tensor cores and a sample bit-equal to the
+   asset's weights sampled apart from the run: the flagship on
+   ``get_dataset``'s default images and on its recipe's (piece_acc at least
+   EVAL_CLI_MIN_ACC); rot_ms at 6×6 with its OrientationNorm statistics
+   calibrated over 2 training batches into ``norm_stats.npz`` (equal to a
+   calibration apart) and its 120 step images (``.npy`` where PIL is
+   missing) counted, then at its protocol's sizes (piece_acc at least
+   EVAL_CLI_MIN_ACC, and within PIECE_ACC_TOL of the CPU's in f32);
 21. ``run_3d --evaluate --export_meshes`` on the trained
    ``diffusion3d_easy`` cut to 4 objects: 120 ``.ply`` and 4 ``_traj.npz``,
    each trajectory's last step bit-equal to a ``sample`` without one; then
@@ -449,6 +455,9 @@ LOSS_CPU_OBJECTS = 2  # objects of the first batch in the f32 card-vs-CPU loss c
 # features and missing pieces: 2 steps, and for the light encoders a resume to step 3
 LIGHT_STEPS, LIGHT_RESUME_TO = 2, 3
 MISSING_PERC = 20  # cli/train_2d_missing.py's default
+# phase 20: the least piece_acc of cli/evaluate.py's batch of 4 on puzzles made as the checkpoint's
+# training made them (the flagship on its recipe's images, rot_ms at its protocol's sizes)
+EVAL_CLI_MIN_ACC = 0.95
 
 _T0 = time.perf_counter()
 
@@ -895,9 +904,11 @@ def flagship_config():
     return Diffusion2DConfig(**json.loads(CONFIG.read_text()))
 
 
-def seeded_puzzles(n: int, count: int, rotation: bool, rng, degree=None):
+def seeded_puzzles(n: int, count: int, rotation: bool, rng, degree=None, missing_perc: int = 0):
     """``count`` n×n puzzles of seeded random images, collated; with a
-    ``degree`` the piece graph is that expander, else fully connected."""
+    ``degree`` the piece graph is that expander, else fully connected. With
+    ``missing_perc`` each puzzle loses ⌈n²·missing_perc/100⌉ random pieces,
+    as ``PuzzleDataset`` drops them, and is padded back to n² nodes."""
     import numpy as np
 
     from diffassemble_tpu_torch.data import collate_puzzles, expander_mask, make_puzzle
@@ -905,8 +916,11 @@ def seeded_puzzles(n: int, count: int, rotation: bool, rng, degree=None):
     samples = []
     for _ in range(count):
         s = make_puzzle(rng.random((n * 32, n * 32, 3)).astype(np.float32), n, n, 32, rotation=rotation, rng=rng)
+        if missing_perc:
+            keep = np.sort(rng.permutation(n * n)[: n * n - math.ceil(n * n * missing_perc / 100)])
+            s.update({k: s[k][keep] for k in ("patches", "x0", "grid", "rot_k")})
         if degree is not None:
-            s["adj"] = expander_mask(n * n, degree, rng)
+            s["adj"] = expander_mask(len(s["x0"]), degree, rng)
         samples.append(s)
     return collate_puzzles(samples, n * n)
 
@@ -3200,10 +3214,12 @@ def _train_argv(run_dir: Path, *flags: str) -> list[str]:
     return [*TRAIN_FLAGS, *flags, "--run_dir", str(run_dir)]
 
 
-def _seeded_loss_2d(label: str, **cfg_changes) -> dict[str, float]:
+def _seeded_loss_2d(label: str, missing_perc: int = 0, **cfg_changes) -> dict[str, float]:
     """``card_vs_cpu_loss_2d`` of the flagship's config in f32 with
-    ``cfg_changes`` and seeded weights, on two 6×6 puzzles over the 60%
-    expander with numpy draws of t and the noise."""
+    ``cfg_changes`` and seeded weights (then, with ``visual_pretrained``,
+    the features npz loaded by ``init``), on two 6×6 puzzles over the 60%
+    expander, each without ``missing_perc``% of its pieces, with numpy draws
+    of t and the noise."""
     import dataclasses
 
     import numpy as np
@@ -3212,9 +3228,19 @@ def _seeded_loss_2d(label: str, **cfg_changes) -> dict[str, float]:
 
     cfg = dataclasses.replace(flagship_config(), compute_dtype="float32", encoder_init="", **cfg_changes)
     rng = np.random.default_rng(LOSS3D_SEED)
-    host = seeded_puzzles(6, 2, cfg.rotation, rng, degree="60%")
+    host = seeded_puzzles(6, 2, cfg.rotation, rng, degree="60%", missing_perc=missing_perc)
+    valid = host.node_mask.sum(axis=1).tolist()
+    if valid != [36 - math.ceil(36 * missing_perc / 100)] * 2:
+        raise AssertionError(f"{label}: valid pieces per puzzle {valid}")
     draws = {"t_graph": rng.integers(0, cfg.steps, 2), "noise": rng.standard_normal(host.x0.shape, dtype=np.float32)}
-    return card_vs_cpu_loss_2d(lambda device: Diffusion2D(cfg, device=device, seed=0), host, draws, label)
+
+    def make_model(device):
+        model = Diffusion2D(cfg, device=device, seed=0)
+        if cfg.visual_pretrained:
+            model.init(0)
+        return model
+
+    return card_vs_cpu_loss_2d(make_model, host, draws, f"{label} ({valid[0]} valid pieces of 36)")
 
 
 def _run_2d_phase(label: str, argvs: list[list[str]], launches: int, cli=None) -> tuple[dict, dict, dict]:
@@ -3294,7 +3320,8 @@ def pretrained_features(workdir: Path, baseline: dict) -> tuple[dict, dict, dict
     of ``weights/efficientnet_b0_pose30hf.npz``, keys without ``encoder/``).
     The model's ``init`` loads it: the encoder equals the file; with the
     BatchNorms folded affine a patch's features are the same, within bf16
-    rounding (1/64 of the largest feature), in batches of 4 and of 16. Then
+    rounding (1/64 of the largest feature), in batches of 4 and of 16. Its
+    seeded f32 loss on the card is held to the CPU's. Then
     ``train_2d_rot --visual_pretrained true`` for 2 steps (4 + 4 + 4
     tensor-core launches each)."""
     import dataclasses
@@ -3326,9 +3353,10 @@ def pretrained_features(workdir: Path, baseline: dict) -> tuple[dict, dict, dict
     phase(f"pretrained features: the encoder equals {npz.name} after init ({len(got)} tensors); a patch's bf16 "
           f"features in batches of 4 and 16: max|d| {err:.3e} of max {scale:.3e} (gate 1/64 of it)")
     del model
+    loss = _seeded_loss_2d("pretrained loss", visual_pretrained=True, visual_weights=str(npz))
     argv = _train_argv(workdir / "pretrained", "--visual_pretrained", "true", "--visual_weights", str(npz))
     counts, routes, result = _run_2d_phase("pretrained", [argv + ["-max_steps", str(LIGHT_STEPS)]], 4)
-    result["batch_4_vs_16_max_abs"] = err
+    result.update(batch_4_vs_16_max_abs=err, loss_f32_card=loss)
     _beside_phase_6(f"pretrained training ({len(result['steps'])} steps, launches {counts})", result, baseline)
     return counts, routes, result
 
@@ -3337,9 +3365,12 @@ def missing_pieces(workdir: Path) -> tuple[dict, dict, dict]:
     """Phase 19, the eighteenth main path: ``cli/train_2d_missing.py`` at its
     default ``--missing 20`` with the flagship's flags (rotation, x₀, the
     exophormer with 8 virtual nodes) for 2 steps after its sanity
-    evaluation: every puzzle of every step has 720 valid pieces of 900."""
+    evaluation: every puzzle of every step has 720 valid pieces of 900.
+    First its seeded f32 loss on 6×6 puzzles with 28 valid pieces of 36 (the
+    other 8 padded and masked out) is held on the card to the CPU's."""
     from diffassemble_tpu_torch.cli import train_2d_missing
 
+    loss = _seeded_loss_2d("missing loss", missing_perc=MISSING_PERC)
     argv = _train_argv(workdir / "missing", "--rotation", "true", "--predict_xstart", "true", "--architecture",
                        "exophormer", "--virt_nodes", "8", "-max_steps", str(LIGHT_STEPS))
     counts, routes, result = _run_2d_phase("missing", [argv], 4, train_2d_missing)
@@ -3348,14 +3379,14 @@ def missing_pieces(workdir: Path) -> tuple[dict, dict, dict]:
         raise AssertionError(f"missing pieces: valid pieces per puzzle {valid}")
     metrics = [json.loads(line) for line in (workdir / "missing" / "metrics.jsonl").read_text().splitlines()]
     sanity = [m["sanity/overall__piece_acc"] for m in metrics if "sanity/overall__piece_acc" in m]
-    result.update(valid_pieces=valid, sanity_piece_acc=sanity)
+    result.update(valid_pieces=valid, sanity_piece_acc=sanity, loss_f32_card=loss)
     phase(f"missing pieces: {len(result['steps'])} steps of puzzles with {valid} valid pieces of 900, launches "
           f"{counts}, sanity piece_acc {sanity}, steady s/step {_spread(result['steady_host_s'])}")
     return counts, routes, result
 
 
-def _port_run_2d(run_dir: Path, model, cfg, step: int) -> None:
-    """A trained 2D model written as a run of the port: config.json and a checkpoint at ``step``."""
+def _port_run_2d(run_dir: Path, model, cfg, step: int, device: str = "cuda") -> None:
+    """A trained 2D model written as a run of the port for ``device``: config.json and a checkpoint at ``step``."""
     import torch
 
     from diffassemble_tpu_torch.train.checkpoint import CheckpointManager
@@ -3363,19 +3394,61 @@ def _port_run_2d(run_dir: Path, model, cfg, step: int) -> None:
 
     ckpt = CheckpointManager(run_dir / "checkpoints")
     ckpt.save_config(cfg)
-    ckpt.save(step, TrainState(dict(model.named_parameters()), {}, step, torch.Generator(device="cuda").manual_seed(0)))
+    ckpt.save(step, TrainState(dict(model.named_parameters()), {}, step, torch.Generator(device=device).manual_seed(0)))
+
+
+def _evaluate_again(model, sizes: list[int], batch_size: int, calibrate: int = 0, **knobs):
+    """What ``cli/evaluate.py`` computes for its first batch at seed 0, built
+    anew from ``model`` (the asset's weights, loaded without the run's
+    checkpoint): the ``get_dataset`` test batch of ``sizes`` with the image
+    ``knobs``, OrientationNorm statistics calibrated over ``calibrate``
+    training batches, the sample from a card generator seeded 0. Returns
+    (the final poses on the host, the statistics or None)."""
+    import numpy as np
+    import torch
+
+    from diffassemble_tpu_torch.data import PuzzleBatch, collate_puzzles
+    from diffassemble_tpu_torch.data.datasets import get_dataset
+
+    train_ds, test_ds, _ = get_dataset("synthetic", puzzle_sizes=sizes, rotation=model.cfg.rotation, seed=0, **knobs)
+    stats = None
+    if calibrate:
+        calib = []
+        for bi in range(calibrate):
+            nb = collate_puzzles([train_ds[i % len(train_ds)] for i in range(bi * batch_size, (bi + 1) * batch_size)],
+                                 train_ds.max_nodes)
+            calib.append((nb.patches.astype(np.float32) / 255.0).reshape(-1, *nb.patches.shape[2:]))
+        stats = model.calibrate_norm_stats(calib)
+    batch = PuzzleBatch(*collate_puzzles([test_ds[i] for i in range(batch_size)], test_ds.max_nodes)).to("cuda")
+    with torch.no_grad():
+        final = model.sample(batch, torch.Generator(device="cuda").manual_seed(0)).final
+    return final.cpu(), stats
 
 
 def evaluate_cli(workdir: Path) -> dict[str, tuple]:
     """Phase 20, the nineteenth main path: ``cli/evaluate.py`` on trained
-    checkpoints written as runs of the port. The flagship (the EMA of
-    ``weights/diffusion2d_rot30`` at step 32000): one batch of 4 synthetic
-    30×30 puzzles, fully connected, no images; 120 forward launches on the
-    tensor cores. ``diffusion2d_rot_ms`` (step 7000): 6×6, its OrientationNorm
-    statistics calibrated over 2 training batches and written as
-    ``norm_stats.npz``, one batch of 4 with every step's reconstruction saved
-    (``.npy`` where PIL is missing): 120 forward launches, 120 files.
-    Returns, by checkpoint, (launches, by route, the result)."""
+    checkpoints written as runs of the port, one batch of 4 each, 120 forward
+    launches a call, all on the tensor cores. Every call's first sample is
+    held bit for bit to ``_evaluate_again`` on the asset's weights loaded
+    apart from the run, so that a wrong checkpoint load, parameter or
+    statistic fails.
+
+    - The flagship (the EMA of ``weights/diffusion2d_rot30`` at step 32000),
+      30×30, no images: on ``get_dataset``'s default images (canonical 0.5,
+      no fine detail, as the JAX CLI makes them), ungated beyond the
+      reproduction; then on its recipe's (canonical 0.8, hf_detail 0.25,
+      ``data.json``), where its piece_acc must reach EVAL_CLI_MIN_ACC.
+    - ``diffusion2d_rot_ms`` (step 7000), 6×6: OrientationNorm statistics
+      calibrated over 2 training batches, written as ``norm_stats.npz`` and
+      equal to those calibrated apart; every step's reconstruction saved
+      (``.npy`` where PIL is missing): 120 files. Ungated beyond these: a
+      batch of 6×6 puzzles alone normalises over other patches than the
+      training batches, padded to 144 nodes. Then at its protocol's sizes
+      (6, 8, 10, 12: padded to 144 as in training) with batch statistics,
+      where its piece_acc must reach EVAL_CLI_MIN_ACC and lie within
+      PIECE_ACC_TOL of the same CLI's on this host's CPU (f32).
+
+    Returns, by call, (launches, by route, the result)."""
     import dataclasses
 
     import numpy as np
@@ -3383,51 +3456,99 @@ def evaluate_cli(workdir: Path) -> dict[str, tuple]:
 
     from diffassemble_tpu_torch import convert
     from diffassemble_tpu_torch.cli import evaluate
+    from diffassemble_tpu_torch.data import datasets
     from diffassemble_tpu_torch.models import Diffusion2D
-    from diffassemble_tpu_torch.nn.visual import norm_layers
-    from diffassemble_tpu_torch.train.heldout import load_asset
+    from diffassemble_tpu_torch.nn.visual import norm_layers, save_norm_stats
+    from diffassemble_tpu_torch.train.heldout import asset_protocol, load_asset
 
-    out = {}
     state, _ = convert.load_jax_npz(ASSET)
     cfg = dataclasses.replace(flagship_config(), encoder_init="")
-    model = Diffusion2D(cfg, device="cuda")
-    model.load_state_dict(state, strict=True)
-    _port_run_2d(workdir / "eval_rot30", model, cfg, 32000)
-    model, cfg, _, _ = load_asset("diffusion2d_rot_ms", "cuda")
-    _port_run_2d(workdir / "eval_rot_ms", model, cfg, 7000)
-    n_norms = len(norm_layers(model.encoder))
-    del model
-    runs = {"rot30": ["--puzzle_sizes", "30", "--batch_size", "4", "--n_batches", "1", "--save_images", "false"],
-            "rot_ms": ["--puzzle_sizes", "6", "--batch_size", "4", "--n_batches", "1", "--calibrate_norm", "2",
-                       "--save_images", "true"]}
-    for name, flags in runs.items():
-        run_dir = workdir / f"eval_{name}"
+    rot30 = Diffusion2D(cfg, device="cuda")
+    rot30.load_state_dict(state, strict=True)
+    _port_run_2d(workdir / "eval_rot30", rot30, cfg, 32000)
+    rot_ms, ms_cfg, _, _ = load_asset("diffusion2d_rot_ms", "cuda")
+    _port_run_2d(workdir / "eval_rot_ms", rot_ms, ms_cfg, 7000)
+    n_norms = len(norm_layers(rot_ms.encoder))
+    for m in (rot30, rot_ms):
+        m.eval()
+    recipe = json.loads(DATA.read_text())
+    knobs = {"canonical": recipe["canonical"], "hf_detail": recipe["hf_detail"]}
+    ms_sizes = asset_protocol("diffusion2d_rot_ms")[0]["hw"]
+    calls = (  # (name, run, puzzle sizes, calibration batches, save images, image knobs)
+        ("rot30", "eval_rot30", [30], 0, False, {}),
+        ("rot30_recipe_images", "eval_rot30", [30], 0, False, knobs),
+        ("rot_ms", "eval_rot_ms", [6], 2, True, {}),
+        ("rot_ms_protocol_sizes", "eval_rot_ms", ms_sizes, 0, False, {}),
+    )
+    get_dataset = datasets.get_dataset
+    sample = Diffusion2D.sample
+    out = {}
+    for name, run, sizes, calibrate, images, knob in calls:
+        run_dir = workdir / run
+        finals = []
+
+        def spy(self, *args, **kwargs):
+            res = sample(self, *args, **kwargs)
+            finals.append(res.final.cpu())
+            return res
+
+        argv = ["--run_dir", str(run_dir), "--puzzle_sizes", *map(str, sizes), "--calibrate_norm", str(calibrate),
+                "--save_images", str(images).lower(), "--out_dir", str(workdir / f"preds_{name}"), "--batch_size", "4",
+                "--n_batches", "1"]
+        for f in run_dir.glob("norm_stats.npz"):
+            f.unlink()
         torch.cuda.synchronize()
         reset_counts()
         start = time.perf_counter()
-        metrics = evaluate.main(["--run_dir", str(run_dir), *flags, "--device", "cuda"])
+        with mock.patch.object(Diffusion2D, "sample", spy), \
+                mock.patch.object(datasets, "get_dataset", lambda *a, **k: get_dataset(*a, **{**k, **knob})):
+            metrics = evaluate.main([*argv, "--device", "cuda"])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - start
         counts, routes = read_counts(), read_routes()
+        piece_acc = metrics[0]["piece_acc"]
         if counts != {"masked_attention_fwd": 120, "masked_attention_bwd_dq": 0, "masked_attention_bwd_dkv": 0} \
-                or routes["masked_attention_fwd"]["cuda_cores"] or not all(math.isfinite(m["piece_acc"])
-                                                                            for m in metrics):
+                or routes["masked_attention_fwd"]["cuda_cores"] or len(finals) != 1 or not math.isfinite(piece_acc):
             raise AssertionError(f"evaluate {name}: launches {counts}, by route {routes}, metrics {metrics}")
-        files = sorted(p.name for p in (run_dir / "preds").iterdir()) if (run_dir / "preds").exists() else []
-        result = {"metrics": metrics, "seconds": seconds, "files": len(files)}
-        if name == "rot_ms":
-            with np.load(run_dir / "norm_stats.npz") as z:
-                stats = {k: z[k] for k in z.files}
-            if len(stats) != 2 * n_norms or not all(np.isfinite(v).all() for v in stats.values()):
-                raise AssertionError(f"evaluate rot_ms: norm_stats.npz holds {len(stats)} arrays for {n_norms} layers")
+        model = rot30 if run == "eval_rot30" else rot_ms
+        again, stats = _evaluate_again(model, sizes, 4, calibrate, **knob)
+        model.norm_stats = None
+        if not torch.equal(finals[0], again):
+            raise AssertionError(f"evaluate {name}: the CLI's sample differs from the asset's own by "
+                                 f"{(finals[0] - again).abs().max().item()}")
+        preds = workdir / f"preds_{name}"
+        files = sorted(p.name for p in preds.iterdir()) if preds.exists() else []
+        result = {"metrics": metrics, "seconds": seconds, "files": len(files), "reproduced": True}
+        note = ""
+        if calibrate:
+            save_norm_stats(workdir / "norm_stats_again.npz", stats)
+            with np.load(run_dir / "norm_stats.npz") as z, np.load(workdir / "norm_stats_again.npz") as w:
+                if len(z.files) != 2 * n_norms or sorted(z.files) != sorted(w.files) or \
+                        not all(np.array_equal(z[k], w[k]) for k in z.files):
+                    raise AssertionError(f"evaluate {name}: norm_stats.npz ({len(z.files)} arrays for {n_norms} "
+                                         f"layers) differs from the statistics calibrated apart")
             if len(files) != 4 * 30 or not all(f.endswith((".png", ".png.npy")) for f in files):
-                raise AssertionError(f"evaluate rot_ms: {len(files)} images, expected 120: {files[:3]}")
-            result["norm_stats_arrays"] = len(stats)
-        elif files:
-            raise AssertionError(f"evaluate rot30 saved images: {files[:3]}")
+                raise AssertionError(f"evaluate {name}: {len(files)} images, expected 120: {files[:3]}")
+            result["norm_stats_arrays"] = 2 * n_norms
+            note = f", {len(files)} images ({files[0].split('.', 1)[1]}), norm_stats.npz equal to a calibration apart"
+        elif files and not images:
+            raise AssertionError(f"evaluate {name} saved images: {files[:3]}")
+        if name in ("rot30_recipe_images", "rot_ms_protocol_sizes") and not piece_acc >= EVAL_CLI_MIN_ACC:
+            raise AssertionError(f"evaluate {name}: piece_acc {piece_acc} below {EVAL_CLI_MIN_ACC}")
+        if name == "rot_ms_protocol_sizes":
+            cpu_run = workdir / "eval_rot_ms_cpu"
+            cpu_cfg = dataclasses.replace(ms_cfg, compute_dtype="float32")
+            cpu_model = type(rot_ms)(cpu_cfg, device="cpu")
+            cpu_model.load_state_dict({k: v.cpu() for k, v in rot_ms.state_dict().items()})
+            _port_run_2d(cpu_run, cpu_model, cpu_cfg, 7000, device="cpu")
+            host = time.perf_counter()
+            cpu = evaluate.main(["--run_dir", str(cpu_run), *argv[2:], "--device", "cpu"])[0]["piece_acc"]
+            result.update(cpu_piece_acc=cpu, cpu_seconds=time.perf_counter() - host)
+            if not abs(piece_acc - cpu) <= PIECE_ACC_TOL:
+                raise AssertionError(f"evaluate {name}: piece_acc {piece_acc} on the card, {cpu} on the CPU (f32)")
+            note = f", the CPU's (f32) {cpu!r} in {result['cpu_seconds']:.1f} s"
         phase(f"evaluate {name}: {seconds:.2f} s, piece_acc {[m['piece_acc'] for m in metrics]}, launches {counts} "
-              f"(forward by route {routes['masked_attention_fwd']}), {len(files)} images"
-              + (f" ({files[0].split('.', 1)[1]}), norm_stats.npz with {len(stats)} arrays" if name == "rot_ms" else ""))
+              f"(forward by route {routes['masked_attention_fwd']}), the sample bit-equal to the asset's own{note}")
         out[f"evaluate_{name}"] = (counts, routes, result)
     return out
 
@@ -3657,7 +3778,8 @@ def main() -> None:
              **{name: v[0] for name, v in more_2d.items()}, **{name: v[0] for name, v in rest.items()}}
     # these launch the forward kernel alone
     sampling_only = {"serve", "held-out eval", "3D run_3d --evaluate", "3D held-out", "rot_ms_heldout",
-                     "discrete_heldout", "serve_norm_stats", "angle_sample", "evaluate_rot30", "evaluate_rot_ms",
+                     "discrete_heldout", "serve_norm_stats", "angle_sample", "evaluate_rot30",
+                     "evaluate_rot30_recipe_images", "evaluate_rot_ms", "evaluate_rot_ms_protocol_sizes",
                      "export_meshes_3d",
                      *(f"3D {name} {what}" for name in e_more for what in ("run_3d --evaluate", "held-out"))}
     no_attention = {"gcn"}  # its backbone is matrix products: it must launch no kernel (phase 17)

@@ -4,10 +4,10 @@ settings overridden, sampled over the held-out split, the metrics of each
 batch printed and every step's reconstruction saved.
 
 The model is the run's ``config.json``, built by ``init`` (seeded weights,
-``visual_pretrained``, ``encoder_init``) and then given the latest
-checkpoint's ``eval_params`` of ``--run_dir``, or with ``--checkpoint_path``
-that checkpoint's live params; without a checkpoint it evaluates the seeded
-weights. ``--calibrate_norm N`` pools the OrientationNorm statistics over N
+``visual_pretrained``, ``encoder_init``) and then given the ``eval_params``
+(the EMA average where the checkpoint keeps one, else the live params) of
+``--run_dir``'s latest checkpoint, or of ``--checkpoint_path``; without a
+checkpoint it evaluates the seeded weights. ``--calibrate_norm N`` pools the OrientationNorm statistics over N
 training batches, freezes them for the evaluation and writes them to
 ``<run_dir>/norm_stats.npz``. ``--save_images`` writes, per puzzle, one
 image per sampling step to ``--out_dir`` (default ``<run_dir>/preds``):
@@ -76,11 +76,12 @@ def main(argv: list[str] | None = None) -> list[dict]:
     train_ds, test_ds, _ = get_dataset(args.dataset, puzzle_sizes=list(args.puzzle_sizes), rotation=cfg.rotation,
                                        seed=args.seed)
     model.init(args.seed)
-    # a template without EMA: restoring fills the model's own parameters with the live params
+    # a template without EMA: restoring fills the model's own parameters with the live params and puts a
+    # saved EMA beside them
     state = create_train_state(model, model.make_optimizer(), torch.Generator(device=model.device))
     if args.checkpoint_path:
         restored = restore_explicit(args.checkpoint_path, state)
-        params = restored.params
+        params = eval_params(restored)
         print(f"restored step {restored.step} from {args.checkpoint_path}")
     else:
         restored = ckpt.restore(state)

@@ -254,18 +254,13 @@ def main(argv: list[str] | None = None) -> dict[str, float]:
 
     def run_eval(tag: str, step: int) -> dict[str, float]:
         def draw(lo, batch, final):
-            from ..utils.viz import save_reconstruction
+            from ..utils.viz import save_reconstructions
 
             if lo != 0:
                 return
-            fin, b = final.cpu().numpy(), [t.cpu().numpy() for t in batch]
-            patches, x0, _, _, node_mask, dims, _ = b
-            for i in range(min(args.viz_every_eval, fin.shape[0])):
-                vm = node_mask[i]
-                save_reconstruction(
-                    f"{args.run_dir}/viz/{tag}_step{step}_p{i}.png", patches[i][vm], fin[i][vm, :2],
-                    x0[i][vm, :2], tuple(dims[i]), pred_rot=fin[i][vm, 2:4] if rotation else None,
-                    gt_rot=x0[i][vm, 2:4] if rotation else None)
+            patches, x0, _, _, node_mask, dims, _ = [t.cpu().numpy() for t in batch]
+            save_reconstructions(f"{args.run_dir}/viz/{tag}_step{step}", patches, final.cpu().numpy(), x0, node_mask,
+                                 dims, rotation, args.viz_every_eval)
 
         with swapped_params(model, eval_params(state)):
             m = heldout_eval(model, eval_data, eval_rot_k, eval_n=eval_bs,

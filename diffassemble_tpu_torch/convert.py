@@ -22,9 +22,10 @@ they are. Module names follow the port's (``Exophormer_0`` or
 ``blocks_2_1`` → ``blocks.2.1``, ``GCN_0`` → ``gnn``, ``VNLinearLeakyReLU_4`` → ``layers.4``,
 ``VNNorm_0`` → ``norm``, ``VNStdFeature_0`` → ``std_feature``,
 ``PointMLP_1`` → ``mlps.1``, ``TNet_0`` → ``tnets.0``, ``relpose`` →
-``rel_head``, ...); some renames hold under one parent only (``Dense_0`` is
-``fc1``, the fusion MLP's, but ``dense.0`` in a ``PointMLP_i`` or ``TNet_i``
-and ``out`` directly under ``encoder``, the VN-PointNet's projection, and
+``rel_head``, ...); some renames hold under one parent only (``Dense_0`` and
+``Dense_1`` are ``fc1`` and ``fc2``, the fusion MLP's, the "tiny" encoder's
+and the VN-PointNet's projection, but ``dense.0`` and ``dense.1`` in a
+``PointMLP_i`` or ``TNet_i``, and
 ``VNLinear_0`` is ``frame`` in ``VNStdFeature_0`` but ``vn_out`` directly
 under ``encoder``; the equivariant ResNet's ``GroupConvZ2_0`` and
 ``OrientationNorm_0`` directly under ``encoder`` are ``stem`` and
@@ -34,9 +35,7 @@ under ``encoder``; the equivariant ResNet's ``GroupConvZ2_0`` and
 block with a projected shortcut, ``shortcut`` and ``shortcut_norm``; the
 "convnet" encoder's ``ConvBlock_i`` and ``ResidualConvBlock_i`` are
 ``down.i`` and ``res.i``, in which ``ConvBlock_0``, ``Conv_0``, ``Conv_1``
-and ``GroupNorm_0`` are ``block``, ``conv``, ``shortcut`` and ``norm``; a
-"tiny" encoder, ``Dense_0`` and ``Dense_1`` alone, has ``fc1`` and
-``fc2``). The
+and ``GroupNorm_0`` are ``block``, ``conv``, ``shortcut`` and ``norm``). The
 denoiser's Dense→GELU→Dense heads are
 ``Sequential``s built inside its compact method, so their layers sit at the
 denoiser's top level as ``Dense_0`` ... in creation order: the position MLP,
@@ -61,7 +60,6 @@ _SEGMENT_RULES = tuple((parent and re.compile(parent), re.compile(seg), repl) fo
     (r"^PointMLP_\d+$", r"^LayerNorm_(\d+)$", r"norms.\1"),
     (r"^VNStdFeature_0$", r"^VNLinear_0$", "frame"),
     (r"^encoder$", r"^VNLinear_0$", "vn_out"),  # VNPointNetEncoder's last VN layer
-    (r"^encoder$", r"^Dense_0$", "out"),  # and its projection
     (r"^corr$", r"^LayerNorm_0$", "norm"),  # CorrespondencePairs' descriptor norm
     (None, r"^(Exophormer|GraphTransformer|DualStreamGraphTransformer|GCN)_0$", "gnn"),
     (None, r"^layer_(\d+)$", r"layers.\1"),
@@ -97,7 +95,6 @@ _GROUP_CONV = re.compile(r"^GroupConv(Z2|P4|Z2M|P4M)_\d+$")
 _HEADS_2D = {4: ("pos_mlp", "final"), 6: ("pos_mlp", "final_t", "final_r")}
 _HEADS_2D_DISCRETE = ("final_pos", "final_rot")
 HEADS_3D = ("pos_mlp", "mlp_t", "mlp_r")
-_TINY = {"Dense_0", "Dense_1"}  # the whole of a "tiny" encoder's subtree
 
 
 def _rename(segment: str, parent: str | None = None) -> str:
@@ -180,8 +177,6 @@ def convert_params(params: dict, heads: tuple[str, ...] | None = None) -> dict[s
     denoiser's."""
     if "denoiser" in params:
         params = {**params, "denoiser": _denoiser_heads(params["denoiser"], heads)}
-    if set(params.get("encoder", ())) == _TINY:  # the "tiny" encoder: its two Dense layers alone
-        params = {**params, "encoder": {"fc1": params["encoder"]["Dense_0"], "fc2": params["encoder"]["Dense_1"]}}
     out = {}
     for path, arr in _flatten(params):
         name, value = _leaf(path[-1], np.asarray(arr, dtype=np.float32), path[-2] if len(path) > 1 else None)

@@ -274,11 +274,11 @@ class VNPointNetEncoder(nn.Module):
             VNLinearLeakyReLU(64, 128, point_axes=(-3,)),
         ])
         self.vn_out = VNLinear(128, 341)  # ≈1024 // 3 channels
-        self.out = Dense(341 * 3, output_dim, dtype=dtype)
+        self.fc1 = Dense(341 * 3, output_dim, dtype=dtype)
 
     def forward(self, pts):  # (B, N, 3)
         b = pts.shape[0]
         x = pts[:, :, None, :].to(self.compute_dtype)
         x1 = _mean(self.layers[0](vn_graph_feature(x, self.n_knn)), 2)
         x1 = self.vn_out(self.layers[2](self.layers[1](x1)))
-        return self.out(_mean(x1, 1).reshape(b, -1))
+        return self.fc1(_mean(x1, 1).reshape(b, -1))

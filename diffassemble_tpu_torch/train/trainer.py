@@ -369,19 +369,14 @@ class Trainer:
         predicted poses ``final`` under ``<run_dir>/viz`` as
         ``<tag>_step<step>_p<i>``: ``save_reconstruction`` for puzzles, a
         ``.ply`` of the posed valid parts for 3D fragments."""
-        from ..utils.viz import export_fragments_ply, save_reconstruction
+        from ..utils.viz import export_fragments_ply, save_reconstructions
 
         out = self.run_dir / "viz"
         try:
             if hasattr(nb, "patches"):
                 rot = final.shape[-1] >= 4 and getattr(self.model.cfg, "rotation", False)
-                for i in range(min(self.viz_every_eval, final.shape[0])):
-                    vm = np.asarray(nb.node_mask[i])
-                    x0 = np.asarray(nb.x0[i])
-                    save_reconstruction(out / f"{tag}_step{step}_p{i}.png", np.asarray(nb.patches[i])[vm],
-                                        final[i][vm, :2], x0[vm, :2], tuple(np.asarray(nb.patches_dim[i])),
-                                        pred_rot=final[i][vm, 2:4] if rot else None,
-                                        gt_rot=x0[vm, 2:4] if rot else None)
+                save_reconstructions(out / f"{tag}_step{step}", nb.patches, final, nb.x0, nb.node_mask,
+                                     nb.patches_dim, rot, self.viz_every_eval)
             elif hasattr(nb, "pcds"):
                 for i in range(min(self.viz_every_eval, final.shape[0])):
                     export_fragments_ply(out / f"{tag}_step{step}_p{i}.ply", np.asarray(nb.pcds[i]),

@@ -73,6 +73,20 @@ def save_reconstruction(
     Image.fromarray(arr).save(str(path))
 
 
+def save_reconstructions(prefix: str | Path, patches, final: np.ndarray, x0, node_mask, patches_dim,
+                         rotation: bool, count: int) -> None:
+    """``save_reconstruction`` of the first ``count`` puzzles of a host batch
+    (``patches`` (B, N, ps, ps, 3), ``x0`` (B, N, C), ``node_mask`` (B, N),
+    ``patches_dim`` (B, 2)) posed by ``final`` (B, N, C), their valid pieces
+    only, each at ``<prefix>_p<i>.png``; with ``rotation`` the rotation
+    channels turn the pieces."""
+    for i in range(min(count, final.shape[0])):
+        vm, x0_i = np.asarray(node_mask[i]), np.asarray(x0[i])
+        save_reconstruction(f"{prefix}_p{i}.png", np.asarray(patches[i])[vm], final[i][vm, :2], x0_i[vm, :2],
+                            tuple(np.asarray(patches_dim[i])), pred_rot=final[i][vm, 2:4] if rotation else None,
+                            gt_rot=x0_i[vm, 2:4] if rotation else None)
+
+
 def save_trajectory(
     out_dir: str | Path,
     patches: np.ndarray,

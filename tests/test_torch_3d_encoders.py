@@ -135,7 +135,7 @@ def test_vn_point_encoder_is_rotation_equivariant_before_its_projection():
     tm = VNPointNetEncoder(output_dim=24, n_knn=8)
     init_weights(tm, torch.Generator().manual_seed(0))
     seen = []
-    tm.out.register_forward_hook(lambda m, a, o: seen.append(a[0].reshape(a[0].shape[0], -1, 3)))
+    tm.fc1.register_forward_hook(lambda m, a, o: seen.append(a[0].reshape(a[0].shape[0], -1, 3)))
     q, _ = np.linalg.qr(np.random.default_rng(8).standard_normal((3, 3)))
     rot = (q * np.sign(np.linalg.det(q))).astype(np.float32)
     with torch.no_grad():

@@ -19,7 +19,11 @@ evaluate / missing-pieces CLIs against the JAX package's, on the CPU.
   ``evaluate`` on it reports the metrics of the model's own sample of each
   batch, writes one image per sampling step and puzzle, takes the sampler
   overrides and ``--checkpoint_path``, and with ``--calibrate_norm`` writes
-  ``norm_stats.npz`` in the JAX package's layout.
+  ``norm_stats.npz`` in the JAX package's layout; on a run with an EMA both
+  the latest checkpoint and ``--checkpoint_path`` evaluate the EMA, and the
+  test batch, the calibrated statistics and the sample equal the JAX
+  package's ``cli/evaluate.py`` pieces on the same params.
+- ``cli/train_device.py`` draws the first puzzles of each evaluation.
 """
 
 import json
@@ -313,3 +317,121 @@ def test_evaluate_calibrates_orientation_norms(tmp_path):
     with np.load(run / "norm_stats.npz") as z:
         assert len(z.files) == 2 * len(norm_layers(model.encoder))
         assert all(z[k].shape[:4] == (1, 1, 1, 1) and np.isfinite(z[k]).all() for k in z.files)
+
+
+@pytest.fixture(scope="module")
+def ema_run(tmp_path_factory):
+    """A run of a small resnet18equiv model written by the port's checkpoint
+    manager at step 3 from JAX ``init`` params: the live params from one key,
+    an EMA from another, so that the two differ everywhere. Returns (run dir,
+    the JAX model, the JAX EMA params)."""
+    import jax
+
+    from diffassemble_tpu.data import collate_puzzles as jcollate
+    from diffassemble_tpu.models.diffusion_2d import Diffusion2D as JD
+    from diffassemble_tpu.models.diffusion_2d import Diffusion2DConfig as JC
+
+    from diffassemble_tpu_torch import convert
+    from diffassemble_tpu_torch.train.checkpoint import CheckpointManager
+    from diffassemble_tpu_torch.train.train_state import TrainState
+
+    cfg = dict(backbone="resnet18equiv", n_layers=1, hidden_dim=32, heads=4, virt_nodes=2, steps=20,
+               inference_ratio=10, rotation=True, compute_dtype="float32")
+    jm = JD(JC(**cfg))
+    _, test_ds, _ = jdatasets.get_dataset("synthetic", puzzle_sizes=[2], rotation=True, seed=0)
+    first = jcollate([test_ds[0]], test_ds.max_nodes)
+    init = jax.jit(lambda k: jm.init(k, first))
+    live, ema = (jax.tree.map(np.asarray, init(jax.random.PRNGKey(k))) for k in (1, 2))
+    model = Diffusion2D(Diffusion2DConfig(**cfg), device="cpu")
+    trees = []
+    for tree in (live, ema):
+        model.load_state_dict(convert.convert_params(tree))
+        trees.append({k: p.detach().clone() for k, p in model.named_parameters()})
+    run = tmp_path_factory.mktemp("ema") / "run"
+    ckpt = CheckpointManager(run / "checkpoints")
+    ckpt.save_config(model.cfg)
+    ckpt.save(3, TrainState(trees[0], {}, 3, torch.Generator().manual_seed(0), trees[1]))
+    return run, jm, ema
+
+
+@pytest.mark.parametrize("explicit", [False, True])
+def test_evaluate_matches_the_jax_package(ema_run, explicit, tmp_path):
+    """``evaluate --calibrate_norm 2`` against the pieces of the JAX package's
+    ``cli/evaluate.py`` on the same run, from its latest checkpoint and from
+    ``--checkpoint_path``: both evaluate the EMA, as ``eval_params`` does.
+    The test batch equals the JAX ``get_dataset``'s exactly; the calibrated
+    OrientationNorm statistics in ``norm_stats.npz`` equal JAX
+    ``calibrate_norm_stats``' within 1e-5 of each array's largest entry
+    (f32); the sample equals
+    the JAX sample within 1e-4, and its metrics exactly. With noise_weight 0
+    and DDIM (the trained checkpoints' sampler) neither sampler draws
+    anything, so the two run on the same draws."""
+    import jax
+    import jax.numpy as jnp
+
+    from diffassemble_tpu.data import PuzzleBatch as JBatch
+    from diffassemble_tpu.data import collate_puzzles as jcollate
+    from diffassemble_tpu.nn import visual as jvisual
+
+    run, jm, ema = ema_run
+    seen = []
+    sample = Diffusion2D.sample
+
+    def spy(self, batch, *args, **kwargs):
+        res = sample(self, batch, *args, **kwargs)
+        seen.append((batch, res.final))
+        return res
+
+    flags = ["--puzzle_sizes", "2", "--batch_size", "2", "--n_batches", "1", "--calibrate_norm", "2",
+             "--save_images", "false", "--device", "cpu"]
+    if explicit:
+        flags += ["--checkpoint_path", str(run / "checkpoints" / "3")]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(Diffusion2D, "sample", spy)
+        got = tevaluate.main(["--run_dir", str(run), *flags])
+    (batch, final), = seen
+
+    train_ds, test_ds, _ = jdatasets.get_dataset("synthetic", puzzle_sizes=[2], rotation=True, seed=0)
+    nb = jcollate([test_ds[i] for i in range(2)], test_ds.max_nodes)
+    for k, want in nb._asdict().items():
+        assert np.array_equal(getattr(batch, k).numpy(), want), k
+    calib = []
+    for bi in range(2):
+        cb = jcollate([train_ds[i % len(train_ds)] for i in range(2 * bi, 2 * bi + 2)], train_ds.max_nodes)
+        p = cb.patches.astype(np.float32) / 255.0
+        calib.append(jnp.asarray(p.reshape(-1, *p.shape[2:])))
+    jvisual.save_norm_stats(tmp_path / "jax.npz", jm.calibrate_norm_stats({"encoder": ema["encoder"]}, calib))
+    with np.load(run / "norm_stats.npz") as a, np.load(tmp_path / "jax.npz") as b:
+        assert sorted(a.files) == sorted(b.files) and a.files
+        for k in b.files:
+            np.testing.assert_allclose(a[k], b[k], rtol=0, atol=1e-5 * np.abs(b[k]).max(), err_msg=k)
+    jb = JBatch(*[jnp.asarray(a) for a in nb])
+    _, sub = jax.random.split(jax.random.PRNGKey(0))
+    want = jax.jit(lambda p, b, k: jm.sample(p, b, k).final)(ema, jb, sub)
+    jm.norm_stats = None
+    np.testing.assert_allclose(final.numpy(), np.asarray(want), rtol=0, atol=1e-4)
+    m = jm.metrics_from_final(want, jb)
+    assert got == [{"piece_acc": float(np.asarray(m["piece_acc"]).mean()),
+                    "puzzle_acc": float(np.asarray(m["puzzle_correct"]).mean())}]
+
+
+@pytest.mark.parametrize("pil", [True, False])
+def test_train_device_draws_the_first_puzzles_of_each_evaluation(pil, tmp_path, monkeypatch, request):
+    """The recipe CLI (``cli/train_device.py``) with ``--viz_every_eval 2``
+    draws the first two held-out puzzles of each evaluation through
+    ``save_reconstructions``, as ``Trainer._save_viz`` does: PNGs, or
+    ``.npy`` pixels without PIL."""
+    import time
+
+    from diffassemble_tpu_torch.cli import train_device
+
+    if not pil:
+        request.getfixturevalue("no_pil")
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("DIFFASSEMBLE_DEADLINE_EPOCH", str(time.time() + 86400))
+    train_device.main(["--run_dir", "run", "--hw", "3", "--backbone", "tiny", "--degree", "60%", "--n_layers", "1",
+                       "--steps", "20", "--batch_size", "2", "--train_n", "4", "--eval_n", "2", "--eval_every", "2",
+                       "--compute_dtype", "float32", "--viz_every_eval", "2", "--max_steps", "2", "--device", "cpu"])
+    ext = ".png" if pil else ".png.npy"
+    assert sorted(_files(tmp_path / "run" / "viz")) == sorted(f"{tag}_step2_p{i}{ext}" for tag in ("final", "val")
+                                                             for i in range(2))

@@ -721,6 +721,55 @@ def jax_reference_2d(name: str, compute_dtype: str = "bfloat16", eval_n: int | N
     return {k: float(v) for k, v in agg.compute().items()}
 
 
+def evaluate_first_batch_2d(name: str, sizes: list[int], calibrate: int = 0, pad: int | None = None,
+                            package: str = "jax", compute_dtype: str = "float32") -> list[float]:
+    """Per-puzzle piece_acc of checkpoint ``name`` on the first batch of 4
+    that ``cli/evaluate.py`` makes (``get_dataset`` synthetic at ``sizes``,
+    seed 0, its first sample key), through the pieces of that CLI in
+    ``package`` ("jax" or "port") on this host's CPU: OrientationNorm
+    statistics calibrated over ``calibrate`` training batches, the puzzles
+    padded to ``pad`` nodes (default: the largest size's). Each call takes
+    10–50 s.
+
+        JAX_PLATFORMS=cpu python -c "from tests.torch_assets import evaluate_first_batch_2d as f; \\
+            print(f('diffusion2d_rot_ms', [6]), f('diffusion2d_rot_ms', [6], pad=144))"
+    """
+    import jax
+    import jax.numpy as jnp
+
+    if package == "jax":
+        from diffassemble_tpu.data import PuzzleBatch, collate_puzzles, get_dataset
+
+        model, params = jax_model_2d(name, compute_dtype), params_2d(name)
+    else:
+        import torch
+
+        from diffassemble_tpu_torch.data import PuzzleBatch, collate_puzzles
+        from diffassemble_tpu_torch.data.datasets import get_dataset
+        from diffassemble_tpu_torch.train.heldout import load_asset
+
+        model = load_asset(name, "cpu", compute_dtype)[0].eval()
+    train_ds, test_ds, _ = get_dataset("synthetic", puzzle_sizes=list(sizes), rotation=True, seed=0)
+    calib = []
+    for bi in range(calibrate):
+        nb = collate_puzzles([train_ds[i % len(train_ds)] for i in range(4 * bi, 4 * bi + 4)], pad or train_ds.max_nodes)
+        calib.append((nb.patches.astype(np.float32) / 255.0).reshape(-1, *nb.patches.shape[2:]))
+    nb = collate_puzzles([test_ds[i] for i in range(4)], pad or test_ds.max_nodes)
+    if package == "jax":
+        if calibrate:
+            model.calibrate_norm_stats({"encoder": params["encoder"]}, [jnp.asarray(c) for c in calib])
+        batch = PuzzleBatch(*[jnp.asarray(a) for a in nb])
+        _, key = jax.random.split(jax.random.PRNGKey(0))
+        m = model.metrics_from_final(jax.jit(lambda p, b, k: model.sample(p, b, k).final)(params, batch, key), batch)
+    else:
+        if calibrate:
+            model.calibrate_norm_stats(calib)
+        batch = PuzzleBatch(*nb).to("cpu")
+        with torch.no_grad():
+            m = model.metrics_from_final(model.sample(batch, torch.Generator().manual_seed(0)).final, batch)
+    return [float(v) for v in np.asarray(m["piece_acc"])]
+
+
 def bf16_bits(x: np.ndarray) -> np.ndarray:
     """f32 → the bits of its round-to-nearest-even bf16, as uint16 (the
     rounding of ``torch.Tensor.to(torch.bfloat16)`` and ``astype(bfloat16)``)."""
