@@ -8,6 +8,7 @@
     python3 chip_smoke.py --profile train-device  # one step of the device-resident recipe
     python3 chip_smoke.py --profile eval3d  # one 3D held-out call of 16 objects, trained weights
     python3 chip_smoke.py --profile train3d  # one full-width 3D train step
+    python3 chip_smoke.py --only tensor_parallel  # the build and phase 22 alone
 
 Phases, each ending in a line with the elapsed seconds:
 
@@ -209,7 +210,30 @@ Phases, each ending in a line with the elapsed seconds:
    each trajectory's last step bit-equal to a ``sample`` without one; then
    one ``Trainer`` step of the 3D model with the easy run's flags under DDP
    in a world of one over NCCL, bit-equal to the plain step (8 + 8 + 8
-   launches a step).
+   launches a step);
+22. tensor parallelism on one card (``tensor_parallel``): the three kernels
+   at a tp rank's shapes (H = 4, N = 908, B = 1 and 8, Dh 32 and 144)
+   against their plain versions in bf16 and f32, then timed
+   beside their bound, plain versions and SDPA, and the forward at phase
+   20's and 21a's shapes (B = 4 at N = 908; the 3D export's N = 8); then ranks spawned as
+   processes on the one card in a gloo group over CUDA tensors (NCCL refuses
+   two ranks on one device), each held to the same work in this process:
+   at tp = 2 and the flagship's full width (each rank 4 of the 8 heads), a
+   Trainer step at batch 8 over the 10% expander in f32 (``GRAD_TOL``, 4 +
+   4 + 4 launches a rank on the CUDA cores) and in bf16 (its loss, gradient
+   norms and gradients within ``TP_BF16_TOL``, 4 + 4 + 4 on the tensor
+   cores), the ranks' whole parameters equal, each update equal to the
+   single-process optimizer's on the rank's gradients, the tp
+   collectives' share of a step timed; a 30-step request and one held-out
+   call of 32 puzzles with the trained EMA (120 forward launches a rank on
+   the tensor cores; positions within ``TP_REQUEST_TOL``, piece_acc within
+   ``TP_PIECE_ACC_TOL`` of one process's); then dp = 2 × tp = 2 in four
+   processes: one f32 step of the flagship at batch 8 and one of the 3D
+   model with the easy run's flags at batch 16 against one process on the
+   whole batch (``GRAD_TOL``, the 3D step's gradients within
+   ``DPTP_3D_GRAD_REL``; each update equal to the single-process
+   optimizer's on the rank's gradients), with each rank's peak
+   memory. A rank that fails fails the phase.
 
 ``python3 chip_smoke.py --profile train-device`` profiles one step of the
 recipe instead, ``--profile eval3d`` one 3D held-out call of 16 objects,
@@ -626,13 +650,13 @@ def _masks(torch, np):
 
 
 def _check_kernels(label: str, mask, dh: int, dtype, gen, max_err: dict[str, float],
-                   misaligned: bool = False, backward: bool = True) -> None:
+                   misaligned: bool = False, backward: bool = True, heads: int = HEADS) -> None:
     """The three kernels (the forward alone without ``backward``) against
-    their plain versions on one mask, width and type, on the route these call
-    for: the tensor cores for bf16 at the main paths' widths, else (and for
-    ``misaligned`` inputs, 2 bytes off a 16-byte boundary) the CUDA cores;
-    raises on a disagreement or another route. Updates ``max_err`` per
-    kernel."""
+    their plain versions on one mask, width, head count and type, on the
+    route these call for: the tensor cores for bf16 at the main paths'
+    widths, else (and for ``misaligned`` inputs, 2 bytes off a 16-byte
+    boundary) the CUDA cores; raises on a disagreement or another route.
+    Updates ``max_err`` per kernel."""
     import torch
 
     from diffassemble_tpu_torch.ops import cuda_attention as ca
@@ -640,7 +664,7 @@ def _check_kernels(label: str, mask, dh: int, dtype, gen, max_err: dict[str, flo
     b, n, _ = mask.shape
     empty = ~mask.any(-1)  # (B, N) query rows with no edges
     unattended = ~mask.any(-2)  # (B, N) keys no query attends
-    q, k, v, dout = (torch.randn((b, n, HEADS, dh), generator=gen, device="cuda").to(dtype) for _ in range(4))
+    q, k, v, dout = (torch.randn((b, n, heads, dh), generator=gen, device="cuda").to(dtype) for _ in range(4))
     if misaligned:
         q, k, v, dout = (_misaligned(t) for t in (q, k, v, dout))
         label = f"{label}, misaligned"
@@ -662,7 +686,7 @@ def _check_kernels(label: str, mask, dh: int, dtype, gen, max_err: dict[str, flo
         # version's rounding of each probability to bf16 (2^-9 of max|v|)
         tol = 2.0**-7 * opf.abs() + 2.0**-9 * vmax
     err = (of - opf).abs()
-    nonempty = ~empty[:, None, :].expand(b, HEADS, n)
+    nonempty = ~empty[:, None, :].expand(b, heads, n)
     lse_err = (lse - lse_p).abs()[nonempty]
     ok = (
         bool(torch.isfinite(of).all()) and bool(torch.isfinite(lse).all())
@@ -672,7 +696,7 @@ def _check_kernels(label: str, mask, dh: int, dtype, gen, max_err: dict[str, flo
         and torch.equal(lse[~nonempty], lse_p[~nonempty])
     )
     max_err["masked_attention_fwd"] = max(max_err["masked_attention_fwd"], err.max().item())
-    phase(f"fwd vs plain: {label:34s} B={b} N={n} Dh={dh:3d} {str(dtype)[6:]:8s} {fwd_route:12s} "
+    phase(f"fwd vs plain: {label:34s} B={b} N={n} H={heads} Dh={dh:3d} {str(dtype)[6:]:8s} {fwd_route:12s} "
           f"max|dO|={err.max().item():.3e} worst err/tol {(err / tol).max().item():.3f} "
           f"max|dL|={lse_err.max().item():.3e} "
           f"empty rows={int(empty.sum())} {'ok' if ok else 'FAIL'}")
@@ -709,7 +733,7 @@ def _check_kernels(label: str, mask, dh: int, dtype, gen, max_err: dict[str, flo
              and bool((dv[unattended] == 0).all()))
     max_err["masked_attention_bwd_dq"] = max(max_err["masked_attention_bwd_dq"], errs["dQ"])
     max_err["masked_attention_bwd_dkv"] = max(max_err["masked_attention_bwd_dkv"], errs["dK"], errs["dV"])
-    phase(f"bwd vs plain: {label:34s} B={b} N={n} Dh={dh:3d} {str(dtype)[6:]:8s} {want:12s} "
+    phase(f"bwd vs plain: {label:34s} B={b} N={n} H={heads} Dh={dh:3d} {str(dtype)[6:]:8s} {want:12s} "
           f"max|ddQ|={errs['dQ']:.3e} max|ddK|={errs['dK']:.3e} max|ddV|={errs['dV']:.3e} "
           f"worst err/tol {worst:.3f} unattended keys={int(unattended.sum())} exact zeros {zeros} "
           f"{'ok' if ok and zeros else 'FAIL'}")
@@ -1738,7 +1762,7 @@ def mixed_kernels(corpus: Path, max_err: dict[str, float]) -> list[dict]:
     return time_on_masks(mask, label, MAIN_HEAD_DIMS, gen)
 
 
-def time_on_masks(mask, label: str, widths, gen) -> list[dict]:
+def time_on_masks(mask, label: str, widths, gen, heads: int = HEADS) -> list[dict]:
     """The three kernels timed on ``mask`` at each head width in bf16, beside
     their plain versions, the bound over the mask's attended pairs and
     ``scaled_dot_product_attention`` with the same boolean mask (its forward,
@@ -1753,7 +1777,7 @@ def time_on_masks(mask, label: str, widths, gen) -> list[dict]:
     rows = []
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for dh in widths:
-        q, k, v, dout = (torch.randn((b, n, HEADS, dh), generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v, dout = (torch.randn((b, n, heads, dh), generator=gen, device="cuda").to(torch.bfloat16)
                          for _ in range(4))
         o, lse = ca.masked_attention_fwd(q, k, v, mask)
         delta = ca.attention_delta(dout, o)
@@ -1774,16 +1798,16 @@ def time_on_masks(mask, label: str, widths, gen) -> list[dict]:
                 ("masked_attention_bwd_dkv", lambda: ca.masked_attention_bwd_dkv(*args),
                  lambda: ca.masked_attention_bwd_dkv_plain(*args), lib_bwd)):
             ms, plain_ms = cuda_ms(fn), cuda_ms(plain)
-            bound, bound_by = bound_ms(kernel, b, n, HEADS, dh, 2, pairs=pairs)
+            bound, bound_by = bound_ms(kernel, b, n, heads, dh, 2, pairs=pairs)
             route = ca.route(kernel, *args)
             here.append({"kernel": kernel, "b": b, "n": n, "dh": dh, "route": route, "main_path": True,
                          "mask": label, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                          "bound_ms": bound, "bound_by": bound_by})
-            phase(f"timing {kernel:25s} B={b} N={n} H={HEADS} Dh={dh:3d} bf16 {route:12s} ({label}): kernel "
+            phase(f"timing {kernel:25s} B={b} N={n} H={heads} Dh={dh:3d} bf16 {route:12s} ({label}): kernel "
                   f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
                   f"bound {bound:.6f} ms ({bound_by})")
         pair = here[1]["ms"] + here[2]["ms"]
-        phase(f"timing backward pair          B={b} N={n} H={HEADS} Dh={dh:3d} bf16 {here[1]['route']:12s}: "
+        phase(f"timing backward pair          B={b} N={n} H={heads} Dh={dh:3d} bf16 {here[1]['route']:12s}: "
               f"dQ + dK/dV {pair:.4f} ms against one SDPA backward {lib_bwd:.4f} ms ({pair / lib_bwd:.2f}x), "
               f"{pair / (here[1]['bound_ms'] + here[2]['bound_ms']):.0f}x their bound")
         rows += here
@@ -3644,9 +3668,551 @@ def rest_of_the_family(baseline: dict) -> dict[str, tuple]:
     return rest
 
 
+# phase 22: tensor parallelism on one card. Its ranks are processes on the one H100 in a gloo group over
+# CUDA tensors (NCCL refuses two ranks on one device), spawned after the parent built the kernels, so
+# that they load the built libraries. Each step is held twice: its loss, gradient norms and gradients
+# against the single-process step, and its update against the single-process optimizer replayed on its
+# own whole gradients (hold_update). Tolerances (PERF.md §6 gives the readings): the f32 2D steps as
+# the gloo dryrun holds them (parallel/dryrun.py GRAD_TOL: TP only reorders sums), their updates too
+TP = 2
+# bf16 steps against the bf16 step (rel, atol, norm_rel, loss_rel), set from the phase's readings on an
+# H100 at 700 W (PERF.md §6): at (0.02, 1e-3, 1e-3, 1e-3) the tp = 2 step read worst err/tol 0.464 in
+# its gradients (tensors whose largest entry is below the atol term) and 0.049 in its loss and norms.
+# The phase prints bf16's own distance, the one-process bf16 step's from the f32 step's, under them
+TP_BF16_TOL = (0.02, 2e-3, 1e-3, 1e-3)
+# a request's final positions, absolute on the [-1, 1] grid: a third of the 30x30 grid's spacing 2/29
+TP_REQUEST_TOL = 0.02
+TP_PIECE_ACC_TOL = 0.005  # the held-out call's piece_acc under tp against one process
+TP_JOIN_S = 600  # a phase whose ranks take longer is taken to hang: they are killed and the phase fails
+# the dp x tp 3D step's gradients within this of each tensor's largest entry (GRAD_TOL["3d"] otherwise):
+# twice what one ulp up or down on every parameter moved the same step's gradients by in one process on
+# the card, 2.467e-3 to 2.474e-3 in four runs. Its VN-DGCNN encoder picks 20 neighbours in feature space
+# for each of 65,536 points, and rounding flips near-ties
+DPTP_3D_GRAD_REL = 5e-3
+DPTP_BATCH_3D = 16  # the 3D recipe's batch (TRAIN3D_FLAGS), 8 objects a dp place
+# a replayed update against the rank's: each parameter within this many f32 ulps of it and of its update
+# (the same arithmetic on the same whole tensors; a reduction in another order moves Adafactor's scales
+# by an ulp); a slice put back in the wrong place moves whole rows by their full size
+UPDATE_ULPS = 4
+
+
+class _TimedCollectives:
+    """Stands in for ``torch.distributed`` inside ``parallel/tensor.py``: its
+    all-reduces (every tp collective is one) timed by the host clock between
+    two synchronizes."""
+
+    def __init__(self):
+        self.seconds, self.calls, self.bytes = 0.0, 0, 0
+
+    def all_reduce(self, t, group=None):
+        import torch
+        import torch.distributed as dist
+
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        dist.all_reduce(t, group=group)
+        torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - start
+        self.calls += 1
+        self.bytes += t.numel() * t.element_size()
+
+
+def _timed(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its device time by CUDA events and its host time."""
+    import torch
+
+    torch.cuda.synchronize()
+    host = time.perf_counter()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    out = fn(*args, **kwargs)
+    ev[1].record()
+    torch.cuda.synchronize()
+    return out, ev[0].elapsed_time(ev[1]), time.perf_counter() - host
+
+
+def _step_record(tr, state, batch, during=None) -> tuple:
+    """One ``Trainer`` step from ``state`` on ``batch`` (this rank's dp slice),
+    as ``dryrun.compare_steps`` reads it (whole parameters and gradients, on
+    the host), with its launches, routes and times; ``during`` is a context
+    entered around the step alone."""
+    from diffassemble_tpu_torch.parallel.mesh import gather_params
+
+    before = {k: v.cpu() for k, v in gather_params(tr.model).items()}
+    reset_counts()
+    with during or contextlib.nullcontext():
+        (state, aux), ms, host_s = _timed(tr.train_step, state, batch)
+    rec = {"aux": {k: float(v) for k, v in aux.items()}, "before": before,
+           "params": {k: v.cpu() for k, v in gather_params(tr.model).items()},
+           "grads": {k: v.cpu() for k, v in
+                     gather_params(tr.model, {k: p.grad for k, p in state.params.items()}).items()},
+           "unfactored": sorted(state.opt_state["v"]), "launches": read_counts(), "routes": read_routes(),
+           "ms": ms, "host_s": host_s}
+    if not tr.mesh.distributed:  # the single process's optimizer, to replay the ranks' updates with
+        rec["optimizer"] = tr.optimizer
+    return state, rec
+
+
+def hold_update(label: str, rec: dict, optimizer) -> float:
+    """A rank's update (``_step_record``: its whole parameters before and
+    after the step) against the single-process ``optimizer``'s first update
+    from the same whole parameters on the rank's whole clipped gradients,
+    replayed on the card: each parameter within ``UPDATE_ULPS`` f32 ulps of
+    it and of its update.
+    With its gradients held to the single process's, this holds the rank's
+    whole step: the gathering, the optimizer on whole tensors and each
+    rank's slice of the update. Returns the largest |difference|."""
+    import torch
+
+    before = {k: v.cuda() for k, v in rec["before"].items()}
+    updates, _ = optimizer.update({k: v.cuda() for k, v in rec["grads"].items()}, optimizer.init(before), before)
+    worst = 0.0
+    for k, u in updates.items():
+        want, u = (before[k] + u).cpu(), u.cpu()
+        err = (rec["params"][k] - want).abs()
+        worst = max(worst, float(err.max()))
+        if not bool((err <= UPDATE_ULPS * torch.finfo(want.dtype).eps * (want.abs() + u.abs())).all()):
+            raise AssertionError(f"{label}: {k} differs from the single-process optimizer's update on the rank's "
+                                 f"gradients by up to {float(err.max()):.3e}")
+    return worst
+
+
+def update_readings(rec: dict, ref: dict, rel: float) -> list[tuple]:
+    """Where a rank's update differs from the single process's by more than
+    ``compare_steps`` would allow (``rel`` of the tensor's largest move plus
+    1e-6 of each parameter): (err / tol, name, the single process's largest
+    gradient entry, the rank's largest gradient difference from it), worst
+    first. A reading only: Adafactor's first update divides each gradient by
+    its row's and column's RMS (each entry's own, where unfactored), so a
+    gradient whose size is its rounding noise moves at full size."""
+    out = []
+    for k, g in ref["grads"].items():
+        d_want, d_got = ref["params"][k] - ref["before"][k], rec["params"][k] - rec["before"][k]
+        tol = rel * float(d_want.abs().max()) + 1e-6 * ref["params"][k].abs()
+        ratio = float(((d_got - d_want).abs() / tol).max())
+        if ratio > 1:
+            out.append((ratio, k, float(g.abs().max()), float((rec["grads"][k] - g).abs().max())))
+    return sorted(out, reverse=True)
+
+
+def _flagship_trainer(mesh, workdir: Path, dtype: str, label: str):
+    """A ``Trainer`` of the flagship (its encoder_init, ``dtype``, no warmup:
+    with the flagship's 500 steps the first update is exactly 0, and the
+    step would not show the optimizer) on ``mesh`` at batch 8, its state made
+    (and the model sharded), and the phase's batch: 8 seeded 30×30 puzzles
+    over the 10% expander, as the parent wrote it; this rank's dp slice of
+    it."""
+    import dataclasses
+
+    import torch
+
+    from diffassemble_tpu_torch.data import PuzzleBatch
+    from diffassemble_tpu_torch.models import Diffusion2D
+    from diffassemble_tpu_torch.parallel.mesh import shard_batch
+    from diffassemble_tpu_torch.train.trainer import Trainer
+
+    cfg = dataclasses.replace(flagship_config(), encoder_init=str(ENCODER_INIT), compute_dtype=dtype,
+                              warmup_steps=0)
+    tr = Trainer(Diffusion2D(cfg, device="cuda", seed=0), run_dir=str(workdir / f"{label}_{mesh.rank}"),
+                 batch_size=TRAIN_BATCH, mesh=mesh, viz_every_eval=0)
+    state = tr.new_state()
+    batch = PuzzleBatch(*torch.load(workdir / "tp_batch.pt", weights_only=True)).to("cuda")
+    return tr, state, shard_batch(mesh, batch)
+
+
+def tp_flagship(mesh, workdir: Path) -> dict:
+    """Phase 22a-c on one rank of ``mesh`` (or, on ``Mesh()``, the single
+    process that each is held to): (a) a Trainer step of the flagship in
+    f32, then in bf16 followed by a steady step and one with the tp
+    collectives timed; (b) a 30-step request (B = 1) and (c) one held-out
+    call of 32 puzzles with the trained EMA, sharded over the mesh's tp group."""
+    import gc
+
+    import torch
+
+    from diffassemble_tpu_torch.train.device_data import gather_batch
+    from diffassemble_tpu_torch.parallel import tensor
+    from diffassemble_tpu_torch.parallel.mesh import shard_params
+    from diffassemble_tpu_torch.train.heldout import heldout_eval
+
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        torch.cuda.reset_peak_memory_stats()
+        tr, state, batch = _flagship_trainer(mesh, workdir, dtype, f"tp_{dtype}")
+        state, rec = _step_record(tr, state, batch)
+        if dtype == "bfloat16":
+            state, steady = _step_record(tr, state, batch)
+            timed = _TimedCollectives()
+            state, instrumented = _step_record(tr, state, batch, mock.patch.object(tensor, "dist", timed))
+            rec.update(steady_ms=steady["ms"], steady_host_s=steady["host_s"],
+                       collectives={"seconds": timed.seconds, "calls": timed.calls, "bytes": timed.bytes,
+                                    "step_host_s": instrumented["host_s"]})
+        rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        out[dtype] = rec
+        del tr, state, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg, recipe, model, data, rot_k, own_graph, extras = heldout_setup(EVAL_N)
+    shard_params(mesh, model)
+    request = gather_batch(data, torch.arange(1, device="cuda"), rot_k[:1])
+    reset_counts()
+    final, ms, host_s = _timed(lambda: model.sample(request, torch.Generator(device="cuda").manual_seed(3)).final)
+    out["request"] = {"final": final.cpu(), "ms": ms, "host_s": host_s, "launches": read_counts(),
+                      "routes": read_routes()}
+    calls = []
+    sample = model.sample
+
+    def timed_sample(*args, **kwargs):
+        res, call_ms, call_s = _timed(sample, *args, **kwargs)
+        calls.append({"puzzles": args[0].patches.shape[0], "ms": call_ms, "host_s": call_s})
+        return res
+
+    model.sample = timed_sample
+    reset_counts()
+    metrics = heldout_eval(model, data, rot_k, eval_n=EVAL_N)
+    out["heldout"] = {"piece_acc": metrics["overall__piece_acc"], "puzzle_acc": metrics["overall_acc"],
+                      "puzzles": metrics["overall_nImages"], "calls": calls, "launches": read_counts(),
+                      "routes": read_routes(), "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    return out
+
+
+def _trainer_3d(mesh, workdir: Path, label: str):
+    """A ``Trainer`` of the 3D model with the easy run's flags
+    (``TRAIN3D_FLAGS``: vn_dgcnn_rich from its encoder_init, the
+    relative-pose losses) in f32 without warmup on ``mesh``, its state made,
+    and this rank's dp slice of the run's first batch of 16 (as the parent
+    wrote it)."""
+    import dataclasses
+
+    import torch
+
+    from diffassemble_tpu_torch.cli import train_3d
+    from diffassemble_tpu_torch.data import FragmentBatch
+    from diffassemble_tpu_torch.models import Diffusion3D
+    from diffassemble_tpu_torch.parallel.mesh import shard_batch
+    from diffassemble_tpu_torch.train.trainer import Trainer
+
+    cfg = dataclasses.replace(train_3d.config_from_args(train3d_args("")), compute_dtype="float32", warmup_steps=0)
+    tr = Trainer(Diffusion3D(cfg, device="cuda", seed=0), run_dir=str(workdir / f"{label}_{mesh.rank}"),
+                 batch_size=DPTP_BATCH_3D, mesh=mesh, viz_every_eval=0)
+    state = tr.new_state()
+    batch = FragmentBatch(*torch.load(workdir / "dptp_3d_batch.pt", weights_only=True)).to("cuda")
+    return tr, state, shard_batch(mesh, batch)
+
+
+def step_ratios(rec: dict, ref: dict, rel: float, atol: float, norm_rel: float, loss_rel: float) -> dict:
+    """One step's record against another's as ``compare_steps`` holds them,
+    without raising: the worst error/tolerance of the gradients, of the
+    gradient norms and of the aux's other entries."""
+    gmax = max(float(g.abs().max()) for g in ref["grads"].values())
+    out = {"grads": max(float((rec["grads"][k] - g).abs().max()) / (rel * float(g.abs().max()) + atol * gmax)
+                        for k, g in ref["grads"].items()), "norms": 0.0, "loss": 0.0}
+    for key, want in ref["aux"].items():
+        kind, tol = ("norms", norm_rel) if key.startswith("grad_norm") else ("loss", loss_rel)
+        out[kind] = max(out[kind], abs(rec["aux"][key] - want) / (tol * abs(want) + 1e-30))
+    return out
+
+
+def dptp_steps(mesh, workdir: Path) -> dict:
+    """Phase 22d on one rank of ``mesh`` (or the single process): one f32
+    Trainer step of the flagship on the phase's batch of 8 and one f32 step
+    of the 3D model with the easy run's flags (``TRAIN3D_FLAGS``, the
+    relative-pose losses) on its first batch of 16, each this rank's dp
+    slice; with the peak memory of each."""
+    import gc
+
+    import torch
+
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    tr, state, batch = _flagship_trainer(mesh, workdir, "float32", "dptp_2d")
+    out["2d"] = _step_record(tr, state, batch)[1]
+    out["2d"]["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    del tr, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    out["3d"] = _step_record(*_trainer_3d(mesh, workdir, "dptp_3d"))[1]
+    out["3d"]["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+TP_JOBS = {"tp_flagship": tp_flagship, "dptp_steps": dptp_steps}
+
+
+def _card_job(mesh, job: str, workdir: str) -> dict:
+    """``TP_JOBS[job]`` on one rank spawned on the one card, with this
+    smoke's settings (f32 without TF32, cuDNN's deterministic algorithms)."""
+    import torch
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    return TP_JOBS[job](mesh, Path(workdir))
+
+
+def run_tp_ranks(job: str, world: int, workdir: Path) -> tuple[list[dict], float]:
+    """``job`` on ``world`` spawned ranks of a (world / TP, TP) mesh on the
+    one card (``parallel/dryrun.py:run_on_ranks``); their results by rank
+    and the seconds it took. A rank that fails, or ranks that outlast
+    ``TP_JOIN_S``, fail the phase (all are stopped)."""
+    from diffassemble_tpu_torch.parallel.dryrun import run_on_ranks
+
+    start = time.perf_counter()
+    ranks = run_on_ranks(_card_job, world, TP, job, str(workdir), timeout=TP_JOIN_S)
+    return ranks, time.perf_counter() - start
+
+
+def _sum_counts(records: list[dict]) -> tuple[dict, dict]:
+    """Launches and launches by route summed over ranks' records."""
+    counts = {k: sum(r["launches"][k] for r in records) for k in records[0]["launches"]}
+    routes = {k: {route: sum(r["routes"][k][route] for r in records) for route in records[0]["routes"][k]}
+              for k in records[0]["routes"]}
+    return counts, routes
+
+
+def _check_step_launches(label: str, recs: list[dict], per_kernel: int, route_counts: dict[str, int]) -> None:
+    """Each rank's step launched each kernel ``per_kernel`` times, by route as given."""
+    for r, rec in enumerate(recs):
+        if rec["launches"] != dict.fromkeys(KERNEL_SOURCES, per_kernel) or \
+                any(rec["routes"][k] != route_counts for k in KERNEL_SOURCES):
+            raise AssertionError(f"{label}, rank {r}: launches {rec['launches']}, by route {rec['routes']}; "
+                                 f"expected {per_kernel} of each kernel, by route {route_counts}")
+
+
+def timing_tp(max_err: dict[str, float]) -> list[dict]:
+    """The three kernels at a tp rank's shapes (H = HEADS / TP, N = 908,
+    fully connected, B = 1 as a request's and 8 as a train step's, Dh 32 and
+    144): each held against its plain version in bf16 (the tensor cores) and
+    f32 (the CUDA cores, as the f32 steps launch them; ``_check_kernels``,
+    updating ``max_err``), then timed in bf16: the forward at B = 1 and all
+    three at B = 8, each on the tensor cores, beside their plain versions,
+    their bound and SDPA (``time_forward_on_mask``, ``time_on_masks``)."""
+    import torch
+
+    h = HEADS // TP
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    ones = [torch.ones((b, N_NODES, N_NODES), dtype=torch.bool, device="cuda") for b in (1, TRAIN_BATCH)]
+    for mask, label in zip(ones, ("a tp rank's request", "a tp rank's train step")):
+        for dh in MAIN_HEAD_DIMS:
+            for dtype in (torch.bfloat16, torch.float32):
+                _check_kernels(label, mask, dh, dtype, gen, max_err, heads=h)
+    rows = (time_forward_on_mask(ones[0], "a tp rank's request", h, MAIN_HEAD_DIMS, gen)
+            + time_on_masks(ones[1], "a tp rank's train step", MAIN_HEAD_DIMS, gen, heads=h))
+    for r in rows:
+        if r["route"] != "tensor_cores":
+            raise AssertionError(f"{r['kernel']} at H={h} Dh={r['dh']} takes the {r['route']} route")
+        r.update(h=h, main_path=False, tensor_parallel=True, launches_per_step=dict(STEP_LAUNCHES)[r["dh"]])
+    return rows
+
+
+def timing_rest_shapes() -> list[dict]:
+    """The forward kernel at the shapes of phases 20 and 21a, which had no
+    timing of their own: ``evaluate``'s calls (B = 4, N = 908, H = 8, fully
+    connected as the CLI serves, Dh 32 and 144) and the 3D export's call (the
+    easy checkpoint's protocol cut to its first 4 objects, N = 8, its heads
+    at Dh 32 and 264), beside the plain version, the bound over the attended
+    pairs and SDPA (``time_forward_on_mask``)."""
+    import torch
+
+    from diffassemble_tpu_torch.train.heldout3d import model_from_asset
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    mask = torch.ones((4, N_NODES, N_NODES), dtype=torch.bool, device="cuda")
+    rows = time_forward_on_mask(mask, "evaluate, B = 4", HEADS, MAIN_HEAD_DIMS, gen)
+    model, cfg, protocol, _ = model_from_asset(ASSET_3D, "cuda")
+    mask = first_batch_3d({**protocol, "batch": 4}).adj.contiguous()
+    widths = (cfg.hidden_dim // cfg.heads, (model.feat_dim + 64) // cfg.heads)
+    rows += time_forward_on_mask(mask, "3D export, 4 objects", cfg.heads, widths, gen)
+    for r in rows:
+        r["main_path"] = False  # the per-step sums of the kernels line are phases 4-5's
+    return rows
+
+
+def tensor_parallel(workdir: Path, max_err: dict[str, float]) -> tuple[dict[str, tuple], list[dict]]:
+    """Phase 22, the twenty-second main path: tensor parallelism on one card
+    (``parallel/mesh.py:shard_params``, ``parallel/tensor.py``), its ranks
+    processes in a gloo group over CUDA tensors.
+
+    - tp = 2, dp = 1 at the flagship's full width (Exophormer, 4 layers of 8
+      heads, each rank 4 of them; 8 virtual nodes, hidden 256, N = 908, the
+      flagship's encoder_init): (a) one Trainer step at batch 8 over the 10%
+      expander in f32 against the single-process step on the card
+      (``parallel/dryrun.py:GRAD_TOL``; 4 + 4 + 4 launches a rank on the
+      CUDA cores, as f32 takes), then in bf16 against the bf16 step (its
+      loss, gradient norms and gradients within ``TP_BF16_TOL``; 4 + 4 + 4 on
+      the tensor cores), the ranks' whole parameters equal after each and
+      equal to the single-process optimizer's update on the rank's
+      gradients (``hold_update``); then a steady step and one with the tp
+      collectives timed; (b) a 30-step request (B = 1) with the trained EMA,
+      120 forward launches a rank on the tensor cores, its final positions
+      within ``TP_REQUEST_TOL`` of the single process's; (c) one held-out
+      call of 32 puzzles (bench.py's protocol) with the trained EMA, 120
+      forward launches a rank, piece_acc within ``TP_PIECE_ACC_TOL`` of the
+      single process's on the same puzzles and draws;
+    - dp = 2 × tp = 2 (four processes on the one card): one f32 Trainer step
+      of the flagship at batch 8 (4 a dp place) and one of the 3D model with
+      the easy run's flags at batch 16 (8 a dp place) against one process on
+      the whole batch (``GRAD_TOL``, the 3D gradients within
+      ``DPTP_3D_GRAD_REL``; each update by ``hold_update``), each rank's
+      peak memory printed. Every step here has no warmup, so that it moves
+      the parameters.
+
+    The single-process references run in this process first. Returns, by
+    path, (launches summed over the ranks, by route, the result), and the
+    kernels' rows at a rank's shapes (``timing_tp``) and at phases 20 and
+    21a's (``timing_rest_shapes``)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from diffassemble_tpu_torch.parallel.dryrun import GRAD_TOL, compare_steps
+    from diffassemble_tpu_torch.parallel.mesh import Mesh
+
+    rows = timing_tp(max_err) + timing_rest_shapes()
+    cfg = flagship_config()
+    rng = np.random.default_rng(22)
+    batch = seeded_puzzles(30, TRAIN_BATCH, cfg.rotation, rng)
+    adj = seeded_puzzles(30, 1, cfg.rotation, rng, degree="10%").adj
+    torch.save(tuple(torch.as_tensor(np.asarray(f)) for f in batch._replace(adj=batch.adj & adj)),
+               workdir / "tp_batch.pt")
+    nb3 = loss_inputs_3d()[0]
+    torch.save(tuple(torch.as_tensor(np.asarray(f)) for f in nb3), workdir / "dptp_3d_batch.pt")
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        start = time.perf_counter()
+        ref = tp_flagship(Mesh(), workdir)
+        ref_dptp = dptp_steps(Mesh(), workdir)
+        ref_s = time.perf_counter() - start
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase(f"tensor parallel: single-process references in {ref_s:.1f} s (f32 step {ref['float32']['ms']:.2f} ms, "
+          f"bf16 step {ref['bfloat16']['ms']:.2f} ms / steady {ref['bfloat16']['steady_ms']:.2f} ms by CUDA events, "
+          f"request {ref['request']['ms']:.2f} ms, held-out call {ref['heldout']['calls'][0]['ms']:.2f} ms, "
+          f"piece_acc {ref['heldout']['piece_acc']!r}; peak {ref['float32']['max_memory_allocated'] / 2**30:.2f} / "
+          f"{ref['bfloat16']['max_memory_allocated'] / 2**30:.2f} GiB)")
+
+    rounding = step_ratios(ref["bfloat16"], ref["float32"], *TP_BF16_TOL)
+    phase(f"bf16 rounding in one process: the bf16 step against the f32 step on the same weights and batch, "
+          f"under TP_BF16_TOL {TP_BF16_TOL} (the tp step is held to 1): worst err/tol gradients "
+          f"{rounding['grads']:.3f}, gradient norms {rounding['norms']:.3f}, loss terms {rounding['loss']:.3f}")
+
+    ranks, seconds = run_tp_ranks("tp_flagship", TP, workdir)
+    paths = {}
+    for dtype, tol in (("float32", GRAD_TOL["efficientnet_b0"]), ("bfloat16", TP_BF16_TOL)):
+        recs = [r[dtype] for r in ranks]
+        worst = compare_steps(recs, ref[dtype], *tol, steps=dtype == "float32")
+        worst["update_replay"] = hold_update(f"tp {dtype} step", recs[0], ref[dtype]["optimizer"])
+        route = "cuda_cores" if dtype == "float32" else "tensor_cores"
+        _check_step_launches(f"tp {dtype} step", recs, 4, {"tensor_cores": 0, "cuda_cores": 0, route: 4})
+        if dtype == "bfloat16":
+            off = update_readings(recs[0], ref[dtype], tol[0])
+            phase(f"tp=2 bf16 step's update against one process's (a reading): {len(off)} of {len(recs[0]['grads'])} "
+                  f"tensors beyond rel {tol[0]} of their largest move; (err/tol, tensor, largest gradient, largest "
+                  f"gradient difference): {[(round(r, 2), k, f'{g:.3e}', f'{d:.3e}') for r, k, g, d in off]}")
+        phase(f"tp=2 {dtype} step, flagship batch 8: worst err/tol {worst} (tol {tol}; update_replay: the largest "
+              f"difference from the single-process optimizer on the rank's gradients); launches a rank "
+              f"{recs[0]['launches']} on the {route}; {recs[0]['ms']:.2f} / {recs[1]['ms']:.2f} ms by CUDA events, "
+              f"{recs[0]['host_s']:.3f} s host (one process {ref[dtype]['ms']:.2f} ms); peak "
+              f"{[round(r['max_memory_allocated'] / 2**30, 2) for r in recs]} GiB")
+        paths[f"tp_step_{dtype}"] = (*_sum_counts(recs), {"worst": worst, "ms": [r["ms"] for r in recs],
+                                                          "host_s": [r["host_s"] for r in recs],
+                                                          "one_process_ms": ref[dtype]["ms"],
+                                                          "max_memory_allocated": [r["max_memory_allocated"]
+                                                                                   for r in recs]})
+    bf = [r["bfloat16"] for r in ranks]
+    coll = [r["collectives"] for r in bf]
+    share = [c["seconds"] / c["step_host_s"] for c in coll]
+    paths["tp_step_bfloat16"][2].update(steady_ms=[r["steady_ms"] for r in bf],
+                                        steady_host_s=[r["steady_host_s"] for r in bf],
+                                        one_process_steady_ms=ref["bfloat16"]["steady_ms"], collectives=coll)
+    phase(f"tp=2 bf16 steady step: {[round(r['steady_ms'], 2) for r in bf]} ms by CUDA events, "
+          f"{[round(r['steady_host_s'], 3) for r in bf]} s host (one process {ref['bfloat16']['steady_ms']:.2f} ms, "
+          f"{ref['bfloat16']['steady_host_s']:.3f} s); the tp collectives: {coll[0]['calls']} all-reduces of "
+          f"{coll[0]['bytes'] / 2**20:.1f} MiB, {[round(c['seconds'], 3) for c in coll]} s of an instrumented "
+          f"step's {[round(c['step_host_s'], 3) for c in coll]} s host ({[round(s, 3) for s in share]})")
+
+    finals = [r["request"]["final"] for r in ranks]
+    err = float((finals[0] - ref["request"]["final"]).abs().max())
+    for r, rec in enumerate(ranks):
+        if rec["request"]["launches"] != {"masked_attention_fwd": 120, "masked_attention_bwd_dq": 0,
+                                          "masked_attention_bwd_dkv": 0} or \
+                rec["request"]["routes"]["masked_attention_fwd"] != {"tensor_cores": 120, "cuda_cores": 0}:
+            raise AssertionError(f"tp request, rank {r}: launches {rec['request']['launches']}, by route "
+                                 f"{rec['request']['routes']}; expected 120 forward on the tensor cores")
+    if not (torch.equal(finals[0], finals[1]) and torch.isfinite(finals[0]).all() and err <= TP_REQUEST_TOL):
+        raise AssertionError(f"tp request: final positions {err:.3e} from one process's (tol {TP_REQUEST_TOL}), "
+                             f"ranks equal {torch.equal(finals[0], finals[1])}")
+    phase(f"tp=2 request (B=1, 30 steps, trained EMA): max|d| {err:.3e} from one process (tol {TP_REQUEST_TOL}), "
+          f"ranks bit-equal; 120 forward launches a rank on the tensor cores; "
+          f"{[round(r['request']['ms'], 2) for r in ranks]} ms by CUDA events, "
+          f"{[round(r['request']['host_s'], 3) for r in ranks]} s host (one process {ref['request']['ms']:.2f} ms, "
+          f"{ref['request']['host_s']:.3f} s)")
+    paths["tp_request"] = (*_sum_counts([r["request"] for r in ranks]),
+                           {"max_abs_err": err, "ms": [r["request"]["ms"] for r in ranks],
+                            "host_s": [r["request"]["host_s"] for r in ranks], "one_process_ms": ref["request"]["ms"],
+                            "one_process_host_s": ref["request"]["host_s"]})
+
+    held = [r["heldout"] for r in ranks]
+    gap = abs(held[0]["piece_acc"] - ref["heldout"]["piece_acc"])
+    for r, h in enumerate(held):
+        if h["launches"] != {"masked_attention_fwd": 120, "masked_attention_bwd_dq": 0, "masked_attention_bwd_dkv": 0} \
+                or h["routes"]["masked_attention_fwd"]["cuda_cores"] or h["puzzles"] != EVAL_N:
+            raise AssertionError(f"tp held-out call, rank {r}: {h['puzzles']} puzzles, launches {h['launches']}, "
+                                 f"by route {h['routes']}")
+    if not (held[0]["piece_acc"] == held[1]["piece_acc"] and gap <= TP_PIECE_ACC_TOL):
+        raise AssertionError(f"tp held-out call: piece_acc {[h['piece_acc'] for h in held]} against one process's "
+                             f"{ref['heldout']['piece_acc']} (tol {TP_PIECE_ACC_TOL})")
+    phase(f"tp=2 held-out call of {EVAL_N} puzzles (trained EMA): piece_acc {held[0]['piece_acc']!r}, one process "
+          f"{ref['heldout']['piece_acc']!r} (gap {gap:.5f}, tol {TP_PIECE_ACC_TOL}); "
+          f"{[round(h['calls'][0]['ms'], 2) for h in held]} ms by CUDA events (one process "
+          f"{ref['heldout']['calls'][0]['ms']:.2f} ms); peak "
+          f"{[round(h['max_memory_allocated'] / 2**30, 2) for h in held]} GiB; ranks took {seconds:.1f} s in all")
+    paths["tp_heldout"] = (*_sum_counts(held), {"piece_acc": held[0]["piece_acc"],
+                                                "one_process_piece_acc": ref["heldout"]["piece_acc"],
+                                                "calls": [h["calls"] for h in held],
+                                                "one_process_calls": ref["heldout"]["calls"]})
+
+    ranks, seconds = run_tp_ranks("dptp_steps", 2 * TP, workdir)
+    for family, per_kernel, routes in (("2d", 4, {"tensor_cores": 0, "cuda_cores": 4}),
+                                       ("3d", 8, {"tensor_cores": 0, "cuda_cores": 8})):
+        recs = [r[family] for r in ranks]
+        tol = GRAD_TOL["efficientnet_b0"] if family == "2d" else (DPTP_3D_GRAD_REL, *GRAD_TOL["3d"][1:])
+        worst = compare_steps(recs, ref_dptp[family], *tol, steps=family == "2d")
+        worst["update_replay"] = hold_update(f"dp2 x tp2 {family} step", recs[0], ref_dptp[family]["optimizer"])
+        _check_step_launches(f"dp2 x tp2 {family} step", recs, per_kernel, routes)
+        if family == "3d":
+            off = update_readings(recs[0], ref_dptp[family], tol[0])
+            phase(f"dp=2 x tp=2 3d step's update against one process's (a reading): {len(off)} of "
+                  f"{len(recs[0]['grads'])} tensors beyond rel {tol[0]} of their largest move; (err/tol, tensor, "
+                  f"largest gradient, largest gradient difference): "
+                  f"{[(round(r, 2), k, f'{g:.3e}', f'{d:.3e}') for r, k, g, d in off]}")
+        b = TRAIN_BATCH if family == "2d" else DPTP_BATCH_3D
+        phase(f"dp=2 x tp=2 {family} f32 step, batch {b} ({b // 2} a dp place), four processes on one card: worst "
+              f"err/tol {worst} (tol {tol}); launches a rank {recs[0]['launches']} on the CUDA cores; "
+              f"{[round(r['ms'], 2) for r in recs]} ms by CUDA events (one process {ref_dptp[family]['ms']:.2f} ms); "
+              f"peak {[round(r['max_memory_allocated'] / 2**30, 2) for r in recs]} GiB a rank (one process "
+              f"{ref_dptp[family]['max_memory_allocated'] / 2**30:.2f} GiB)")
+        paths[f"dptp_step_{family}"] = (*_sum_counts(recs), {
+            "worst": worst, "batch": b, "ms": [r["ms"] for r in recs], "one_process_ms": ref_dptp[family]["ms"],
+            "max_memory_allocated": [r["max_memory_allocated"] for r in recs],
+            "one_process_max_memory_allocated": ref_dptp[family]["max_memory_allocated"]})
+    phase(f"tensor parallel: dp=2 x tp=2 ranks took {seconds:.1f} s")
+    return paths, rows
+
+
 def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, train: tuple, heldout: tuple,
                 recipe_: tuple, mixed_: tuple, ddp: tuple, eval3d_: tuple, train3d_: tuple, e_more: dict,
-                t_more: dict, more_2d: dict, rest: dict) -> dict:
+                t_more: dict, more_2d: dict, rest: dict, tp_paths: dict) -> dict:
     """The kernels' JSON line; ``serve`` and ``train`` are (launches,
     launches by route, seconds per request or per steady step), ``heldout``,
     ``recipe_``, ``mixed_``, ``eval3d_`` and ``train3d_`` (launches, launches
@@ -3654,7 +4220,10 @@ def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, t
     ``e_more`` and ``t_more`` the results of ``eval3d_more`` and
     ``train3d_more``, ``more_2d`` the equivariant 2D family's paths by name
     and ``rest`` those of phases 17-21 (launches, launches by route, the
-    phase's result, or for the 3D DDP step no result)."""
+    phase's result, or for the 3D DDP step no result), ``tp_paths`` those of
+    phase 22 (launches summed over the ranks, by route, the result); each
+    kernel's ``tensor_parallel`` entry sums its rows at a tp rank's shapes
+    (H = 4) over a denoiser step or a train step."""
     from diffassemble_tpu_torch import REFERENCE_PACKAGE
     from diffassemble_tpu_torch.ops import cuda_attention
 
@@ -3663,7 +4232,7 @@ def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, t
              "ddp": ddp, "eval3d_cli": cli3d, "eval3d_heldout": eval3d_, "train3d": train3d_,
              **{f"eval3d_{name}_cli": (v[2]["cli_launches"], v[2]["cli_routes"]) for name, v in e_more.items()},
              **{f"eval3d_{name}": v for name, v in e_more.items()},
-             **{f"train3d_{label}": v for label, v in t_more.items()}, **more_2d, **rest}
+             **{f"train3d_{label}": v for label, v in t_more.items()}, **more_2d, **rest, **tp_paths}
     out = []
     for kernel, source in KERNEL_SOURCES.items():
         # the forward kernel's figures are per denoiser step at the serving
@@ -3693,6 +4262,15 @@ def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, t
                               f"Dh=144, B={b}, H={HEADS}, N={N_NODES}, bf16, route {per[0]['route']}"),
             "per_shape": [r for r in rows if r["kernel"] == kernel],
         })
+    for entry in out:
+        b = 1 if entry["name"] == "masked_attention_fwd" else TRAIN_BATCH
+        per = [r for r in rows if r.get("tensor_parallel") and r["kernel"] == entry["name"] and r["b"] == b]
+        entry["tensor_parallel"] = {
+            **{key: sum(r[key] * r["launches_per_step"] for r in per)
+               for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            "times_are_for": f"a tp rank's {'denoiser step' if b == 1 else 'train step'}: H={HEADS // TP}, B={b}, "
+                             f"N={N_NODES}, 3 launches at Dh=32 and 1 at Dh=144, bf16, tensor cores"}
+    out[1]["tensor_parallel"]["paths"] = {name: r[2] for name, r in tp_paths.items()}
     out[0]["block_rows_sweep"] = sweep
     out[0]["seconds_per_request"] = serve[2]
     out[1]["seconds_per_train_step"] = train[2]
@@ -3715,6 +4293,8 @@ def main() -> None:
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
+    ap.add_argument("--only", choices=["tensor_parallel"],
+                    help="instead of the smoke run, build the kernels and run phase 22 alone")
     ap.add_argument("--profile", nargs="?", const="serve",
                     choices=["serve", "train", "eval", "train-device", "eval3d", "train3d"],
                     help="instead of the smoke run, profile one serving request (default), one train step, "
@@ -3728,6 +4308,12 @@ def main() -> None:
         {"serve": profile_request, "train": profile_train_step, "eval": profile_heldout_call,
          "train-device": profile_device_train_step, "eval3d": profile_eval3d_call,
          "train3d": profile_train3d_step}[args.profile]()
+        print(smi, flush=True)
+        return
+    if args.only:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+            tensor_parallel(Path(tmp), dict.fromkeys(KERNEL_SOURCES, 0.0))
+        phase("done")
         print(smi, flush=True)
         return
     errs = kernels_vs_plain()
@@ -3769,18 +4355,22 @@ def main() -> None:
         t_more = train3d_more(Path(tmp))
     rows += rows3d + rows_t3d + attach_launches_3d(rows_w, e_more, t_more)
     rest = rest_of_the_family(train[3])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        tp_paths, rows_tp = tensor_parallel(Path(tmp), errs)
+    rows += rows_tp
     paths = {"serve": serve[0], "train": train[0], "held-out eval": heldout[0], "recipe": rec[0],
              "mixed": mix[0], "ddp": ddp[0], "3D run_3d --evaluate": e3d[2]["cli_launches"],
              "3D held-out": e3d[0], "3D train": t3d[0],
              **{f"3D {name} run_3d --evaluate": v[2]["cli_launches"] for name, v in e_more.items()},
              **{f"3D {name} held-out": v[0] for name, v in e_more.items()},
              **{f"3D train {label}": v[0] for label, v in t_more.items()},
-             **{name: v[0] for name, v in more_2d.items()}, **{name: v[0] for name, v in rest.items()}}
+             **{name: v[0] for name, v in more_2d.items()}, **{name: v[0] for name, v in rest.items()},
+             **{name: v[0] for name, v in tp_paths.items()}}
     # these launch the forward kernel alone
     sampling_only = {"serve", "held-out eval", "3D run_3d --evaluate", "3D held-out", "rot_ms_heldout",
                      "discrete_heldout", "serve_norm_stats", "angle_sample", "evaluate_rot30",
                      "evaluate_rot30_recipe_images", "evaluate_rot_ms", "evaluate_rot_ms_protocol_sizes",
-                     "export_meshes_3d",
+                     "export_meshes_3d", "tp_request", "tp_heldout",
                      *(f"3D {name} {what}" for name in e_more for what in ("run_3d --evaluate", "held-out"))}
     no_attention = {"gcn"}  # its backbone is matrix products: it must launch no kernel (phase 17)
     idle = {path: counts for path, counts in paths.items() if path not in no_attention and
@@ -3788,7 +4378,7 @@ def main() -> None:
     if idle:
         raise AssertionError(f"a kernel of a main path was not launched: {idle}")
     line = kernel_line(errs, rows, sweep, serve, train, heldout, rec, mix, ddp, tuple(e3d), tuple(t3d), e_more,
-                       t_more, more_2d, rest)
+                       t_more, more_2d, rest, tp_paths)
     phase("done")
     print(smi, flush=True)
     print(json.dumps(line), flush=True)

@@ -33,6 +33,13 @@ def patchify(img: np.ndarray, patch_h: int, patch_w: int, patch_size: int) -> np
     return p.transpose(0, 2, 1, 3, 4).reshape(patch_h * patch_w, patch_size, patch_size, -1)
 
 
+def unpatchify(patches: np.ndarray, patch_h: int, patch_w: int) -> np.ndarray:
+    """Inverse of patchify: (H·W, ps, ps, C) → (H·ps, W·ps, C)."""
+    n, ps, _, c = patches.shape
+    p = patches.reshape(patch_h, patch_w, ps, ps, c)
+    return p.transpose(0, 2, 1, 3, 4).reshape(patch_h * ps, patch_w * ps, c)
+
+
 def rotate_patches(patches: np.ndarray, rot_k: np.ndarray) -> np.ndarray:
     """Rotate each patch by k·90° CCW (array of k per patch)."""
     out = np.empty_like(patches)

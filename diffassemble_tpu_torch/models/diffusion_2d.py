@@ -291,7 +291,10 @@ class Diffusion2D(nn.Module):
         inference_ratio: int | None = None,
     ) -> SampleLoopResult:
         """Full reverse process; ``batch`` holds tensors on the model's device.
-        Returns SampleLoopResult with final (B, N, C) f32."""
+        Returns SampleLoopResult with final (B, N, C) f32. On a model sharded
+        over a tp group (``parallel/mesh.py:shard_params``) every rank of the
+        group calls it on the same batch with a generator seeded alike: the
+        positions stay replicated."""
         cfg = self.cfg
         b, n = batch.x0.shape[:2]
         ratio = inference_ratio or cfg.inference_ratio

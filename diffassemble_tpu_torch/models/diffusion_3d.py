@@ -365,7 +365,9 @@ class Diffusion3D(nn.Module):
         identity, translations at ``noise_weight`` × a unit normal (B, P, 3)
         drawn from ``generator`` unless ``noise`` gives it. Returns
         SampleLoopResult with final (B, P, 7) f32 (13 with 6-DoF) and, with
-        ``keep_trajectory``, every step's state (S, B, P, 7)."""
+        ``keep_trajectory``, every step's state (S, B, P, 7). A model sharded
+        over a tp group runs as the 2D model's ``sample`` does: every rank
+        on the same batch with a generator seeded alike."""
         cfg = self.cfg
         b, p = batch.x0.shape[:2]
         ratio = inference_ratio or cfg.inference_ratio

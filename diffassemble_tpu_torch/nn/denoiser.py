@@ -13,6 +13,11 @@
   features [equiv (:equiv_dim) ‖ inv] are split before fusion into two
   streams (each with the other's channels zeroed), both fused by the one
   fusion MLP, and the backbone is ``DualStreamGraphTransformer``.
+
+Under tensor parallelism (``parallel/mesh.py:shard_params``) the fusion MLP
+is Megatron's pair: ``fc1`` column-parallel behind ``copy_to_tp``, the
+activation on the local columns, ``fc2`` row-parallel, its partial products
+summed by ``reduce_from_tp`` and its bias added once after the sum.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import so3
+from ..parallel.tensor import TensorParallel, copy_to_tp, reduce_from_tp
 from .gnn import DualStreamGraphTransformer, make_gnn
 from .layers import Dense, Embed, LayerNorm, gelu
 
@@ -38,11 +44,21 @@ class FusionMLP(nn.Module):
         self.activation = activation
         self.fc1 = Dense(in_features, hidden, dtype=dtype)
         self.fc2 = Dense(hidden, out, dtype=dtype)
+        self.tp: TensorParallel | None = None  # set by parallel/mesh.py:shard_params
 
     def forward(self, x):
-        if self.activation == "leaky_relu":
-            return F.leaky_relu(self.fc2(F.leaky_relu(self.fc1(x), 0.2)), 0.2)
-        return self.fc2(gelu(self.fc1(x)))
+        act = (lambda y: F.leaky_relu(y, 0.2)) if self.activation == "leaky_relu" else gelu
+        if self.tp is None:
+            y = self.fc2(act(self.fc1(x)))
+        else:
+            # the partial products in f32 from the operands in the compute
+            # type, summed over the group, the bias added once, rounded once
+            # (as one Dense's product with its f32 accumulator)
+            dt = self.fc2.compute_dtype
+            h = act(self.fc1(copy_to_tp(x, self.tp)))
+            y = reduce_from_tp(F.linear(h.float(), self.fc2.weight.to(dt).float()), self.tp)
+            y = (y + self.fc2.bias.to(dt).float()).to(dt)
+        return F.leaky_relu(y, 0.2) if self.activation == "leaky_relu" else y
 
 
 class _GELU(nn.Module):

@@ -15,6 +15,14 @@
   redirecting the edges' sources onto the copies, without doubling N.
 
 All take ``(x, adj, node_mask)``: x (B, N, D), adj (B, N, N) bool, node_mask (B, N).
+
+Under tensor parallelism (``parallel/mesh.py:shard_params`` sets a
+``TransformerConvLayer``'s ``tp``) a layer holds its group's share of the
+heads: the four projections are column-parallel (``copy_to_tp`` on x and on
+``kv``), attention runs over H/tp heads on the shared mask, and
+``gather_from_tp`` makes the layer's output whole. The rest of every
+backbone runs replicated (the Exophormer's virtual rows too; the GCN holds no
+sharded parameter).
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import torch
 from torch import nn
 
 from ..ops.attention import extend_mask_with_virtual_nodes, masked_attention
+from ..parallel.tensor import TensorParallel, copy_to_tp, gather_from_tp
 from .layers import Dense, gelu
 
 
@@ -36,15 +45,21 @@ class TransformerConvLayer(nn.Module):
         self.query = Dense(in_features, out_channels, dtype=dtype)
         self.key = Dense(in_features, out_channels, dtype=dtype)
         self.value = Dense(in_features, out_channels, dtype=dtype)
+        self.tp: TensorParallel | None = None  # set by parallel/mesh.py:shard_params
 
     def forward(self, x, adj, return_weights: bool = False, kv=None, skip_only: bool = False):
         """``kv`` gives the keys' and values' stream (queries and skip still
         come from x); ``skip_only`` applies the skip projection alone."""
         b, n, _ = x.shape
-        h, dh = self.heads, self.out_channels // self.heads
+        tp = self.tp
+        share = 1 if tp is None else tp.size
+        h, dh, c = self.heads // share, self.out_channels // self.heads, self.out_channels // share
+        if tp is not None:
+            x = copy_to_tp(x, tp)
+            kv = None if kv is None else copy_to_tp(kv, tp)
         skip = self.skip(x)
         if skip_only:
-            return skip
+            return skip if tp is None else gather_from_tp(skip, tp)
         src = x if kv is None else kv
         q = self.query(x).reshape(b, n, h, dh)
         k = self.key(src).reshape(b, n, h, dh)
@@ -53,7 +68,10 @@ class TransformerConvLayer(nn.Module):
             out, w = masked_attention(q, k, v, adj, return_weights=True)
         else:
             out, w = masked_attention(q, k, v, adj), None
-        out = skip + out.reshape(b, n, self.out_channels)
+        out = skip + out.reshape(b, n, c)
+        if tp is not None:
+            out = gather_from_tp(out, tp)
+            w = None if w is None else gather_from_tp(w, tp, dim=1)
         return (out, w) if return_weights else out
 
 

@@ -1,4 +1,5 @@
-"""Core ops: schedules, Gaussian diffusion, masked attention (+ CUDA kernel), assignment."""
+"""Core ops: schedules, Gaussian diffusion, masked attention (+ CUDA kernel), assignment,
+the Rotation3D container, distributions on SE(3)/SO(3) and MMD tests."""
 
 from .assignment import greedy_assignment, greedy_assignment_batch  # noqa: F401
 from .attention import (  # noqa: F401
@@ -17,3 +18,5 @@ from .gaussian import (  # noqa: F401
     sample_loop,
 )
 from .schedules import DiffusionSchedule, extract  # noqa: F401
+from .rotation3d import Rotation3D  # noqa: F401
+from .distributions import AffineT, bingham_sample, igso3xr3_sample, mmd_rbf, mmd_rotation  # noqa: F401

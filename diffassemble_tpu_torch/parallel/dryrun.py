@@ -1,15 +1,21 @@
-"""The torch twin of ``__graft_entry__.dryrun_multichip``: data-parallel
-training checked on the CPU.
+"""The torch twin of ``__graft_entry__.dryrun_multichip``: data- and
+tensor-parallel training checked on the CPU.
 
 ``dryrun_multichip(n)`` spawns ``n`` processes that form a gloo group on
-localhost. Each runs one full train step (``train_state.make_train_step``
-over ``parallel.mesh.data_parallel_loss``, the Trainer's step) under DDP on
-its slice of a tiny batch; the parent runs the same step in one process on
-the whole batch and checks that every rank ends with the same parameters and
-that they, the loss and the gradients equal the single-process step's. It
-does so twice: with as many valid nodes on every rank, and with puzzles of
-different sizes on the ranks (different numbers of valid nodes), which only
-a global BatchNorm and a global masked mean get right. ``backbone`` swaps
+localhost, on a mesh of dp = n / tp × tp, tp = 2 where n is even and at
+least 4 (as the JAX dryrun chooses), else 1. Each runs one full train step
+(``train_state.make_train_step`` over ``parallel.mesh.data_parallel_loss``,
+the Trainer's step) under DDP on its dp slice of a tiny batch, with tp > 1
+on a model sharded over its tp group (``parallel.mesh.shard_params``); the
+parent runs the same step in one process on the whole batch and checks that
+every rank ends with the same whole parameters and that they, the loss and
+the gradients equal the single-process step's. It does so twice: with as
+many valid nodes on every dp place, and with puzzles of different sizes on
+the dp places (different numbers of valid nodes), which only a global
+BatchNorm and a global masked mean get right. With tp > 1 it also runs the
+2D DDIM sampler and the 3D sampler on the whole batch on every rank of the
+sharded model (the ranks' poses bit-equal, within ``SAMPLE_TOL`` of one
+process) and the 3D step with the relative-pose losses below. ``backbone`` swaps
 the tiny model's efficientnet_b0 for another encoder (resnet18equiv: its
 OrientationNorm statistics are global too). ``dryrun_multichip_3d(n)`` does
 the same for a small 3D model with the relative-pose losses, on objects
@@ -61,8 +67,8 @@ FAMILY_3D = "3d"
 
 
 def _batch(world: int, unequal: bool):
-    """2 puzzles per rank; with ``unequal`` rank r's are of size 3×3 for even
-    r and 2×2 for odd r (9 or 4 valid nodes of 9), else all 3×3."""
+    """2 puzzles per dp place; with ``unequal`` place r's are of size 3×3 for
+    even r and 2×2 for odd r (9 or 4 valid nodes of 9), else all 3×3."""
     from ..train.device_data import build_device_data_mixed, gather_batch_mixed
 
     sizes = [(3, 3), (2, 2)] if unequal else [(3, 3)]
@@ -78,7 +84,7 @@ def _batch(world: int, unequal: bool):
 
 def contact_counts(batch, world: int) -> list[int]:
     """The ground-truth contact pairs (``losses_3d.contact_matrix`` at
-    ``CFG_3D``'s threshold) in each rank's slice of a fragment batch."""
+    ``CFG_3D``'s threshold) in each of ``world`` dp slices of a fragment batch."""
     from ..models.losses_3d import contact_matrix
     from ..models.diffusion_3d import Diffusion3DConfig
 
@@ -88,8 +94,8 @@ def contact_counts(batch, world: int) -> list[int]:
 
 
 def _batch_3d(world: int):
-    """2 objects per rank, the first 2·world of the small training split (on
-    2 ranks their ground-truth contact counts are 4 and 2)."""
+    """2 objects per dp place, the first 2·world of the small training split
+    (on 2 places their ground-truth contact counts are 4 and 2)."""
     from ..data.breaking_bad import collate_fragments, get_dataset_3d
 
     train, _, _ = get_dataset_3d("synthetic", **DATA_3D)
@@ -111,40 +117,71 @@ def _model(family: str):
     return Diffusion2D(Diffusion2DConfig(**{**CFG, "backbone": family}), device="cpu", seed=0)
 
 
-def _cases(family: str, world: int) -> dict:
-    """Each case's whole batch: for the 3D model one, with unequal contact
-    counts; for a 2D one ``CASES``."""
+def tp_for(n_devices: int) -> int:
+    """The JAX dryrun's tp for ``n_devices``: 2 where it is even and at least 4."""
+    return 2 if n_devices % 2 == 0 and n_devices >= 4 else 1
+
+
+def _cases(family: str, dp: int, tp: int = 1) -> dict:
+    """Each case's (family, kind, whole batch), kind "step" or "sample": for
+    the 3D model one step, with unequal contact counts; for a 2D one a step
+    of each of ``CASES``, and with tp > 1 the 2D sampler, the 3D step and
+    the 3D sampler too."""
     if family == FAMILY_3D:
-        return {"unequal_contacts": _batch_3d(world)}
-    return {case: _batch(world, unequal) for case, unequal in CASES.items()}
+        return {"unequal_contacts": (FAMILY_3D, "step", _batch_3d(dp))}
+    cases = {case: (family, "step", _batch(dp, unequal)) for case, unequal in CASES.items()}
+    if tp > 1:
+        cases["sampler"] = (family, "sample", _batch(dp, True))
+        cases["unequal_contacts_3d"] = (FAMILY_3D, "step", _batch_3d(dp))
+        cases["sampler_3d"] = (FAMILY_3D, "sample", _batch_3d(dp))
+    return cases
 
 
 def _step(batch, mesh=None, family: str = CFG["backbone"]) -> dict:
-    """One train step of ``_model(family)`` on ``batch``: its aux, the
-    parameters before and after, the gradients and the unfactored
-    parameters' names."""
+    """One train step of ``_model(family)`` on ``batch`` (sharded over the
+    mesh's tp group where tp > 1): its aux, the whole parameters before and
+    after, the whole gradients and the unfactored parameters' names."""
     from ..train.train_state import create_train_state, make_train_step
-    from .mesh import Mesh, data_parallel_loss, shard_batch
+    from .mesh import Mesh, data_parallel_loss, gather_params, shard_batch, shard_params
 
     mesh = mesh or Mesh()
     model = _model(family)
     before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    layout = shard_params(mesh, model)
     opt = model.make_optimizer()
     state = create_train_state(model, opt, torch.Generator().manual_seed(1))
-    step = make_train_step(data_parallel_loss(model, mesh), opt, max_grad_norm=1.0)
+    step = make_train_step(data_parallel_loss(model, mesh), opt, max_grad_norm=1.0, layout=layout)
     state, aux = step(state, shard_batch(mesh, batch))
     return {"aux": {k: float(v) for k, v in aux.items()}, "before": before,
-            "params": {k: p.detach().clone() for k, p in state.params.items()},
-            "grads": {k: p.grad.detach().clone() for k, p in state.params.items()},
+            "params": {k: p.clone() for k, p in gather_params(model).items()},
+            "grads": {k: g.clone() for k, g in gather_params(model, {k: p.grad for k, p in state.params.items()}).items()},
             "unfactored": sorted(state.opt_state["v"])}
+
+
+def _sample(batch, mesh=None, family: str = CFG["backbone"]) -> dict:
+    """The sampler of the seeded ``_model(family)`` (sharded where tp > 1)
+    on the whole ``batch``, its noise from a generator seeded alike on every
+    rank: the final poses."""
+    from .mesh import Mesh, shard_params
+
+    model = _model(family)
+    shard_params(mesh or Mesh(), model)
+    return {"final": model.sample(batch, torch.Generator().manual_seed(2)).final}
 
 
 GRAD_TOL = {"efficientnet_b0": (1e-4, 1e-6, 1e-5), "resnet18equiv": (3e-2, 1e-5, 1e-5),
             FAMILY_3D: (2e-3, 1e-6, 2e-4)}
-CASES = {"equal": False, "unequal": True}  # case → ranks hold puzzles of different sizes
+SAMPLE_TOL = 1e-5  # the samplers' final poses, absolute (tests/test_sharding.py's forward tolerance)
+CASES = {"equal": False, "unequal": True}  # case → dp places hold puzzles of different sizes
+_RUN = {"step": _step, "sample": _sample}
 
 
-def _worker(rank: int, world: int, port: int, out_dir: str, family: str) -> None:
+def _rank_cases(mesh, family: str) -> dict:
+    """Every case of ``_cases`` on this rank of ``mesh``, by case."""
+    return {case: _RUN[kind](batch, mesh, fam) for case, (fam, kind, batch) in _cases(family, mesh.dp, mesh.tp).items()}
+
+
+def _run_rank(rank: int, world: int, port: int, out_dir: str, tp: int, fn, args: tuple) -> None:
     import torch.distributed as dist
 
     from .mesh import make_mesh
@@ -152,10 +189,34 @@ def _worker(rank: int, world: int, port: int, out_dir: str, family: str) -> None
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world, rank=rank)
     try:
-        for case, batch in _cases(family, world).items():
-            torch.save(_step(batch, make_mesh(), family), Path(out_dir) / f"{case}{rank}.pt")
+        torch.save(fn(make_mesh(world, dp=world // tp, tp=tp), *args), Path(out_dir) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
+
+
+def run_on_ranks(fn, n_devices: int, tp: int, *args, timeout: float | None = None) -> list:
+    """``fn(mesh, *args)`` on each of ``n_devices`` spawned gloo ranks on a
+    mesh of dp = n_devices / tp × tp; their results (anything ``torch.save``
+    takes), by rank. ``fn`` is a module-level function. A rank that raises
+    raises here; ranks still running after ``timeout`` seconds are taken to
+    hang: all are stopped and AssertionError is raised."""
+    import time
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="ranks_") as tmp:
+        start = time.perf_counter()
+        ctx = mp.start_processes(_run_rank, args=(n_devices, _free_port(), tmp, tp, fn, args), nprocs=n_devices,
+                                 start_method="spawn", join=False)
+        try:
+            while not ctx.join(timeout=5):
+                if timeout is not None and time.perf_counter() - start > timeout:
+                    raise AssertionError(f"{fn.__name__}: the ranks did not end within {timeout} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        return [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False) for r in range(n_devices)]
 
 
 def _free_port() -> int:
@@ -167,32 +228,42 @@ def _free_port() -> int:
 def dryrun_multichip(n_devices: int = 2, backbone: str = CFG["backbone"]) -> dict[str, dict[str, float]]:
     """Run the check for each case; raises AssertionError on a mismatch and
     returns each case's worst error/tolerance ratios."""
-    import torch.multiprocessing as mp
-
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    with tempfile.TemporaryDirectory(prefix="dryrun_") as tmp:
-        workers = mp.start_processes(_worker, args=(n_devices, _free_port(), tmp, backbone), nprocs=n_devices,
-                                     start_method="spawn", join=False)
-        try:  # the single-process references while the ranks run
-            refs = {case: (batch, _step(batch, family=backbone))
-                    for case, batch in _cases(backbone, n_devices).items()}
-        finally:
-            torch.set_num_threads(threads)
-            while not workers.join():
-                pass
-        out = {}
-        for case, (batch, ref) in refs.items():
-            ranks = [torch.load(Path(tmp) / f"{case}{r}.pt", weights_only=True) for r in range(n_devices)]
-            out[case] = _compare(ranks, ref, *GRAD_TOL[backbone])
-            per_rank = (f"contact pairs per rank {contact_counts(batch, n_devices)}" if backbone == FAMILY_3D
-                        else f"valid nodes per rank {batch.node_mask.reshape(n_devices, -1).sum(-1).tolist()}")
-            print(f"dryrun_multichip {case}: {per_rank}, worst err/tol: loss "
-                  f"{out[case]['loss']:.3f}, gradients {out[case]['grads']:.3f}, parameters "
-                  f"{out[case]['params']:.3f}", flush=True)
-    print(f"dryrun_multichip ok: world={n_devices}, {'the 3D model' if backbone == FAMILY_3D else 'backbone'} "
+    tp = tp_for(n_devices)
+    dp = n_devices // tp
+    ranks = run_on_ranks(_rank_cases, n_devices, tp, backbone)
+    refs = {case: (fam, kind, batch, _RUN[kind](batch, family=fam))
+            for case, (fam, kind, batch) in _cases(backbone, dp, tp).items()}
+    out = {}
+    for case, (fam, kind, batch, ref) in refs.items():
+        results = [r[case] for r in ranks]
+        if kind == "sample":
+            out[case] = _compare_finals(results, ref)
+            print(f"dryrun_multichip {case}: final poses of {batch.x0.shape[0]} "
+                  f"{'objects' if fam == FAMILY_3D else 'puzzles'} on every rank, worst err/tol "
+                  f"{out[case]['final']:.3f}", flush=True)
+            continue
+        out[case] = compare_steps(results, ref, *GRAD_TOL[fam])
+        per_rank = (f"contact pairs per dp place {contact_counts(batch, dp)}" if fam == FAMILY_3D
+                    else f"valid nodes per dp place {batch.node_mask.reshape(dp, -1).sum(-1).tolist()}")
+        print(f"dryrun_multichip {case}: {per_rank}, worst err/tol: loss "
+              f"{out[case]['loss']:.3f}, gradients {out[case]['grads']:.3f}, parameters "
+              f"{out[case]['params']:.3f}", flush=True)
+    print(f"dryrun_multichip ok: world={n_devices}, mesh={{'dp': {dp}, 'tp': {tp}}}, "
+          f"{'the 3D model' if backbone == FAMILY_3D else 'backbone'} "
           f"{'' if backbone == FAMILY_3D else backbone}".rstrip(), flush=True)
     return out
+
+
+def _compare_finals(ranks: list[dict], ref: dict) -> dict[str, float]:
+    """Every rank's final positions bit-equal to rank 0's, and within
+    ``SAMPLE_TOL`` of the single-process ``ref``."""
+    got = ranks[0]["final"]
+    if not all(torch.equal(r["final"], got) for r in ranks[1:]):
+        raise AssertionError("ranks disagree on the sampler's positions")
+    err = float((got - ref["final"]).abs().max())
+    if not err <= SAMPLE_TOL:
+        raise AssertionError(f"the sampler's positions differ from one process by {err:.3e}")
+    return {"final": err / SAMPLE_TOL}
 
 
 def dryrun_multichip_3d(n_devices: int = 2) -> dict:
@@ -203,6 +274,7 @@ def dryrun_multichip_3d(n_devices: int = 2) -> dict:
     relative-pose losses, each divided by the rank's own counts, lies from
     the whole batch's. Above 1, the check tells the two apart."""
     out = dryrun_multichip(n_devices, FAMILY_3D)
+    n_devices //= tp_for(n_devices)  # the dp places
     batch = _batch_3d(n_devices)
     model = _model(FAMILY_3D)
     b = batch.x0.shape[0] // n_devices
@@ -221,11 +293,15 @@ def dryrun_multichip_3d(n_devices: int = 2) -> dict:
     return out
 
 
-def _compare(ranks: list[dict], ref: dict, rel: float = 1e-4, atol: float = 1e-6,
-             norm_rel: float = 1e-5) -> dict[str, float]:
-    """Rank 0's step against the single-process ``ref``; every rank's
-    parameters equal rank 0's. The aux's gradient norms within ``norm_rel``
-    relative, its other entries within 1e-5."""
+def compare_steps(ranks: list[dict], ref: dict, rel: float = 1e-4, atol: float = 1e-6,
+                  norm_rel: float = 1e-5, loss_rel: float = 1e-5, steps: bool = True) -> dict[str, float]:
+    """Rank 0's step against the single-process ``ref`` (each as ``_step``
+    returns it); every rank's parameters equal rank 0's. The aux's gradient
+    norms within ``norm_rel`` relative, its other entries within
+    ``loss_rel``; each gradient within ``rel`` of its largest entry plus
+    ``atol`` of the model's largest; with ``steps``, the parameters after the
+    step within ``rel`` of the parameter's largest step plus 1e-6 relative
+    (see the module's docstring). Returns the worst error/tolerance ratios."""
     aux, before, params, grads = ref["aux"], ref["before"], ref["params"], ref["grads"]
     got = ranks[0]
     for r in ranks[1:]:
@@ -233,7 +309,7 @@ def _compare(ranks: list[dict], ref: dict, rel: float = 1e-4, atol: float = 1e-6
             raise AssertionError("ranks disagree")
     worst = {"loss": 0.0, "grads": 0.0, "params": 0.0}
     for key, want in aux.items():
-        err = abs(got["aux"][key] - want) / ((norm_rel if key.startswith("grad_norm") else 1e-5) * abs(want) + 1e-30)
+        err = abs(got["aux"][key] - want) / ((norm_rel if key.startswith("grad_norm") else loss_rel) * abs(want) + 1e-30)
         worst["loss"] = max(worst["loss"], err)
         if not err <= 1.0:
             raise AssertionError(f"{key}: {got['aux'][key]} vs {want}")
@@ -244,13 +320,16 @@ def _compare(ranks: list[dict], ref: dict, rel: float = 1e-4, atol: float = 1e-6
         worst["grads"] = max(worst["grads"], g_err / g_tol)
         if not g_err <= g_tol:
             raise AssertionError(f"{k}: gradient differs by {g_err:.3e} (tol {g_tol:.3e})")
+        if not steps:
+            continue
         d_want, d_got = params[k] - before[k], got["params"][k] - before[k]
         largest = float(d_want.abs().max())
         tol = rel * largest + 1e-6 * params[k].abs()
         sure = g.abs() > g_tol if k in ref["unfactored"] else torch.ones_like(g, dtype=torch.bool)
         err = (d_got - d_want).abs()
         if not bool((err <= tol)[sure].all()):
-            raise AssertionError(f"{k}: the step differs")
+            raise AssertionError(f"{k}: the step differs by up to {float((err / tol)[sure].max()):.3g} times its "
+                                 f"tolerance (largest step {largest:.3e})")
         if not bool((d_got.abs() <= largest + tol)[~sure].all()):
             raise AssertionError(f"{k}: the step exceeds the largest")
         worst["params"] = max(worst["params"], float((err / tol)[sure].max()) if sure.any() else 0.0)

@@ -1,1 +1,3 @@
-"""Training: Adafactor, train state and step, metrics, checkpoints, the trainer."""
+"""Training: Adafactor, train state and step, metrics, checkpoints, the trainer, LR schedules."""
+
+from .schedules_lr import cosine_annealing_warmup_restarts  # noqa: F401

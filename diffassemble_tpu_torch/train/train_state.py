@@ -5,6 +5,17 @@ pytree. Here the params are the model's own parameters, updated in place
 under ``no_grad`` (the port's counterpart of donation); the rng is a
 ``torch.Generator`` that the loss draws from; gradient accumulation is a loop
 over microbatches.
+
+Under tensor parallelism (``parallel/mesh.py:shard_params``) the model holds
+this rank's slices of the sharded parameters and the step is the
+single-process step all the same: the replicated parameters' gradients take
+their mean over the tp group (equal on every rank, so their weights stay
+equal), each sharded gradient (and parameter) is gathered whole over the tp
+group (``TPLayout``), the non-finite guard, the global norm and clip,
+Adafactor's factored moments, its update RMS and its parameter RMS run on the
+whole tensors, and each rank keeps its slice of the update and of the
+clipped gradient. The optimizer state is whole on every rank; the EMA,
+elementwise, stays in slices.
 """
 
 from __future__ import annotations
@@ -27,10 +38,14 @@ class TrainState(NamedTuple):
 
 def create_train_state(model: nn.Module, optimizer, generator: torch.Generator,
                        ema: bool = False) -> TrainState:
+    """The state of ``model``'s parameters; of a sharded model, with the
+    optimizer state of the whole parameters."""
     params = dict(model.named_parameters())
+    layout = getattr(model, "tp_layout", None)
+    whole = params if layout is None else {k: p.new_empty(layout.full_shape(k, p)) for k, p in params.items()}
     return TrainState(
         params=params,
-        opt_state=optimizer.init(params),
+        opt_state=optimizer.init(whole),
         step=0,
         generator=generator,
         ema_params={k: p.detach().clone() for k, p in params.items()} if ema else None,
@@ -62,15 +77,21 @@ def gradients(params: dict[str, torch.Tensor]) -> list[torch.Tensor]:
 
 
 @torch.no_grad()
-def apply_update(state: TrainState, optimizer, ema_decay: float | None, aux: dict) -> tuple[TrainState, dict]:
+def apply_update(state: TrainState, optimizer, ema_decay: float | None, aux: dict,
+                 layout=None, grads: dict[str, torch.Tensor] | None = None) -> tuple[TrainState, dict]:
     """The end of a train step, from the (clipped) gradients in each
     parameter's ``.grad``: the optimizer updates the parameters in place, the
     warmup-debiased EMA follows, and ``aux`` gains the global gradient norm
-    and one norm per top-level subtree (encoder, denoiser)."""
+    and one norm per top-level subtree (encoder, denoiser). With a
+    ``layout`` (a ``TPLayout``), ``grads`` are the whole clipped gradients
+    by name, the optimizer runs on them and the whole parameters, and each
+    parameter takes its slice of the update."""
     params = state.params
-    updates, opt_state = optimizer.update({k: p.grad for k, p in params.items()}, state.opt_state, params)
+    grads = {k: p.grad for k, p in params.items()} if grads is None else grads
+    whole = params if layout is None else layout.gather_all(params)
+    updates, opt_state = optimizer.update(grads, state.opt_state, whole)
     for k, p in params.items():
-        p.add_(updates[k])
+        p.add_(updates[k] if layout is None else layout.local(k, updates[k]))
     ema = state.ema_params
     if ema_decay is not None and ema is not None:
         # warmup-debiased decay: early steps track params closely
@@ -79,10 +100,10 @@ def apply_update(state: TrainState, optimizer, ema_decay: float | None, aux: dic
         d, keep = float(d), float(np.float32(1.0) - d)
         for k, e in ema.items():
             e.copy_(d * e + keep * params[k])
-    aux["grad_norm"] = global_norm(p.grad for p in params.values())
+    aux["grad_norm"] = global_norm(grads.values())
     groups: dict[str, list[torch.Tensor]] = {}
-    for k, p in params.items():
-        groups.setdefault(k.split(".", 1)[0], []).append(p.grad)
+    for k, g in grads.items():
+        groups.setdefault(k.split(".", 1)[0], []).append(g)
     for k, gs in groups.items():
         aux[f"grad_norm/{k}"] = global_norm(gs)
     return TrainState(params, opt_state, state.step + 1, state.generator, ema), aux
@@ -99,6 +120,7 @@ def make_train_step(
     accumulate: int = 1,
     max_grad_norm: float | None = 10.0,
     ema_decay: float | None = None,
+    layout=None,
 ) -> Callable[[TrainState, Any], tuple[TrainState, dict]]:
     """Build the train step: ``step(state, batch) → (state, aux)``.
 
@@ -111,7 +133,9 @@ def make_train_step(
     the global gradient norm is clipped to ``max_grad_norm`` with an
     overflow-safe norm, then the optimizer updates the parameters in place
     and the warmup-debiased EMA follows. The clipped gradients stay in each
-    parameter's ``.grad`` until the next step.
+    parameter's ``.grad`` until the next step. ``layout`` is a sharded
+    model's ``tp_layout``: the guard, the clip and the optimizer then run on
+    the whole gradients, gathered over the tp group.
     """
 
     def clip(grads: list[torch.Tensor]) -> None:
@@ -144,7 +168,12 @@ def make_train_step(
                 if p.grad is not None:
                     p.grad.div_(accumulate)
             aux = {"loss": total / accumulate}
-        grads = gradients(params)
+        local = dict(zip(params, gradients(params)))
+        if layout is not None:
+            with torch.no_grad():
+                layout.sync_replicated(local)
+        whole = local if layout is None else layout.gather_all(local)
+        grads = list(whole.values())
 
         # non-finite guard BEFORE the clip: one Inf would drive the global
         # norm to inf and the clip scale to 0, zeroing every gradient; zero
@@ -155,7 +184,11 @@ def make_train_step(
                 g.nan_to_num_(nan=0.0, posinf=0.0, neginf=0.0)
             clip(grads)
             aux["grad_nonfinite"] = 1.0 - all_finite.float()
-            return apply_update(state, optimizer, ema_decay, aux)
+            if layout is not None:
+                for (k, g), p in zip(whole.items(), params.values()):
+                    if g is not p.grad:
+                        p.grad.copy_(layout.local(k, g))
+            return apply_update(state, optimizer, ema_decay, aux, layout, whole)
 
     return step
 

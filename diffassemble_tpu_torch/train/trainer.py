@@ -18,10 +18,15 @@ tasks: puzzles (``puzzle_adapter``) and fragments (``fragment_adapter``).
   every 50 steps, an evaluation and a checkpoint once the round's cutoff is
   that near).
 
-Only the main process logs, evaluates and saves; it evaluates the whole eval
-batch on its own device, which gives the single-process metrics, while the
-other ranks go on to the next step and wait for it there. The ranks agree on
-every stop (preemption, deadline) before acting on it.
+Only the main process logs and saves; it evaluates the whole eval batch on
+its own device, which gives the single-process metrics, while the other
+ranks go on to the next step and wait for it there. The ranks agree on every
+stop (preemption, deadline) before acting on it. On a mesh with tp > 1 the
+model is sharded once, in ``new_state`` (``parallel/mesh.py:shard_params``);
+the main process's tp group (the ranks at dp place 0) evaluates together,
+each rank running its share of the heads on the same batch and the same
+draws, and gathers the whole parameters for a checkpoint, which therefore
+loads in one process; a resume slices them again.
 
 Each evaluation draws its first batch's first ``viz_every_eval`` samples
 under ``<run_dir>/viz`` (``_save_viz``): a reconstruction image per puzzle
@@ -46,7 +51,7 @@ from ..data.batch import FragmentBatch, PuzzleBatch, collate_puzzles
 from ..data.breaking_bad import collate_fragments
 from ..data.prefetch import prefetch
 from ..parallel.distributed import PreemptionGuard, is_main_process
-from ..parallel.mesh import Mesh, auto_mesh, data_parallel_loss, shard_batch
+from ..parallel.mesh import Mesh, auto_mesh, data_parallel_loss, shard_batch, shard_params, unshard_params
 from ..utils.deadline import time_left as _deadline_time_left
 from .checkpoint import CheckpointManager
 from .metrics import MeanMetrics, update_fragment_metrics, update_puzzle_metrics
@@ -210,14 +215,23 @@ class Trainer:
     @functools.cached_property
     def train_step(self):
         return make_train_step(data_parallel_loss(self.model, self.mesh), self.optimizer, self.accumulate,
-                               ema_decay=self.ema_decay)
+                               ema_decay=self.ema_decay, layout=self.layout)
+
+    @property
+    def layout(self):
+        """The sharded model's ``TPLayout``, or None."""
+        return getattr(self.model, "tp_layout", None)
 
     def _device_batch(self, np_batch):
         return self.adapter.batch_cls(*np_batch).to(self.device)
 
     def new_state(self) -> TrainState:
-        """Fresh seeded weights (and ``encoder_init``), optimizer state and generator."""
+        """Fresh seeded weights (and ``encoder_init``), optimizer state and
+        generator; on a mesh with tp > 1 the model is then sharded (call it
+        before the first train step)."""
+        unshard_params(self.model)
         self.model.init(self.seed)
+        shard_params(self.mesh, self.model)
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
         return create_train_state(self.model, self.optimizer, gen, ema=self.ema_decay is not None)
 
@@ -231,7 +245,7 @@ class Trainer:
         # draw keeps a fragment adapter's part-dropout rng in step with it
         self.adapter.collate([train_ds[0]], n_max)
         state = self.new_state()
-        restored = self.ckpt.restore(state)
+        restored = self._restore(state)
         if restored is not None:
             state = restored
             print(f"resumed from step {state.step}", flush=True)
@@ -288,6 +302,22 @@ class Trainer:
         self._save(step, state)
         return state
 
+    def _restore(self, state: TrainState) -> TrainState | None:
+        """The run's latest checkpoint into ``state``, or None; a sharded
+        model takes its slices of the whole parameters and EMA saved."""
+        layout = self.layout
+        if layout is None:
+            return self.ckpt.restore(state)
+        ema = None if state.ema_params is None else layout.gather_all(state.ema_params)
+        restored = self.ckpt.restore(state._replace(params=layout.gather_all(state.params), ema_params=ema))
+        if restored is None:
+            return None
+        with torch.no_grad():
+            for k, p in state.params.items():
+                p.copy_(layout.local(k, restored.params[k]))
+        ema = None if restored.ema_params is None else {k: layout.local(k, v) for k, v in restored.ema_params.items()}
+        return restored._replace(params=state.params, ema_params=ema)
+
     def _any_rank(self, flag: bool) -> bool:
         """Whether ``flag`` holds on any rank (every rank calls this alike)."""
         if not self.mesh.distributed:
@@ -303,6 +333,14 @@ class Trainer:
             self.logger.log(step, payload)
 
     def _save(self, step: int, state: TrainState, metrics: dict | None = None) -> None:
+        """The main process saves ``state``; a sharded model's whole
+        parameters and EMA, gathered by the main process's tp group."""
+        if self.mesh.dp_rank != 0:
+            return
+        layout = self.layout
+        if layout is not None:
+            ema = None if state.ema_params is None else layout.gather_all(state.ema_params)
+            state = state._replace(params=layout.gather_all(state.params), ema_params=ema)
         if self.main:
             self.ckpt.save(step, state, metrics)
 
@@ -335,8 +373,8 @@ class Trainer:
         does (per puzzle size, or per category and ``_AVG``); the model runs
         with ``params`` (and, with ``calibrate_eval``, statistics calibrated
         under them) and gets its own back.
-        Other ranks than the main one return {} at once."""
-        if not self.main:
+        Other ranks than the main one (and its tp group) return {} at once."""
+        if self.mesh.dp_rank != 0:
             return {}
         n_max = self.adapter.max_nodes(eval_ds)
         agg = MeanMetrics()
@@ -354,7 +392,7 @@ class Trainer:
                     final = self.model.sample(db, gen).final
                     bm = {k: v.cpu().numpy() for k, v in self.model.metrics_from_final(final, db).items()}
                     self.adapter.fold_metrics(agg, bm, nb)
-                    if bi == 0 and self.viz_every_eval:
+                    if bi == 0 and self.viz_every_eval and self.main:
                         self._save_viz(nb, final.cpu().numpy(), tag, step)
             finally:
                 # training must never see frozen statistics

@@ -34,6 +34,9 @@ def test_patchify_and_rotation_identical():
     p = tdata.patchify(img, 2, 3, 32)
     assert np.array_equal(p, jdata.patchify(img, 2, 3, 32))
     assert np.array_equal(jdata.unpatchify(p, 2, 3), img)
+    for q, (h, w) in ((p, (2, 3)), (tdata.patchify(_img(3, 4, 1), 4, 1, 32), (4, 1))):
+        a, b = jdata.unpatchify(q, h, w), tdata.unpatchify(q, h, w)
+        assert a.dtype == b.dtype and np.array_equal(a, b)
     rot_k = np.random.default_rng(2).integers(0, 4, size=6)
     assert np.array_equal(tdata.rotate_patches(p, rot_k), jdata.rotate_patches(p, rot_k))
     assert np.array_equal(tdata.ROT_VECTORS, jdata.ROT_VECTORS)
@@ -110,3 +113,35 @@ def test_collate_fragments_identical_and_to_device(missing):
         assert x.dtype == y.dtype and np.array_equal(x, y)
     t = b.to("cpu")
     assert isinstance(t, tdata.FragmentBatch) and all(np.array_equal(x.numpy(), y) for x, y in zip(t, b))
+
+
+# the text datasets: the port's copy of text.py
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_text_datasets_identical(seed, tmp_path):
+    from diffassemble_tpu.data import text as jtext
+    from diffassemble_tpu_torch.data import text as ttext
+
+    corpus = tmp_path / "corpus.txt"
+    corpus.write_text("one two three.\nfour five.\nsix seven eight.\nnine ten.\n\nshort.\n\n"
+                      "a b.\nc d.\ne f.\ng h.\ni j.\nk l.\nm n.\no p.\nq r.\n")
+    for path in (None, str(corpus)):
+        pairs = [(jtext.get_dataset_text(path, seed=seed), ttext.get_dataset_text(path, seed=seed)),
+                 (jtext.get_dataset_vist(path, seed=seed), ttext.get_dataset_vist(path, seed=seed))]
+        for (ja, jb), (ta, tb) in pairs:
+            for j, t in ((ja, ta), (jb, tb)):
+                assert len(j) == len(t) and j.max_nodes == t.max_nodes
+                samples = [t[i] for i in range(min(len(t), 5))]
+                for i, s in enumerate(samples):
+                    want = j[i]
+                    assert want.keys() == s.keys()
+                    for key in want:
+                        x, y = np.asarray(want[key]), np.asarray(s[key])
+                        assert x.dtype == y.dtype and np.array_equal(x, y), key
+                a, b = jtext.collate_sequences(samples, t.max_nodes), ttext.collate_sequences(samples, t.max_nodes)
+                assert a._fields == b._fields and all(x.dtype == y.dtype and np.array_equal(x, y)
+                                                      for x, y in zip(a, b))
+    feats = ["the same words", "other words here", ""]
+    assert np.array_equal(jtext.hashed_ngram_features(feats, 64), ttext.hashed_ngram_features(feats, 64))
+    assert np.array_equal(jtext.order_positions(7), ttext.order_positions(7))

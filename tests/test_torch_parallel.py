@@ -1,7 +1,8 @@
 """The port's data-parallel training and the trainer's guards, on the CPU:
 the dryrun twin (2 gloo ranks under DDP against one process, with equal and
 with unequal valid-node counts per rank), a world of one under DDP bit-equal
-to the plain step, the mesh helpers and the tensor-parallel refusal,
+to the plain step, the mesh helpers (the rank layout of a dp × tp mesh; a
+tensor-parallel mesh needs a process for each of its places),
 ``-gpus`` clamped to the run's processes, and the preemption and
 round-deadline guards of ``Trainer.fit``.
 
@@ -60,15 +61,40 @@ def test_mesh_single_process_and_tensor_parallel_refusal():
     assert (m.dp, m.tp, m.rank, m.distributed) == (1, 1, 0, False) and m.shape == {"dp": 1, "tp": 1}
     with pytest.raises(ValueError, match="one process per device"):
         mesh.make_mesh(2)
-    for call in (lambda: mesh.make_mesh(1, tp=2), lambda: mesh.auto_mesh(8, tp=2),
-                 lambda: mesh.param_sharding_rules(m, {})):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 16"):
-            call()
+    # tensor parallelism works, but a single process cannot hold a place for each tp rank
+    with pytest.raises(ValueError, match=r"dp\(0\)\*tp\(2\) != devices\(1\)"):
+        mesh.make_mesh(1, tp=2)
+    with pytest.raises(ValueError, match="a mesh of 2 devices in a run of 1 processes"):
+        mesh.auto_mesh(8, tp=2)
+    model = Diffusion2D(Diffusion2DConfig(**{**CFG, "n_layers": 1}), device="cpu")
+    assert mesh.param_sharding_rules(m, model) == dict.fromkeys(k for k, _ in model.named_parameters())
+    assert mesh.shard_params(m, model) is None and getattr(model, "tp_layout", None) is None
+    tp_rules = mesh.param_sharding_rules(mesh.Mesh(dp=1, tp=2), model)
+    assert tp_rules["denoiser.gnn.transformer.layers.0.query.weight"] == 0
+    assert tp_rules["denoiser.fusion.fc2.weight"] == 1 and tp_rules["encoder.conv_stem.weight"] is None
     batch = small_batch(b=4)
     part = mesh.shard_batch(mesh.Mesh(dp=2, rank=1), batch)
     assert all(np.array_equal(f, g[2:]) for f, g in zip(part, batch))
+    part = mesh.shard_batch(mesh.Mesh(dp=2, tp=2, rank=3), batch)  # dp place 1 of 2
+    assert all(np.array_equal(f, g[2:]) for f, g in zip(part, batch))
     with pytest.raises(ValueError, match="does not split"):
         mesh.shard_batch(mesh.Mesh(dp=3), batch)
+
+
+@pytest.mark.parametrize("dp,tp", [(1, 2), (2, 2), (4, 2), (1, 4), (2, 4)])
+def test_mesh_places_ranks_as_the_jax_mesh_lays_out_devices(dp, tp):
+    """Rank r sits at (r // tp, r % tp), where the JAX package's mesh puts
+    device r (its devices reshaped to (dp, tp)); a dp group holds the ranks
+    at one tp place, a tp group the consecutive ranks at one dp place."""
+    layout = np.arange(dp * tp).reshape(dp, tp)
+    dp_groups, tp_groups = mesh.mesh_groups(dp, tp)
+    assert dp_groups == [layout[:, t].tolist() for t in range(tp)]
+    assert tp_groups == [layout[d].tolist() for d in range(dp)]
+    for r in range(dp * tp):
+        m = mesh.Mesh(dp=dp, tp=tp, rank=r, distributed=True)
+        assert layout[m.dp_rank, m.tp_rank] == r
+        assert r in dp_groups[m.tp_rank] and r in tp_groups[m.dp_rank]
+        assert m.tensor_parallel.size == tp and m.tensor_parallel.rank == m.tp_rank
 
 
 @pytest.mark.parametrize("batch_size", [8, 16, 6, 3])
