@@ -14,8 +14,8 @@ Phases, each ending in a line with the elapsed seconds:
 
 1. environment: the card's name and power limit (nvidia-smi), device count;
 2. build: the masked-attention kernels from ``csrc/`` with nvcc (one nvcc
-   per source, in parallel; -Xptxas -v), failing if a tensor-core kernel
-   spills registers;
+   per source, in parallel; -Xptxas -v), failing if a tensor-core kernel or
+   the fused small-graph backward spills registers;
 3. the forward kernel against its plain PyTorch version on the card:
    the 10% expander + 8 virtual nodes at the main paths' batches (B = 1 for a
    request, B = 8 for a train step), the same with padded nodes and empty
@@ -133,30 +133,37 @@ Phases, each ending in a line with the elapsed seconds:
    ``weights/diffusion3d_easy`` with its run's flags (``TRAIN3D_FLAGS``:
    vn_dgcnn_rich from ``weights/vn_dgcnn_rich_rel3d_512.npz``, relative-pose
    conditioning and losses, aux-pose and rot-pt-l2 losses, bf16, batch 16 of
-   512 points and 2–8 parts). First dQ and dK/dV (after the forward) against
-   their plain versions on the masks of the run's first batch (B = 16, N =
-   8, padding parts with empty rows and unattended keys) at Dh 32 (tensor
-   cores) and 264 (CUDA cores) in bf16 and f32, with exact zeros, then
-   timed beside their bound over the attended pairs and one SDPA backward;
+   512 points and 2–8 parts). First the backward (after the forward) against
+   its plain version on the masks of the run's first batch (B = 16, N =
+   8, padding parts with empty rows and unattended keys) at Dh 32 (bf16: dQ
+   and dK/dV on the tensor cores; f32: the fused small-graph kernel) and 264
+   (fused) in bf16 and f32, with exact zeros, then timed beside its bound
+   over the attended pairs and one SDPA backward, each fused row beside the
+   CUDA-core dQ + dK/dV pair it replaced on the same inputs;
    the trained weights' training loss on that batch with numpy draws, in
    bf16 and f32, against the JAX package's CPU values (``JAX_CPU_LOSS_3D``,
    ``TOL_LOSS_3D``); one f32 step's gradients with the kernels against plain
    attention. Then ``run_3d`` without ``--evaluate`` on a corpus cut to 48
    training and 16 held-out objects: a sanity evaluation, 4 steps with an
    evaluation and a checkpoint at step 4, a resume to step 6. Every step
-   has exactly 8 launches of each kernel (the denoiser runs twice, its
-   diffusion pass and the aux-pose pass), 6 on the tensor cores and 2 on the
-   CUDA cores, finite losses and nonzero gradients in the encoder, the
-   pairwise head and the denoiser; every evaluation call 120 forward
-   launches and no backward. It prints s/step by host clock and CUDA events
-   and the peak memory;
-14. the three kernels at every head width of the 3D family (32 and the
-   widths of phase 3) against their plain versions in bf16 and f32, with
-   exact zeros and routes, on the 3D protocols' own masks: N = 8
-   (``diffusion3d_easy``'s first call) and N = 20 (``diffusion3d_vndgcnn``'s,
-   mostly padding rows); then timed at N = 20 at Dh 24, 32, 40, 104, 136 and
+   has exactly 8 forward launches (the denoiser runs twice, its diffusion
+   pass and the aux-pose pass), 6 on the tensor cores and 2 on the CUDA
+   cores, 6 dQ and 6 dK/dV launches on the tensor cores with one Δ each,
+   and 2 fused backward launches (the small-graph route: N = 8, Dh 264)
+   with no Δ outside them; finite losses and nonzero gradients in the
+   encoder, the pairwise head and the denoiser; every evaluation call 120
+   forward launches and no backward. It prints s/step by host clock and
+   CUDA events and the peak memory;
+14. the kernels at every head width of the 3D family (32 and the widths of
+   phase 3) against their plain versions in bf16 and f32, with exact zeros
+   and routes, on the 3D protocols' own masks: N = 8 (``diffusion3d_easy``'s
+   first call) and N = 20 (``diffusion3d_vndgcnn``'s, mostly padding rows):
+   the forward, and the backward on its route, fused (``csrc/
+   masked_attention_bwd_small.cu``) at every width but bf16 Dh 32; on the N
+   = 20 mask at Dh 271 ``MaskedAttention``'s backward is one fused launch
+   with no Δ outside it; then timed at N = 20 at Dh 24, 32, 40, 104, 136 and
    271 and at N = 8 at Dh 136 beside their bound over the attended pairs and
-   SDPA;
+   SDPA, each fused row beside the CUDA-core pair it replaced;
 15. the other trained 3D checkpoints, the eighth main path: ``_relpose`` and
    ``_wallsurf`` (the latter refined by multiview ICP too) at ratio 10, and
    ``_vndgcnn`` (N = 20, its last layer Dh 104) at ratios 10 and 2, each
@@ -175,8 +182,9 @@ Phases, each ending in a line with the elapsed seconds:
    the invariant stream). Each first holds its f32 loss on the card to the
    CPU's on the same seeded weights and draws; ``vnn`` and the split message
    passing hold their f32 gradients with the kernels to those with plain
-   attention. Every step has each kernel once a layer per denoiser pass, one
-   layer on the CUDA cores, finite losses and nonzero gradients;
+   attention. Every step has the forward once a layer per denoiser pass, one
+   layer on the CUDA cores, the backward of that layer fused and the others'
+   dQ and dK/dV on the tensor cores, finite losses and nonzero gradients;
 17. the light encoders and the GCN backbone: ``run_2d`` of the rotation CLI
    at the flagship's flags (30×30 over the 10% expander, exophormer, bf16,
    batch 8) from seeded weights with ``--backbone convnet`` and ``tiny`` (2
@@ -209,13 +217,16 @@ Phases, each ending in a line with the elapsed seconds:
    ``diffusion3d_easy`` cut to 4 objects: 120 ``.ply`` and 4 ``_traj.npz``,
    each trajectory's last step bit-equal to a ``sample`` without one; then
    one ``Trainer`` step of the 3D model with the easy run's flags under DDP
-   in a world of one over NCCL, bit-equal to the plain step (8 + 8 + 8
-   launches a step);
+   in a world of one over NCCL, bit-equal to the plain step (8 forward, 6 +
+   6 tensor-core dQ and dK/dV and 2 fused launches a step);
 22. tensor parallelism on one card (``tensor_parallel``): the three kernels
    at a tp rank's shapes (H = 4, N = 908, B = 1 and 8, Dh 32 and 144)
    against their plain versions in bf16 and f32, then timed
    beside their bound, plain versions and SDPA, and the forward at phase
-   20's and 21a's shapes (B = 4 at N = 908; the 3D export's N = 8); then ranks spawned as
+   20's and 21a's shapes (B = 4 at N = 908; the 3D export's N = 8); the
+   kernels at the dp 2 × tp 2 3D rank step's shapes (H = 4, each dp place's
+   8 objects, N = 8, Dh 32 and 264: the fused kernel at all but bf16 Dh 32)
+   against their plain versions in bf16 and f32; then ranks spawned as
    processes on the one card in a gloo group over CUDA tensors (NCCL refuses
    two ranks on one device), each held to the same work in this process:
    at tp = 2 and the flagship's full width (each rank 4 of the 8 heads), a
@@ -232,8 +243,8 @@ Phases, each ending in a line with the elapsed seconds:
    model with the easy run's flags at batch 16 against one process on the
    whole batch (``GRAD_TOL``, the 3D step's gradients within
    ``DPTP_3D_GRAD_REL``; each update equal to the single-process
-   optimizer's on the rank's gradients), with each rank's peak
-   memory. A rank that fails fails the phase.
+   optimizer's on the rank's gradients; the 3D step's backward all fused),
+   with each rank's peak memory. A rank that fails fails the phase.
 
 ``python3 chip_smoke.py --profile train-device`` profiles one step of the
 recipe instead, ``--profile eval3d`` one 3D held-out call of 16 objects,
@@ -300,11 +311,14 @@ CUDA_CORE_SOURCES = {
     "masked_attention_bwd_dq": "diffassemble_tpu_torch/csrc/masked_attention_bwd.cu",
     "masked_attention_bwd_dkv": "diffassemble_tpu_torch/csrc/masked_attention_bwd.cu",
 }
-# each kernel's source on the main paths: the tensor-core route (bf16 at Dh 32 and 144)
+# each kernel's source on the main paths: the tensor-core route (bf16 at Dh 32 and 144), and the
+# fused backward of the small-graph route (N <= 32 off the tensor cores: the 3D family's graphs)
+FUSED = "masked_attention_bwd_small"
 KERNEL_SOURCES = {
     "masked_attention_fwd": "diffassemble_tpu_torch/csrc/masked_attention_fwd_tc.cu",
     "masked_attention_bwd_dq": "diffassemble_tpu_torch/csrc/masked_attention_bwd_tc.cu",
     "masked_attention_bwd_dkv": "diffassemble_tpu_torch/csrc/masked_attention_bwd_tc.cu",
+    FUSED: "diffassemble_tpu_torch/csrc/masked_attention_bwd_small.cu",
 }
 # bench.py's held-out protocol: 64 puzzles of 30x30, sampled 32 to a call
 EVAL_TOTAL, EVAL_N = 64, 32
@@ -512,7 +526,7 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def bound_ms(kernel: str, b: int, n: int, h: int, dh: int, elem_bytes: int,
-             pairs: int | None = None) -> tuple[float, str]:
+             pairs: int | None = None, edges: tuple[int, int] | None = None) -> tuple[float, str]:
     """Least time on an H100 for one launch: the larger of its operations over
     the peak rate for the type and the bytes it must move (each input read
     once, each output written once) over the memory rate.
@@ -522,15 +536,23 @@ def bound_ms(kernel: str, b: int, n: int, h: int, dh: int, elem_bytes: int,
     dQ: S, dP and dQ, 6·H·Dh a pair; reads q, k, v, dO, L, Δ and the mask, writes dQ.
     dK/dV: S, dP, dV and dK, 8·H·Dh a pair; reads q, k, v, dO, L, Δ and the mask,
     writes dK and dV.
-    ``pairs`` is the mask's attended pairs (default: all B·N², fully connected)."""
+    the fused small-graph backward: S, dP, dQ, dK and dV, 10·H·Dh a pair; reads
+    q, dO and O on the query rows with an edge, k and v on the attended keys,
+    and L and the mask whole; writes dQ, dK and dV whole.
+    ``pairs`` is the mask's attended pairs (default: all B·N², fully
+    connected); ``edges`` its (query rows with an edge, attended keys), each
+    counted over (B, N) (default: all B·N)."""
     tensor = b * n * h * dh * elem_bytes  # one (B, N, H, Dh) tensor
     row = 4.0 * b * h * n  # one (B, H, N) f32 tensor
     mask = b * n * n
     pairs = mask if pairs is None else pairs
+    queries, keys = (b * n, b * n) if edges is None else edges
+    per_row = h * dh * elem_bytes  # one node's row of a (B, N, H, Dh) tensor
     flops, nbytes = {
         "masked_attention_fwd": (4, 4 * tensor + row + mask),
         "masked_attention_bwd_dq": (6, 5 * tensor + 2 * row + mask),
         "masked_attention_bwd_dkv": (8, 6 * tensor + 2 * row + mask),
+        FUSED: (10, (3 * queries + 2 * keys) * per_row + 3 * tensor + row + mask),
     }[kernel]
     t_ops = flops * h * pairs * dh / (H100_BF16_FLOPS if elem_bytes == 2 else H100_F32_FLOPS)
     t_bytes = nbytes / H100_BYTES_PER_S
@@ -571,11 +593,12 @@ def build() -> None:
             source = line
         if line.startswith("==") or "registers" in line or "spill" in line:
             print("  " + line.strip(), flush=True)
-        if "_tc." in source and "spill" in line and not line.strip().endswith("0 bytes spill stores, 0 bytes spill loads"):
+        if ("_tc." in source or "_small." in source) and "spill" in line \
+                and not line.strip().endswith("0 bytes spill stores, 0 bytes spill loads"):
             spills.append(line.strip())
     phase(f"build: {', '.join(p.name for p in lib.paths.values())} in {lib.build_seconds:.2f} s")
     if spills:
-        raise AssertionError(f"a tensor-core kernel spills registers: {spills}")
+        raise AssertionError(f"a tensor-core or the fused small-graph kernel spills registers: {spills}")
 
 
 def reset_counts() -> None:
@@ -598,6 +621,34 @@ def read_routes() -> dict[str, dict[str, int]]:
 
 def routes_since(before: dict[str, dict[str, int]]) -> dict[str, dict[str, int]]:
     return {k: {r: n - before[k][r] for r, n in by_route.items()} for k, by_route in read_routes().items()}
+
+
+def launches_of(fwd: int = 0, dq: int = 0, dkv: int = 0, fused: int = 0) -> dict[str, int]:
+    """A gate's launches of each kernel, keyed as ``read_counts``."""
+    return dict(zip(KERNEL_SOURCES, (fwd, dq, dkv, fused)))
+
+
+def on_routes(tensor_cores: int = 0, cuda_cores: int = 0, small_graph: int = 0) -> dict[str, int]:
+    """A gate's launches of one kernel by route, keyed as ``read_routes``."""
+    return {"tensor_cores": tensor_cores, "cuda_cores": cuda_cores, "small_graph": small_graph}
+
+
+def step_routes_3d(passes: int, layers: int, dtype: str = "bfloat16") -> dict[str, dict[str, int]]:
+    """A 3D train step's launches by kernel and route: each denoiser pass
+    launches the forward once a layer, on the CUDA cores at the last layer's
+    width and (bf16) on the tensor cores at the others' Dh 32, and each
+    layer's backward once: on the tensor cores where its forward is (dQ and
+    dK/dV), else on the small-graph route (the fused kernel: N <= 32)."""
+    tc = passes * (layers - 1) if dtype == "bfloat16" else 0
+    cc = passes * layers - tc
+    return {"masked_attention_fwd": on_routes(tensor_cores=tc, cuda_cores=cc),
+            "masked_attention_bwd_dq": on_routes(tensor_cores=tc),
+            "masked_attention_bwd_dkv": on_routes(tensor_cores=tc), FUSED: on_routes(small_graph=cc)}
+
+
+def counts_of(routes: dict[str, dict[str, int]]) -> dict[str, int]:
+    """Launches by kernel from launches by kernel and route."""
+    return {k: sum(by_route.values()) for k, by_route in routes.items()}
 
 
 def committed_adj():
@@ -651,12 +702,15 @@ def _masks(torch, np):
 
 def _check_kernels(label: str, mask, dh: int, dtype, gen, max_err: dict[str, float],
                    misaligned: bool = False, backward: bool = True, heads: int = HEADS) -> None:
-    """The three kernels (the forward alone without ``backward``) against
-    their plain versions on one mask, width, head count and type, on the
-    route these call for: the tensor cores for bf16 at the main paths'
-    widths, else (and for ``misaligned`` inputs, 2 bytes off a 16-byte
-    boundary) the CUDA cores; raises on a disagreement or another route.
-    Updates ``max_err`` per kernel."""
+    """The forward kernel and the backward of its route (the forward alone
+    without ``backward``) against their plain versions on one mask, width,
+    head count and type, on the route these call for: the tensor cores for
+    bf16 at the main paths' widths (forward, dQ and dK/dV); else (and for
+    ``misaligned`` inputs, 2 bytes off a 16-byte boundary) the forward on the
+    CUDA cores, and the backward on the small-graph route (the fused kernel:
+    dQ, dK and dV in one launch) where N is at most ``SMALL_GRAPH_N``, on the
+    CUDA cores (dQ and dK/dV) above it; raises on a disagreement or another
+    route. Updates ``max_err`` per kernel, the fused kernel's too."""
     import torch
 
     from diffassemble_tpu_torch.ops import cuda_attention as ca
@@ -705,17 +759,27 @@ def _check_kernels(label: str, mask, dh: int, dtype, gen, max_err: dict[str, flo
     if not backward:
         return
 
-    # the backward kernels, from this forward's O and L
+    # the backward, from this forward's O and L: on a graph of at most SMALL_GRAPH_N nodes off the
+    # tensor cores the fused kernel (dQ, dK and dV in one launch, Δ in it), else the dQ and dK/dV kernels
     delta = ca.attention_delta(dout, o)
     args = (q, k, v, mask, dout, lse, delta)
-    routes = {ca.route(name, *args) for name in ("masked_attention_bwd_dq", "masked_attention_bwd_dkv")}
+    if n <= ca.SMALL_GRAPH_N and want != "tensor_cores":
+        want = "small_graph"
+    routes = {ca.route(name, *args) for name in ca.BACKWARD_PAIR}
     if routes != {want}:
         raise AssertionError(f"backward routes {routes} at Dh={dh} {dtype}, expected {want}")
-    dq = ca.masked_attention_bwd_dq(*args)
-    dk, dv = ca.masked_attention_bwd_dkv(*args)
-    torch.cuda.synchronize()
-    dq_p = ca.masked_attention_bwd_dq_plain(*args)
-    dk_p, dv_p = ca.masked_attention_bwd_dkv_plain(*args)
+    if want == "small_graph":
+        dq, dk, dv = ca.masked_attention_bwd_small(q, k, v, mask, dout, o, lse)
+        torch.cuda.synchronize()
+        dq_p, dk_p, dv_p = ca.masked_attention_bwd_small_plain(q, k, v, mask, dout, o, lse)
+        owner = dict.fromkeys(("dQ", "dK", "dV"), FUSED)
+    else:
+        dq = ca.masked_attention_bwd_dq(*args)
+        dk, dv = ca.masked_attention_bwd_dkv(*args)
+        torch.cuda.synchronize()
+        dq_p = ca.masked_attention_bwd_dq_plain(*args)
+        dk_p, dv_p = ca.masked_attention_bwd_dkv_plain(*args)
+        owner = {"dQ": "masked_attention_bwd_dq", "dK": "masked_attention_bwd_dkv", "dV": "masked_attention_bwd_dkv"}
     # f32: 1e-5 relative plus 1e-5 of max|ref| (sums of ~N products in
     # another order); bf16: one bf16 ulp (2^-7 relative) plus 1e-4 of
     # max|ref| (the same f32 sums, then rounded once to bf16)
@@ -731,8 +795,8 @@ def _check_kernels(label: str, mask, dh: int, dtype, gen, max_err: dict[str, flo
         ok &= bool((e <= t).all())
     zeros = (bool((dq[empty] == 0).all()) and bool((dk[unattended] == 0).all())
              and bool((dv[unattended] == 0).all()))
-    max_err["masked_attention_bwd_dq"] = max(max_err["masked_attention_bwd_dq"], errs["dQ"])
-    max_err["masked_attention_bwd_dkv"] = max(max_err["masked_attention_bwd_dkv"], errs["dK"], errs["dV"])
+    for key, kernel in owner.items():
+        max_err[kernel] = max(max_err[kernel], errs[key])
     phase(f"bwd vs plain: {label:34s} B={b} N={n} H={heads} Dh={dh:3d} {str(dtype)[6:]:8s} {want:12s} "
           f"max|ddQ|={errs['dQ']:.3e} max|ddK|={errs['dK']:.3e} max|ddV|={errs['dV']:.3e} "
           f"worst err/tol {worst:.3f} unattended keys={int(unattended.sum())} exact zeros {zeros} "
@@ -1010,10 +1074,9 @@ def serving() -> tuple[dict[str, int], dict[str, dict[str, int]], list[float]]:
         fwd_routes = routes_since(before_routes)["masked_attention_fwd"]
         phase(f"request: {seconds[-1]:.3f} s, kernel launches {launched}, forward by route {fwd_routes}, "
               f"output {out.shape}")
-        if launched != {"masked_attention_fwd": per_request, "masked_attention_bwd_dq": 0,
-                        "masked_attention_bwd_dkv": 0}:
+        if launched != launches_of(fwd=per_request):
             raise AssertionError(f"expected {per_request} forward launches and no backward launch per request")
-        if fwd_routes != {"tensor_cores": per_request, "cuda_cores": 0}:
+        if fwd_routes != on_routes(tensor_cores=per_request):
             raise AssertionError(f"expected all {per_request} forward launches on the tensor cores, got {fwd_routes}")
         if out.shape != (960, 960, 3) or not np.isfinite(out).all():
             raise AssertionError("bad output image")
@@ -1057,7 +1120,7 @@ def gradient_parity() -> None:
             loss.backward()
             torch.cuda.synchronize()
             launched = {k: v - before[k] for k, v in read_counts().items()}
-        if launched != dict.fromkeys(KERNEL_SOURCES, 0 if swap else cfg.n_layers):
+        if launched != launches_of(*(3 * [0 if swap else cfg.n_layers])):
             raise AssertionError(f"unexpected launches {launched} (plain attention: {swap})")
         grads.append({k: p.grad.detach().clone() for k, p in model.named_parameters()})
     kern, plain = grads
@@ -1324,10 +1387,9 @@ def accuracy() -> tuple[dict[str, int], dict[str, dict[str, int]], dict]:
         phase(f"held-out call of {c['puzzles']} puzzles: {c['ms']:.2f} ms (CUDA events), {c['host_s']:.3f} s host")
     phase(f"held-out eval: launches {counts}, forward by route {routes['masked_attention_fwd']}; "
           f"max_memory_allocated {peak / 2**30:.2f} GiB")
-    if counts != {"masked_attention_fwd": n_calls * per_call, "masked_attention_bwd_dq": 0,
-                  "masked_attention_bwd_dkv": 0}:
+    if counts != launches_of(fwd=n_calls * per_call):
         raise AssertionError(f"expected {n_calls * per_call} forward launches and no backward launch")
-    if routes["masked_attention_fwd"] != {"tensor_cores": n_calls * per_call, "cuda_cores": 0}:
+    if routes["masked_attention_fwd"] != on_routes(tensor_cores=n_calls * per_call):
         raise AssertionError(f"expected every forward launch on the tensor cores, got {routes}")
 
     by_graph = {}
@@ -1450,8 +1512,8 @@ def drive_recipe(workdir: Path, argvs: list[list[str]], label: str) -> tuple[lis
 def _check_recipe_launches(steps: list[dict], evals: list[dict], per_call: int, label: str) -> None:
     """Every step 4 + 4 + 4 launches, every evaluation ``per_call`` forward
     launches a call and no backward, all on the tensor cores; finite losses."""
-    step_want = dict.fromkeys(KERNEL_SOURCES, 4)
-    step_routes = dict.fromkeys(KERNEL_SOURCES, {"tensor_cores": 4, "cuda_cores": 0})
+    step_want = launches_of(4, 4, 4)
+    step_routes = {k: on_routes(tensor_cores=n) for k, n in step_want.items()}
     for s in steps:
         if s["launches"] != step_want or s["routes"] != step_routes:
             raise AssertionError(f"{label} step {s['step']}: launches {s['launches']} by route {s['routes']}, "
@@ -1461,8 +1523,8 @@ def _check_recipe_launches(steps: list[dict], evals: list[dict], per_call: int, 
             raise AssertionError(f"{label} step {s['step']}: bad loss or gradient norms {s}")
     for e in evals:
         n = per_call * e["calls"]
-        if (e["launches"] != {"masked_attention_fwd": n, "masked_attention_bwd_dq": 0, "masked_attention_bwd_dkv": 0}
-                or e["routes"]["masked_attention_fwd"] != {"tensor_cores": n, "cuda_cores": 0}):
+        if (e["launches"] != launches_of(fwd=n)
+                or e["routes"]["masked_attention_fwd"] != on_routes(tensor_cores=n)):
             raise AssertionError(f"{label} evaluation: launches {e['launches']} by route {e['routes']}, expected "
                                  f"{n} forward launches on the tensor cores")
 
@@ -1763,17 +1825,22 @@ def mixed_kernels(corpus: Path, max_err: dict[str, float]) -> list[dict]:
 
 
 def time_on_masks(mask, label: str, widths, gen, heads: int = HEADS) -> list[dict]:
-    """The three kernels timed on ``mask`` at each head width in bf16, beside
-    their plain versions, the bound over the mask's attended pairs and
+    """The kernels timed on ``mask`` at each head width in bf16, beside
+    their plain versions, the bound over the mask's attended pairs (the fused
+    kernel's reads also over its rows with an edge) and
     ``scaled_dot_product_attention`` with the same boolean mask (its forward,
-    and one backward for dQ, dK and dV together). One row a kernel and
-    width; the caller adds its launches (``attach_launches_2d``)."""
+    and one backward for dQ, dK and dV together): the forward, and the
+    backward its route takes, dQ and dK/dV or the fused kernel. A fused row
+    carries the CUDA-core dQ + dK/dV pair it replaced, timed on the same
+    inputs (``cuda_core_pair_ms``). One row a kernel and width; the caller
+    adds its launches (``attach_launches_2d``)."""
     import torch
 
     from diffassemble_tpu_torch.ops import cuda_attention as ca
 
     b, n, _ = mask.shape
     pairs = int(mask.sum())
+    edges = (int(mask.any(-1).sum()), int(mask.any(-2).sum()))
     rows = []
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for dh in widths:
@@ -1790,29 +1857,82 @@ def time_on_masks(mask, label: str, widths, gen, heads: int = HEADS) -> list[dic
         dout_t = dout.transpose(1, 2).contiguous()
         lib_bwd = cuda_ms(lambda: torch.autograd.grad(out_t, (qt, kt, vt), dout_t, retain_graph=True))
         here = []
-        for kernel, fn, plain, library_ms in (
-                ("masked_attention_fwd", lambda: ca.masked_attention_fwd(q, k, v, mask),
-                 lambda: ca.masked_attention_fwd_plain(q, k, v, mask), lib_fwd),
-                ("masked_attention_bwd_dq", lambda: ca.masked_attention_bwd_dq(*args),
-                 lambda: ca.masked_attention_bwd_dq_plain(*args), lib_bwd),
-                ("masked_attention_bwd_dkv", lambda: ca.masked_attention_bwd_dkv(*args),
-                 lambda: ca.masked_attention_bwd_dkv_plain(*args), lib_bwd)):
+        cases = [("masked_attention_fwd", lambda: ca.masked_attention_fwd(q, k, v, mask),
+                  lambda: ca.masked_attention_fwd_plain(q, k, v, mask), lib_fwd)]
+        fused = ca.route(ca.BACKWARD_PAIR[0], *args) == "small_graph"
+        if fused:
+            cases.append((FUSED, lambda: ca.masked_attention_bwd_small(q, k, v, mask, dout, o, lse),
+                          lambda: ca.masked_attention_bwd_small_plain(q, k, v, mask, dout, o, lse), lib_bwd))
+        else:
+            cases += [("masked_attention_bwd_dq", lambda: ca.masked_attention_bwd_dq(*args),
+                       lambda: ca.masked_attention_bwd_dq_plain(*args), lib_bwd),
+                      ("masked_attention_bwd_dkv", lambda: ca.masked_attention_bwd_dkv(*args),
+                       lambda: ca.masked_attention_bwd_dkv_plain(*args), lib_bwd)]
+        for kernel, fn, plain, library_ms in cases:
             ms, plain_ms = cuda_ms(fn), cuda_ms(plain)
-            bound, bound_by = bound_ms(kernel, b, n, heads, dh, 2, pairs=pairs)
+            bound, bound_by = bound_ms(kernel, b, n, heads, dh, 2, pairs=pairs, edges=edges)
             route = ca.route(kernel, *args)
             here.append({"kernel": kernel, "b": b, "n": n, "dh": dh, "route": route, "main_path": True,
                          "mask": label, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                         "bound_ms": bound, "bound_by": bound_by})
+                         "bound_ms": bound, "bound_by": bound_by,
+                         **({"edges": list(edges)} if kernel == FUSED else {})})
             phase(f"timing {kernel:25s} B={b} N={n} H={heads} Dh={dh:3d} bf16 {route:12s} ({label}): kernel "
                   f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
                   f"bound {bound:.6f} ms ({bound_by})")
-        pair = here[1]["ms"] + here[2]["ms"]
-        phase(f"timing backward pair          B={b} N={n} H={heads} Dh={dh:3d} bf16 {here[1]['route']:12s}: "
-              f"dQ + dK/dV {pair:.4f} ms against one SDPA backward {lib_bwd:.4f} ms ({pair / lib_bwd:.2f}x), "
-              f"{pair / (here[1]['bound_ms'] + here[2]['bound_ms']):.0f}x their bound")
+        if fused:
+            old = cuda_core_pair_ms(q, k, v, mask, dout, o, lse)
+            row = here[1]
+            row["cuda_core_pair_ms"] = old
+            pair = old["dq_ms"] + old["dkv_ms"]
+            phase(f"timing fused backward         B={b} N={n} H={heads} Dh={dh:3d} bf16 small_graph : fused "
+                  f"{row['ms']:.4f} ms against the CUDA-core pair dQ {old['dq_ms']:.4f} + dK/dV {old['dkv_ms']:.4f} "
+                  f"= {pair:.4f} ms (and its Δ {old['delta_ms']:.4f} ms): {pair / row['ms']:.2f}x faster; against "
+                  f"one SDPA backward {lib_bwd:.4f} ms: {row['ms'] / lib_bwd:.2f}x; {row['ms'] / row['bound_ms']:.1f}x "
+                  f"its bound (reads over {edges[0]} query rows with an edge and {edges[1]} attended keys of "
+                  f"B·N = {b * n})")
+        else:
+            pair = here[1]["ms"] + here[2]["ms"]
+            phase(f"timing backward pair          B={b} N={n} H={heads} Dh={dh:3d} bf16 {here[1]['route']:12s}: "
+                  f"dQ + dK/dV {pair:.4f} ms against one SDPA backward {lib_bwd:.4f} ms ({pair / lib_bwd:.2f}x), "
+                  f"{pair / (here[1]['bound_ms'] + here[2]['bound_ms']):.0f}x their bound")
         rows += here
         del out_t, qt, kt, vt
     return rows
+
+
+def cuda_core_pair_ms(q, k, v, mask, dout, o, lse) -> dict[str, float]:
+    """The CUDA-core dQ and dK/dV kernels (``csrc/masked_attention_bwd.cu``)
+    on a small graph's inputs through the library's C entry points,
+    uncounted (the wrappers give a graph of at most ``SMALL_GRAPH_N`` nodes
+    to the fused kernel), with the Δ they need: each timed, after their
+    outputs are held to the fused kernel's plain version within phase 3's
+    bf16 tolerance. Their times beside the fused kernel's come from one run."""
+    import torch
+
+    from diffassemble_tpu_torch.ops import cuda_attention as ca
+
+    lib = ca.load_library()
+    b, n, h, dh = q.shape
+    stream = torch.cuda.current_stream().cuda_stream
+    delta = ca.attention_delta(dout, o)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+
+    def call(name, *outs):
+        rc = lib.fn(name)(*(t.data_ptr() for t in (q, k, v, mask, dout, lse, delta, *outs)), b, n, h, dh,
+                          ca._DTYPES[q.dtype], 1.0 / math.sqrt(dh), stream)
+        if rc != 0:
+            raise RuntimeError(f"{name} failed: CUDA error {rc}")
+
+    call("masked_attention_bwd_dq", dq)
+    call("masked_attention_bwd_dkv", dk, dv)
+    torch.cuda.synchronize()
+    for got, ref in zip((dq, dk, dv), ca.masked_attention_bwd_small_plain(q, k, v, mask, dout, o, lse)):
+        rf = ref.float()
+        if not bool(((got.float() - rf).abs() <= 2.0**-7 * rf.abs() + 1e-4 * rf.abs().max()).all()):
+            raise AssertionError(f"the CUDA-core pair disagrees with the plain version at B={b} N={n} Dh={dh}")
+    return {"dq_ms": cuda_ms(lambda: call("masked_attention_bwd_dq", dq)),
+            "dkv_ms": cuda_ms(lambda: call("masked_attention_bwd_dkv", dk, dv)),
+            "delta_ms": cuda_ms(lambda: ca.attention_delta(dout, o))}
 
 
 def ddp_world_of_one() -> tuple[dict[str, int], dict[str, dict[str, int]]]:
@@ -1842,7 +1962,7 @@ def ddp_world_of_one() -> tuple[dict[str, int], dict[str, dict[str, int]]]:
     finally:
         torch.backends.cudnn.deterministic = deterministic
     counts, routes = read_counts(), read_routes()
-    if counts != dict.fromkeys(KERNEL_SOURCES, 3 * 4):
+    if counts != launches_of(3 * 4, 3 * 4, 3 * 4):
         raise AssertionError(f"ddp: launches {counts}, expected 4 of each kernel in each of 3 steps")
     phase(f"ddp: a world of one over NCCL, one Trainer step bit-equal to the plain step ({n} parameters and "
           f"their gradients; a second plain step equal too); launches {counts}")
@@ -2021,8 +2141,6 @@ def eval3d(workdir: Path, max_err: dict[str, float]) -> tuple[dict, dict, dict, 
     rows = kernels_3d(protocol, heads, widths, max_err)
     per_call = cfg.n_layers * (cfg.steps // cfg.inference_ratio)
     n_calls = -(-protocol["test_n"] // protocol["batch"])
-    want_routes = {"tensor_cores": (cfg.n_layers - 1) * (cfg.steps // cfg.inference_ratio),
-                   "cuda_cores": cfg.steps // cfg.inference_ratio}
     phase(f"3D model loaded from {ASSET_3D.name} (step {step}, {sum(v.numel() for v in model.parameters())} "
           f"parameters, {cfg.compute_dtype}, backbone {cfg.backbone}, head widths {widths}) in "
           f"{time.perf_counter() - start:.2f} s")
@@ -2068,15 +2186,14 @@ def protocol_runs_3d(run_dir: Path, model, cfg, step: int, protocol: dict, name:
 
     def want(ratio):
         steps = cfg.steps // ratio
-        return cfg.n_layers * steps, {"tensor_cores": (cfg.n_layers - 1) * steps, "cuda_cores": steps}
+        return cfg.n_layers * steps, on_routes(tensor_cores=(cfg.n_layers - 1) * steps, cuda_cores=steps)
 
     per_call, want_routes = want(cfg.inference_ratio)
     cli, cli_seconds, cli_counts, cli_routes = cli_evaluate_3d(run_dir, model, cfg, step, protocol)
     phase(f"{name} run_3d --evaluate: {cli_seconds:.2f} s, launches {cli_counts}, forward by route "
           f"{cli_routes['masked_attention_fwd']}; rmse_t_AVG {cli['rmse_t_AVG'][0]!r}, rmse_r_AVG "
           f"{cli['rmse_r_AVG'][0]!r}, gd_r_AVG {cli['gd_r_AVG'][0]!r}, part_acc_AVG {cli['part_acc_AVG'][0]!r}")
-    if cli_counts != {"masked_attention_fwd": n_calls * per_call, "masked_attention_bwd_dq": 0,
-                      "masked_attention_bwd_dkv": 0}:
+    if cli_counts != launches_of(fwd=n_calls * per_call):
         raise AssertionError(f"{name} run_3d: launches {cli_counts}, expected {n_calls * per_call} forward and "
                              f"no backward")
     if cli_routes["masked_attention_fwd"] != {r: n_calls * c for r, c in want_routes.items()}:
@@ -2092,8 +2209,8 @@ def protocol_runs_3d(run_dir: Path, model, cfg, step: int, protocol: dict, name:
     if calib[0]["rot_deg"] or calib[0]["trans_sigma"] or set(calib[0]["part_acc"].values()) != {1.0}:
         raise AssertionError(f"{name} calibration: the true poses do not score part_acc 1.0: {calib[0]}")
 
-    counts = dict.fromkeys(KERNEL_SOURCES, 0)
-    routes = {k: dict.fromkeys(("tensor_cores", "cuda_cores"), 0) for k in KERNEL_SOURCES}
+    counts = launches_of()
+    routes = {k: on_routes() for k in KERNEL_SOURCES}
     out, calls_by_ratio = {"cli": {k: m for k, (m, _) in cli.items()}, "cli_seconds": cli_seconds,
                            "cli_launches": cli_counts, "cli_routes": cli_routes, "calibration": calib,
                            "rows": []}, {}
@@ -2109,8 +2226,7 @@ def protocol_runs_3d(run_dir: Path, model, cfg, step: int, protocol: dict, name:
             phase(f"{name} held-out call, ratio {ratio}, {c['objects']} objects ({c['parts']} parts): "
                   f"{c['ms']:.2f} ms (CUDA events), {c['host_s']:.3f} s host, launches {c['launches']}, forward by "
                   f"route {c['routes']['masked_attention_fwd']}")
-            if c["launches"] != {"masked_attention_fwd": per_call, "masked_attention_bwd_dq": 0,
-                                 "masked_attention_bwd_dkv": 0} or c["routes"]["masked_attention_fwd"] != want_routes:
+            if c["launches"] != launches_of(fwd=per_call) or c["routes"]["masked_attention_fwd"] != want_routes:
                 raise AssertionError(f"{name} held-out call: launches {c['launches']} by route {c['routes']}, "
                                      f"expected {per_call} forward ({want_routes}) and no backward")
         if len(calls) != n_calls:
@@ -2199,13 +2315,22 @@ def trained_loss_3d(compute_dtype: str, device: str = "cuda") -> dict[str, float
     return {k: float(v) for k, v in out.items()}
 
 
+def head_widths_3d(cfg) -> tuple[int, int]:
+    """The 3D denoiser's two head widths with the easy run's flags: the
+    hidden width's and the encoder's features' (vn_dgcnn_rich's 2048:
+    equivariant 1536 ‖ invariant 512) with the 64 of the pose, each over the
+    heads."""
+    feat_dim = 2048
+    return cfg.hidden_dim // cfg.heads, (feat_dim + 64) // cfg.heads
+
+
 def train3d_kernels(nb, widths: tuple[int, int], max_err: dict[str, float]) -> list[dict]:
-    """The three kernels on the 3D training masks (the run's first batch: B =
-    16, N = 8, padding parts with empty query rows and unattended keys): dQ
-    and dK/dV, after the forward, against their plain versions at the
-    denoiser's head widths, Dh 32 (tensor cores) and 264 (CUDA cores), in
-    bf16 and f32 with phase 3's tolerances, exact zeros and routes; then all
-    three timed (``time_on_masks``)."""
+    """The kernels on the 3D training masks (the run's first batch: B = 16,
+    N = 8, padding parts with empty query rows and unattended keys): the
+    backward, after the forward, against its plain version at the
+    denoiser's head widths, Dh 32 (bf16: dQ and dK/dV on the tensor cores;
+    f32: fused) and 264 (fused), in bf16 and f32 with phase 3's tolerances,
+    exact zeros and routes; then timed (``time_on_masks``)."""
     import torch
 
     mask = torch.as_tensor(nb.adj).cuda().contiguous()
@@ -2274,7 +2399,7 @@ def gradient_parity_3d(nb, draws, model=None, label: str = "3D") -> None:
             loss.backward()
             torch.cuda.synchronize()
             launched = {k: v - before[k] for k, v in read_counts().items()}
-        if launched != dict.fromkeys(KERNEL_SOURCES, 0 if swap else passes * cfg.n_layers):
+        if launched != (launches_of() if swap else counts_of(step_routes_3d(passes, cfg.n_layers, "float32"))):
             raise AssertionError(f"{label} gradients: launches {launched} (plain attention: {swap})")
         missing = [k for k, p in model.named_parameters() if p.grad is None]
         if missing:
@@ -2306,16 +2431,24 @@ def gradient_parity_3d(nb, draws, model=None, label: str = "3D") -> None:
 def drive_run_3d(argss: list, eval_every: int, label: str):
     """``run_3d`` without ``--evaluate`` on each of ``argss`` in turn (a run,
     then its resumes), every train step and evaluation timed and its launches
-    counted, evaluating every ``eval_every`` steps (the CLI's is every 1000).
-    The launches are counted from 0. Returns (the steps, the evaluations,
-    (steps so far, checkpoints) after each run, seconds, peak memory)."""
+    counted, and each step's Δ computations outside the fused kernel
+    (``attention_delta`` calls, ``delta_calls``), evaluating every
+    ``eval_every`` steps (the CLI's is every 1000). The launches are counted
+    from 0. Returns (the steps, the evaluations, (steps so far, checkpoints)
+    after each run, seconds, peak memory)."""
     import torch
 
     from diffassemble_tpu_torch.cli import train_3d
+    from diffassemble_tpu_torch.ops import cuda_attention as ca
     from diffassemble_tpu_torch.train import trainer as trainer_mod
 
     steps, evals, runs = [], [], []
     make_step = trainer_mod.make_train_step
+    attention_delta, delta_calls = ca.attention_delta, [0]
+
+    def counted_delta(dout, o):
+        delta_calls[0] += 1
+        return attention_delta(dout, o)
 
     def counted_make_train_step(*args, **kwargs):
         step = make_step(*args, **kwargs)
@@ -2323,14 +2456,15 @@ def drive_run_3d(argss: list, eval_every: int, label: str):
         def counted(state, batch):
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             torch.cuda.synchronize()
-            t0, before, before_routes = time.perf_counter(), read_counts(), read_routes()
+            t0, before, before_routes, deltas = time.perf_counter(), read_counts(), read_routes(), delta_calls[0]
             ev[0].record()
             new, aux = step(state, batch)
             ev[1].record()
             torch.cuda.synchronize()
             rec = {"step": new.step, "seconds": time.perf_counter() - t0, "ms": ev[0].elapsed_time(ev[1]),
                    "launches": {k: v - before[k] for k, v in read_counts().items()},
-                   "routes": routes_since(before_routes), **{k: float(v) for k, v in aux.items()}}
+                   "routes": routes_since(before_routes), "delta_calls": delta_calls[0] - deltas,
+                   **{k: float(v) for k, v in aux.items()}}
             steps.append(rec)
             norms = ", ".join(f"{k[len('grad_norm/'):]} {v:.4f}" for k, v in rec.items() if k.startswith("grad_norm/"))
             phase(f"{label} train step {rec['step']}: {rec['seconds']:.3f} s host, {rec['ms']:.2f} ms CUDA events, "
@@ -2366,7 +2500,8 @@ def drive_run_3d(argss: list, eval_every: int, label: str):
     reset_counts()
     start = time.perf_counter()
     with mock.patch.object(trainer_mod, "make_train_step", counted_make_train_step), \
-            mock.patch.object(trainer_mod, "Trainer", EvaluatedTrainer):
+            mock.patch.object(trainer_mod, "Trainer", EvaluatedTrainer), \
+            mock.patch.object(ca, "attention_delta", counted_delta):
         for args in argss:
             train_3d.run_3d(args)
             ckpt_dir = Path(args.run_dir) / "checkpoints"
@@ -2384,8 +2519,10 @@ def train3d(workdir: Path, max_err: dict[str, float]) -> tuple[dict[str, int], d
     relative-pose conditioning, aux-pose and rot-pt-l2 losses, bf16, batch
     16, 512 points, up to 8 parts) from seeded weights: a sanity
     evaluation, 4 steps with an evaluation and a checkpoint at step 4, then a
-    resume to step 6. Gates: every step exactly 8 launches of each kernel, 6
-    on the tensor cores (Dh 32) and 2 on the CUDA cores (Dh 264), finite
+    resume to step 6. Gates: every step exactly 8 forward launches, 6 on the
+    tensor cores (Dh 32) and 2 on the CUDA cores (Dh 264), 6 dQ and 6 dK/dV
+    launches on the tensor cores with a Δ each, 2 fused backward launches on
+    the small-graph route (Dh 264, N = 8) and no Δ for them, finite
     losses and gradient norms, nonzero gradients in the encoder, the pairwise
     head and the denoiser; every evaluation 120 forward launches a call of 16
     objects and no backward; the checkpoints and the resume. Returns the
@@ -2395,8 +2532,7 @@ def train3d(workdir: Path, max_err: dict[str, float]) -> tuple[dict[str, int], d
     start = time.perf_counter()
     nb, draws = loss_inputs_3d()
     cfg = train_3d.config_from_args(train3d_args(""))
-    feat_dim = 2048  # vn_dgcnn_rich: [equivariant 1536 ‖ invariant 512]
-    widths = (cfg.hidden_dim // cfg.heads, (feat_dim + 64) // cfg.heads)
+    widths = head_widths_3d(cfg)
     phase(f"3D training batch and draws made in {time.perf_counter() - start:.2f} s; head widths {widths}")
     rows = train3d_kernels(nb, widths, max_err)
     losses = trained_loss_check()
@@ -2411,32 +2547,32 @@ def train3d(workdir: Path, max_err: dict[str, float]) -> tuple[dict[str, int], d
     counts, routes = read_counts(), read_routes()
     ckpts = sorted(int(p.name) for p in (run_dir / "checkpoints").iterdir() if p.name.isdigit())
 
-    step_want = dict.fromkeys(KERNEL_SOURCES, 2 * cfg.n_layers)
-    route_want = dict.fromkeys(KERNEL_SOURCES, {"tensor_cores": 2 * (cfg.n_layers - 1), "cuda_cores": 2})
+    route_want = step_routes_3d(2, cfg.n_layers)
+    step_want = counts_of(route_want)
     if first_run != TRAIN3D_STEPS or [s["step"] for s in steps] != list(range(1, TRAIN3D_RESUME_TO + 1)):
         raise AssertionError(f"3D training: steps {[s['step'] for s in steps]}, the first run {first_run}")
     for s in steps:
-        if s["launches"] != step_want or s["routes"] != route_want:
+        deltas = step_want["masked_attention_bwd_dq"]  # one Δ a tensor-core dQ launch, none for the fused
+        if (s["launches"], s["routes"], s["delta_calls"]) != (step_want, route_want, deltas):
             raise AssertionError(f"3D train step {s['step']}: launches {s['launches']} by route {s['routes']}, "
-                                 f"expected {step_want}, {route_want}")
+                                 f"{s['delta_calls']} Δ outside the fused kernel; expected {step_want}, {route_want}, "
+                                 f"one Δ a dQ launch")
         if not (all(math.isfinite(v) for k, v in s.items() if isinstance(v, float)) and s["grad_nonfinite"] == 0
                 and min(s["grad_norm/encoder"], s["grad_norm/rel_head"], s["grad_norm/denoiser"]) > 0):
             raise AssertionError(f"3D train step {s['step']}: bad loss or gradient norms {s}")
     for e in evals:
         n = per_call * e["calls"]
-        if (e["calls"] != 1 or e["launches"] != {"masked_attention_fwd": n, "masked_attention_bwd_dq": 0,
-                                                 "masked_attention_bwd_dkv": 0}
-                or e["routes"]["masked_attention_fwd"] != {"tensor_cores": n * 3 // 4, "cuda_cores": n // 4}):
+        if (e["calls"] != 1 or e["launches"] != launches_of(fwd=n)
+                or e["routes"]["masked_attention_fwd"] != on_routes(tensor_cores=n * 3 // 4, cuda_cores=n // 4)):
             raise AssertionError(f"3D evaluation: {e}, expected {per_call} forward launches a call (3/4 on the "
                                  f"tensor cores) and no backward")
     if [(e["tag"], e["step"]) for e in evals] != [("sanity", 0), ("val", TRAIN3D_STEPS), ("sanity", 0)]:
         raise AssertionError(f"3D evaluations {[(e['tag'], e['step']) for e in evals]}")
     if first_ckpts != [TRAIN3D_STEPS] or ckpts != [TRAIN3D_STEPS, TRAIN3D_RESUME_TO]:
         raise AssertionError(f"3D checkpoints {first_ckpts}, then {ckpts}")
-    for kernel in KERNEL_SOURCES:
-        if len({r["route"] for r in rows if r["kernel"] == kernel}) != len(widths):
-            raise AssertionError(f"3D training: {kernel} at the head widths {widths} shares a route, so its "
-                                 f"launches do not split by width")
+    if len({(r["kernel"], r["route"]) for r in rows}) != len(rows):
+        raise AssertionError(f"3D training: a kernel at the head widths {widths} shares a route, so its "
+                             f"launches do not split by width")
     for r in rows:  # each head width takes its own route: each step's launches on that route
         r["launches_per_step"] = [s["routes"][r["kernel"]][r["route"]] for s in steps]
     saved = json.loads((run_dir / "checkpoints" / "config.json").read_text())
@@ -2468,16 +2604,21 @@ def asset_protocol_3d(name: str) -> dict:
 
 
 def kernels_3d_widths(max_err: dict[str, float]) -> list[dict]:
-    """All three kernels at every head width the 3D family gives them, on the
-    3D protocols' own masks: N = 8 (``diffusion3d_easy``'s first call, 2–8
+    """The kernels at every head width the 3D family gives them, on the 3D
+    protocols' own masks: N = 8 (``diffusion3d_easy``'s first call, 2–8
     parts) and N = 20 (``diffusion3d_vndgcnn``'s, 2–20 parts: most rows are
     padding, with empty query rows and unattended keys), against their plain
     versions in bf16 and f32 with phase 3's tolerances, exact zeros and
-    routes; then timed in bf16 where a main path launches them
-    (``time_on_masks``): at N = 20 Dh 32 (every N = 20 path), 24
-    (``pointnet``), 40 (``pointnet_plus``), 104 (``diffusion3d_vndgcnn``),
-    136 (``pointnet_inv``) and 271 (``vnn``), at N = 8 Dh 136 (split message
-    passing). Returns the timed rows, each with its mask's N."""
+    routes: the forward, and the backward on its route, the fused kernel at
+    every width but bf16 Dh 32 (the tensor cores' dQ and dK/dV). On the N =
+    20 mask at Dh 271, ``MaskedAttention``'s backward in both types is one
+    fused launch and computes no Δ outside it (``fused_backward_alone``).
+    Then timed in bf16 where a main path launches them (``time_on_masks``):
+    at N = 20 Dh 32 (every N = 20 path), 24 (``pointnet``), 40
+    (``pointnet_plus``), 104 (``diffusion3d_vndgcnn``), 136
+    (``pointnet_inv``) and 271 (``vnn``), at N = 8 Dh 136 (split message
+    passing); each fused row beside the CUDA-core pair it replaced. Returns
+    the timed rows, each with its mask's N."""
     import torch
 
     rows = []
@@ -2491,8 +2632,43 @@ def kernels_3d_widths(max_err: dict[str, float]) -> list[dict]:
         for dh in (32, *OTHER_HEAD_DIMS):
             for dtype in (torch.bfloat16, torch.float32):
                 _check_kernels(label, mask, dh, dtype, gen, max_err)
+        if name == "diffusion3d_vndgcnn":
+            for dtype in (torch.bfloat16, torch.float32):
+                fused_backward_alone(mask, 271, dtype, gen)
         rows += time_on_masks(mask, label, timed, gen)
     return rows
+
+
+def fused_backward_alone(mask, dh: int, dtype, gen) -> None:
+    """``MaskedAttention`` forward and backward on a small graph off the
+    tensor cores: the backward launches the fused kernel once and nothing
+    else (no dQ or dK/dV launch, no Δ computed outside it: ``attention_delta``
+    raises meanwhile), and its gradients are bit-equal to the fused kernel's
+    called on the forward's O and L (it is deterministic)."""
+    import torch
+
+    from diffassemble_tpu_torch.ops import cuda_attention as ca
+
+    b, n, _ = mask.shape
+    q, k, v, dout = (torch.randn((b, n, HEADS, dh), generator=gen, device="cuda").to(dtype) for _ in range(4))
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    out = ca.MaskedAttention.apply(q, k, v, mask)
+
+    def no_delta(*args):
+        raise AssertionError("Δ computed outside the fused kernel")
+
+    before = read_counts()
+    with mock.patch.object(ca, "attention_delta", no_delta):
+        out.backward(dout)
+    torch.cuda.synchronize()
+    launched = {kern: c - before[kern] for kern, c in read_counts().items()}
+    o, lse = ca.masked_attention_fwd(q.detach(), k.detach(), v.detach(), mask)
+    want = ca.masked_attention_bwd_small(q.detach(), k.detach(), v.detach(), mask, dout, o, lse)
+    equal = all(torch.equal(g, w) for g, w in zip((q.grad, k.grad, v.grad), want))
+    phase(f"MaskedAttention backward B={b} N={n} H={HEADS} Dh={dh} {str(dtype)[6:]}: launches {launched}, no Δ "
+          f"outside the fused kernel, gradients bit-equal to the fused kernel's {equal}")
+    if launched != launches_of(fused=1) or not equal:
+        raise AssertionError(f"MaskedAttention's backward on a small graph: launches {launched}, equal {equal}")
 
 
 def eval3d_more(workdir: Path) -> dict[str, tuple]:
@@ -2566,18 +2742,22 @@ def card_vs_cpu_loss_3d(args, nb, draws, label: str) -> dict[str, float]:
 
 
 def _check_steps_3d(label: str, cfg, steps: list[dict], evals: list[dict], width: int) -> None:
-    """Each step: the denoiser's passes × layers launches of each kernel,
-    one layer's (head width ``width``) on the CUDA cores and the others' on
-    the tensor cores; finite losses and gradient norms, every group's
-    gradient nonzero. Each evaluation: one call, the layers × reverse steps
-    forward launches, no backward."""
+    """Each step: the denoiser's passes × layers forward launches, one
+    layer's (head width ``width``) on the CUDA cores and the others' on the
+    tensor cores; the backward of that layer fused (the small-graph route),
+    the others' dQ and dK/dV on the tensor cores, Δ computed once for each
+    of those and never for the fused (``step_routes_3d``); finite losses and
+    gradient norms, every group's gradient nonzero. Each evaluation: one
+    call, the layers × reverse steps forward launches, no backward."""
     passes = 2 if cfg.aux_pose_weight > 0 else 1
-    step_want = dict.fromkeys(KERNEL_SOURCES, passes * cfg.n_layers)
-    route_want = dict.fromkeys(KERNEL_SOURCES, {"tensor_cores": passes * (cfg.n_layers - 1), "cuda_cores": passes})
+    route_want = step_routes_3d(passes, cfg.n_layers)
+    step_want = counts_of(route_want)
     for s in steps:
-        if s["launches"] != step_want or s["routes"] != route_want:
+        deltas = step_want["masked_attention_bwd_dq"]  # one Δ a tensor-core dQ launch, none for the fused
+        if (s["launches"], s["routes"], s["delta_calls"]) != (step_want, route_want, deltas):
             raise AssertionError(f"{label} step {s['step']}: launches {s['launches']} by route {s['routes']}, "
-                                 f"expected {step_want}, {route_want} (Dh {width} on the CUDA cores)")
+                                 f"{s['delta_calls']} Δ outside the fused kernel; expected {step_want}, {route_want} "
+                                 f"(Dh {width}: the forward on the CUDA cores, the backward fused), one Δ a dQ launch")
         norms = [v for k, v in s.items() if k.startswith("grad_norm/")]
         if not (all(math.isfinite(v) for v in s.values() if isinstance(v, float)) and s["grad_nonfinite"] == 0
                 and len(norms) >= 2 and min(norms) > 0):
@@ -2585,10 +2765,9 @@ def _check_steps_3d(label: str, cfg, steps: list[dict], evals: list[dict], width
     reverse = cfg.steps // cfg.inference_ratio
     per_call = cfg.n_layers * reverse
     for e in evals:
-        if (e["calls"] != 1 or e["launches"] != {"masked_attention_fwd": per_call, "masked_attention_bwd_dq": 0,
-                                                 "masked_attention_bwd_dkv": 0}
-                or e["routes"]["masked_attention_fwd"] != {"tensor_cores": (cfg.n_layers - 1) * reverse,
-                                                           "cuda_cores": reverse}):
+        if (e["calls"] != 1 or e["launches"] != launches_of(fwd=per_call)
+                or e["routes"]["masked_attention_fwd"] != on_routes(tensor_cores=(cfg.n_layers - 1) * reverse,
+                                                                    cuda_cores=reverse)):
             raise AssertionError(f"{label} evaluation: {e}, expected {per_call} forward launches a call")
 
 
@@ -2727,8 +2906,7 @@ def _gate_2d(name: str, metrics: dict, calls: list[dict], counts: dict, routes: 
     TPU's, every forward launch on the tensor cores, 120 a call, no backward."""
     per_call = 4 * (300 // 10)
     n = per_call * len(calls)
-    if counts != {"masked_attention_fwd": n, "masked_attention_bwd_dq": 0, "masked_attention_bwd_dkv": 0} \
-            or routes["masked_attention_fwd"] != {"tensor_cores": n, "cuda_cores": 0}:
+    if counts != launches_of(fwd=n) or routes["masked_attention_fwd"] != on_routes(tensor_cores=n):
         raise AssertionError(f"{label}: launches {counts} by route {routes}, expected {n} forward launches on the "
                              "tensor cores and no backward")
     from diffassemble_tpu_torch.train.heldout import asset_protocol
@@ -2897,8 +3075,7 @@ def train_discrete(workdir: Path) -> tuple[dict[str, int], dict[str, dict[str, i
     per_call = cfg.n_layers * (cfg.steps // cfg.inference_ratio)
     in_steps = {k: sum(s["launches"][k] for s in steps) for k in KERNEL_SOURCES}
     sanity = {k: counts[k] - in_steps[k] for k in KERNEL_SOURCES}  # one sanity call in each run
-    if sanity != {"masked_attention_fwd": 2 * per_call, "masked_attention_bwd_dq": 0,
-                  "masked_attention_bwd_dkv": 0} or routes["masked_attention_fwd"]["cuda_cores"]:
+    if sanity != launches_of(fwd=2 * per_call) or routes["masked_attention_fwd"]["cuda_cores"]:
         raise AssertionError(f"discrete training: sanity evaluations launched {sanity}, by route {routes}")
     saved = json.loads((run_dir / "checkpoints" / "config.json").read_text())
     ckpts = sorted(int(p.name) for p in (run_dir / "checkpoints").iterdir() if p.name.isdigit())
@@ -2920,8 +3097,8 @@ def train_discrete(workdir: Path) -> tuple[dict[str, int], dict[str, dict[str, i
 def _check_trainer_steps(steps: list[dict], label: str, launches: int = 4) -> None:
     """Every step ``launches`` of each kernel (default 4 + 4 + 4), all on the
     tensor cores, finite, with gradients in encoder and denoiser."""
-    want = dict.fromkeys(KERNEL_SOURCES, launches)
-    on_tc = dict.fromkeys(KERNEL_SOURCES, {"tensor_cores": launches, "cuda_cores": 0})
+    want = launches_of(launches, launches, launches)
+    on_tc = {k: on_routes(tensor_cores=n) for k, n in want.items()}
     for s in steps:
         if s["launches"] != want or s["routes"] != on_tc:
             raise AssertionError(f"{label} step {s['step']}: launches {s['launches']} by route {s['routes']}")
@@ -2963,8 +3140,7 @@ def angle_sample() -> tuple[dict[str, int], dict[str, dict[str, int]], dict]:
         final = model.sample(batch).final
     counts, routes = read_counts(), read_routes()
     n = bf16.n_layers * (bf16.steps // bf16.inference_ratio)
-    if counts != {"masked_attention_fwd": n, "masked_attention_bwd_dq": 0, "masked_attention_bwd_dkv": 0} \
-            or routes["masked_attention_fwd"] != {"tensor_cores": n, "cuda_cores": 0}:
+    if counts != launches_of(fwd=n) or routes["masked_attention_fwd"] != on_routes(tensor_cores=n):
         raise AssertionError(f"angle sample: launches {counts} by route {routes}, expected {n} forward launches on "
                              "the tensor cores and no backward")
     if not (torch.isfinite(final).all() and final.shape == (1, 36, 4)):
@@ -3046,8 +3222,7 @@ def serve_norm_stats(run_dir: Path) -> tuple[dict[str, int], dict[str, dict[str,
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     counts, routes = read_counts(), read_routes()
-    if counts != {"masked_attention_fwd": 120, "masked_attention_bwd_dq": 0, "masked_attention_bwd_dkv": 0} \
-            or routes["masked_attention_fwd"] != {"tensor_cores": 120, "cuda_cores": 0}:
+    if counts != launches_of(fwd=120) or routes["masked_attention_fwd"] != on_routes(tensor_cores=120):
         raise AssertionError(f"serve with norm_stats: launches {counts} by route {routes}")
     if out.shape != (192, 192, 3) or not np.isfinite(out).all() or not spread <= 5e-2:
         raise AssertionError(f"serve with norm_stats: output {out.shape}, batch dependence {spread}")
@@ -3287,8 +3462,7 @@ def _run_2d_phase(label: str, argvs: list[list[str]], launches: int, cli=None) -
     in_steps = {k: sum(s["launches"][k] for s in steps) for k in KERNEL_SOURCES}
     sanity = {k: counts[k] - in_steps[k] for k in KERNEL_SOURCES}
     per_call = 4 * 30 if launches else 0  # 4 layers × 30 DDIM steps a sanity call
-    if sanity != {"masked_attention_fwd": len(argvs) * per_call, "masked_attention_bwd_dq": 0,
-                  "masked_attention_bwd_dkv": 0} or any(r["cuda_cores"] for r in routes.values()):
+    if sanity != launches_of(fwd=len(argvs) * per_call) or any(r["cuda_cores"] for r in routes.values()):
         raise AssertionError(f"{label}: sanity evaluations launched {sanity}, by route {routes}")
     steady = [s for i, s in enumerate(steps) if i not in (0, runs[0])] or steps[1:]
     result = {"seconds": seconds, "runs": runs, "max_memory_allocated": peak,
@@ -3531,7 +3705,7 @@ def evaluate_cli(workdir: Path) -> dict[str, tuple]:
         seconds = time.perf_counter() - start
         counts, routes = read_counts(), read_routes()
         piece_acc = metrics[0]["piece_acc"]
-        if counts != {"masked_attention_fwd": 120, "masked_attention_bwd_dq": 0, "masked_attention_bwd_dkv": 0} \
+        if counts != launches_of(fwd=120) \
                 or routes["masked_attention_fwd"]["cuda_cores"] or len(finals) != 1 or not math.isfinite(piece_acc):
             raise AssertionError(f"evaluate {name}: launches {counts}, by route {routes}, metrics {metrics}")
         model = rot30 if run == "eval_rot30" else rot_ms
@@ -3603,7 +3777,7 @@ def export_meshes_3d(workdir: Path) -> tuple[dict, dict, dict]:
     npz = sorted(meshes.glob("*_traj.npz"))
     if len(ply) != 4 * 30 or len(npz) != 4:
         raise AssertionError(f"export_meshes: {len(ply)} .ply and {len(npz)} _traj.npz files")
-    if counts != {"masked_attention_fwd": 2 * 120, "masked_attention_bwd_dq": 0, "masked_attention_bwd_dkv": 0}:
+    if counts != launches_of(fwd=2 * 120):
         raise AssertionError(f"export_meshes: launches {counts}")
     ap = train_3d.argparse.ArgumentParser()
     train_3d.add_3d_args(ap)
@@ -3633,9 +3807,11 @@ def ddp_world_of_one_3d() -> tuple[dict, dict]:
     model with the easy run's flags (``TRAIN3D_FLAGS``: vn_dgcnn_rich from
     its encoder_init, batch 16, the relative-pose losses) on the run's first
     batch without a process group, under DDP in a world of one over NCCL,
-    and without again: parameters and gradients bit-equal. Each step 8 + 8
-    + 8 launches (6 on the tensor cores, 2 on the CUDA cores). A second card
-    would let 2 NCCL ranks run against one process; one card does not."""
+    and without again: parameters and gradients bit-equal. Each step 8
+    forward launches (6 on the tensor cores, 2 on the CUDA cores), 6 dQ and
+    6 dK/dV launches on the tensor cores and 2 fused backward launches on
+    the small-graph route (``step_routes_3d``). A second card would let 2
+    NCCL ranks run against one process; one card does not."""
     import torch
 
     from diffassemble_tpu_torch.cli import train_3d
@@ -3648,8 +3824,9 @@ def ddp_world_of_one_3d() -> tuple[dict, dict]:
     n = one_rank_ddp_matches(lambda: Diffusion3D(train_3d.config_from_args(args), device="cuda", seed=0), batch,
                              "nccl")
     counts, routes = read_counts(), read_routes()
-    if counts != dict.fromkeys(KERNEL_SOURCES, 3 * 8) or routes["masked_attention_fwd"]["cuda_cores"] != 3 * 2:
-        raise AssertionError(f"3D ddp: launches {counts} by route {routes}, expected 8 (6 + 2) in each of 3 steps")
+    step = step_routes_3d(2, train_3d.config_from_args(args).n_layers)
+    if routes != {k: {r: 3 * n for r, n in by_route.items()} for k, by_route in step.items()}:
+        raise AssertionError(f"3D ddp: launches {counts} by route {routes}, expected {step} in each of 3 steps")
     phase(f"3D ddp: a world of one over NCCL, one Trainer step bit-equal to the plain step ({n} parameters and "
           f"their gradients; a second plain step equal too); launches {counts}; 2 NCCL ranks against one process: "
           f"not run (this smoke drives one card; the machine has {torch.cuda.device_count()})")
@@ -3975,13 +4152,12 @@ def _sum_counts(records: list[dict]) -> tuple[dict, dict]:
     return counts, routes
 
 
-def _check_step_launches(label: str, recs: list[dict], per_kernel: int, route_counts: dict[str, int]) -> None:
-    """Each rank's step launched each kernel ``per_kernel`` times, by route as given."""
+def _check_step_launches(label: str, recs: list[dict], routes: dict[str, dict[str, int]]) -> None:
+    """Each rank's step launched each kernel by route as given."""
     for r, rec in enumerate(recs):
-        if rec["launches"] != dict.fromkeys(KERNEL_SOURCES, per_kernel) or \
-                any(rec["routes"][k] != route_counts for k in KERNEL_SOURCES):
+        if rec["launches"] != counts_of(routes) or rec["routes"] != routes:
             raise AssertionError(f"{label}, rank {r}: launches {rec['launches']}, by route {rec['routes']}; "
-                                 f"expected {per_kernel} of each kernel, by route {route_counts}")
+                                 f"expected {routes}")
 
 
 def timing_tp(max_err: dict[str, float]) -> list[dict]:
@@ -4008,6 +4184,32 @@ def timing_tp(max_err: dict[str, float]) -> list[dict]:
             raise AssertionError(f"{r['kernel']} at H={h} Dh={r['dh']} takes the {r['route']} route")
         r.update(h=h, main_path=False, tensor_parallel=True, launches_per_step=dict(STEP_LAUNCHES)[r["dh"]])
     return rows
+
+
+def kernels_tp_3d(nb, max_err: dict[str, float]) -> None:
+    """The kernels at the shapes the dp 2 × tp 2 3D rank step gives them:
+    each dp place's half of the step's batch (B = 8, N = 8, padding parts
+    with empty query rows and unattended keys), H = heads / TP, the
+    denoiser's head widths (Dh 32 and 264), against their plain versions in
+    bf16 and f32 (``_check_kernels``: phase 3's tolerances, exact zeros and
+    the route, the fused kernel's at all but bf16 Dh 32), updating
+    ``max_err``."""
+    import torch
+
+    from diffassemble_tpu_torch.cli import train_3d
+
+    cfg = train_3d.config_from_args(train3d_args(""))
+    mask = torch.as_tensor(nb.adj).cuda()
+    if mask.shape[0] != DPTP_BATCH_3D:
+        raise AssertionError(f"the dp2 x tp2 3D batch has {mask.shape[0]} objects, expected {DPTP_BATCH_3D}")
+    half = DPTP_BATCH_3D // 2
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for place in range(2):
+        m = mask[place * half:(place + 1) * half].contiguous()
+        for dh in head_widths_3d(cfg):
+            for dtype in (torch.bfloat16, torch.float32):
+                _check_kernels(f"dp2 x tp2 3D rank, dp place {place}", m, dh, dtype, gen, max_err,
+                               heads=cfg.heads // TP)
 
 
 def timing_rest_shapes() -> list[dict]:
@@ -4062,10 +4264,12 @@ def tensor_parallel(workdir: Path, max_err: dict[str, float]) -> tuple[dict[str,
       peak memory printed. Every step here has no warmup, so that it moves
       the parameters.
 
-    The single-process references run in this process first. Returns, by
-    path, (launches summed over the ranks, by route, the result), and the
-    kernels' rows at a rank's shapes (``timing_tp``) and at phases 20 and
-    21a's (``timing_rest_shapes``)."""
+    The kernels are first held against their plain versions at a rank's
+    shapes: N = 908 (``timing_tp``) and the dp 2 × tp 2 3D step's N = 8
+    (``kernels_tp_3d``, the fused kernel's). The single-process references
+    run in this process next. Returns, by path, (launches summed over the
+    ranks, by route, the result), and the kernels' rows at a rank's shapes
+    (``timing_tp``) and at phases 20 and 21a's (``timing_rest_shapes``)."""
     import gc
 
     import numpy as np
@@ -4082,6 +4286,7 @@ def tensor_parallel(workdir: Path, max_err: dict[str, float]) -> tuple[dict[str,
     torch.save(tuple(torch.as_tensor(np.asarray(f)) for f in batch._replace(adj=batch.adj & adj)),
                workdir / "tp_batch.pt")
     nb3 = loss_inputs_3d()[0]
+    kernels_tp_3d(nb3, max_err)
     torch.save(tuple(torch.as_tensor(np.asarray(f)) for f in nb3), workdir / "dptp_3d_batch.pt")
 
     deterministic = torch.backends.cudnn.deterministic
@@ -4113,7 +4318,8 @@ def tensor_parallel(workdir: Path, max_err: dict[str, float]) -> tuple[dict[str,
         worst = compare_steps(recs, ref[dtype], *tol, steps=dtype == "float32")
         worst["update_replay"] = hold_update(f"tp {dtype} step", recs[0], ref[dtype]["optimizer"])
         route = "cuda_cores" if dtype == "float32" else "tensor_cores"
-        _check_step_launches(f"tp {dtype} step", recs, 4, {"tensor_cores": 0, "cuda_cores": 0, route: 4})
+        _check_step_launches(f"tp {dtype} step", recs, {k: {**on_routes(), route: n} for k, n in
+                                                         launches_of(4, 4, 4).items()})
         if dtype == "bfloat16":
             off = update_readings(recs[0], ref[dtype], tol[0])
             phase(f"tp=2 bf16 step's update against one process's (a reading): {len(off)} of {len(recs[0]['grads'])} "
@@ -4144,9 +4350,8 @@ def tensor_parallel(workdir: Path, max_err: dict[str, float]) -> tuple[dict[str,
     finals = [r["request"]["final"] for r in ranks]
     err = float((finals[0] - ref["request"]["final"]).abs().max())
     for r, rec in enumerate(ranks):
-        if rec["request"]["launches"] != {"masked_attention_fwd": 120, "masked_attention_bwd_dq": 0,
-                                          "masked_attention_bwd_dkv": 0} or \
-                rec["request"]["routes"]["masked_attention_fwd"] != {"tensor_cores": 120, "cuda_cores": 0}:
+        if rec["request"]["launches"] != launches_of(fwd=120) or \
+                rec["request"]["routes"]["masked_attention_fwd"] != on_routes(tensor_cores=120):
             raise AssertionError(f"tp request, rank {r}: launches {rec['request']['launches']}, by route "
                                  f"{rec['request']['routes']}; expected 120 forward on the tensor cores")
     if not (torch.equal(finals[0], finals[1]) and torch.isfinite(finals[0]).all() and err <= TP_REQUEST_TOL):
@@ -4165,7 +4370,7 @@ def tensor_parallel(workdir: Path, max_err: dict[str, float]) -> tuple[dict[str,
     held = [r["heldout"] for r in ranks]
     gap = abs(held[0]["piece_acc"] - ref["heldout"]["piece_acc"])
     for r, h in enumerate(held):
-        if h["launches"] != {"masked_attention_fwd": 120, "masked_attention_bwd_dq": 0, "masked_attention_bwd_dkv": 0} \
+        if h["launches"] != launches_of(fwd=120) \
                 or h["routes"]["masked_attention_fwd"]["cuda_cores"] or h["puzzles"] != EVAL_N:
             raise AssertionError(f"tp held-out call, rank {r}: {h['puzzles']} puzzles, launches {h['launches']}, "
                                  f"by route {h['routes']}")
@@ -4183,13 +4388,15 @@ def tensor_parallel(workdir: Path, max_err: dict[str, float]) -> tuple[dict[str,
                                                 "one_process_calls": ref["heldout"]["calls"]})
 
     ranks, seconds = run_tp_ranks("dptp_steps", 2 * TP, workdir)
-    for family, per_kernel, routes in (("2d", 4, {"tensor_cores": 0, "cuda_cores": 4}),
-                                       ("3d", 8, {"tensor_cores": 0, "cuda_cores": 8})):
+    # f32 steps: the 2D step's 4 + 4 + 4 launches on the CUDA cores (N = 908); the 3D step's 8 forward
+    # launches on the CUDA cores and its 8 backward launches on the small-graph route (N = 8)
+    for family, routes in (("2d", {k: on_routes(cuda_cores=n) for k, n in launches_of(4, 4, 4).items()}),
+                           ("3d", step_routes_3d(2, 4, "float32"))):
         recs = [r[family] for r in ranks]
         tol = GRAD_TOL["efficientnet_b0"] if family == "2d" else (DPTP_3D_GRAD_REL, *GRAD_TOL["3d"][1:])
         worst = compare_steps(recs, ref_dptp[family], *tol, steps=family == "2d")
         worst["update_replay"] = hold_update(f"dp2 x tp2 {family} step", recs[0], ref_dptp[family]["optimizer"])
-        _check_step_launches(f"dp2 x tp2 {family} step", recs, per_kernel, routes)
+        _check_step_launches(f"dp2 x tp2 {family} step", recs, routes)
         if family == "3d":
             off = update_readings(recs[0], ref_dptp[family], tol[0])
             phase(f"dp=2 x tp=2 3d step's update against one process's (a reading): {len(off)} of "
@@ -4221,9 +4428,12 @@ def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, t
     ``train3d_more``, ``more_2d`` the equivariant 2D family's paths by name
     and ``rest`` those of phases 17-21 (launches, launches by route, the
     phase's result, or for the 3D DDP step no result), ``tp_paths`` those of
-    phase 22 (launches summed over the ranks, by route, the result); each
-    kernel's ``tensor_parallel`` entry sums its rows at a tp rank's shapes
-    (H = 4) over a denoiser step or a train step."""
+    phase 22 (launches summed over the ranks, by route, the result); the
+    forward's, dQ's and dK/dV's ``tensor_parallel`` entries sum their rows at
+    a tp rank's shapes (H = 4) over a denoiser step or a train step. The fused small-graph
+    backward's figures are per 3D train step of the easy run's flags (its
+    launches at Dh 264 on the run's first batch, N = 8), beside the
+    CUDA-core pair it replaced on the same inputs."""
     from diffassemble_tpu_torch import REFERENCE_PACKAGE
     from diffassemble_tpu_torch.ops import cuda_attention
 
@@ -4235,18 +4445,44 @@ def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, t
              **{f"train3d_{label}": v for label, v in t_more.items()}, **more_2d, **rest, **tp_paths}
     out = []
     for kernel, source in KERNEL_SOURCES.items():
-        # the forward kernel's figures are per denoiser step at the serving
-        # shapes (B = 1); the backward kernels' per train step (B = 8)
-        b = 1 if kernel == "masked_attention_fwd" else TRAIN_BATCH
-        per = [r for r in rows if r["kernel"] == kernel and r["b"] == b and r["n"] == N_NODES and r["main_path"]]
-        step = {key: sum(r[key] * r["launches_per_step"] for r in per)
-                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        if kernel == FUSED:
+            # per 3D train step of the easy run's flags: its launches on the run's first batch (N = 8)
+            rs = [r for r in rows if r["kernel"] == kernel and r["mask"] == "3D training, first batch"]
+            steps = {sum(step) for step in zip(*(r["launches_per_step"] for r in rs))}
+            if len(steps) != 1:
+                raise AssertionError(f"the 3D train steps launched the fused kernel {steps} times")
+            per = [(r, r["launches_per_step"][0]) for r in rs]
+            routes = {"small_graph": source}
+            more = {"library_computes": "dQ, dK and dV in one SDPA backward, as the fused kernel",
+                    "cuda_core_pair_ms": sum((r["cuda_core_pair_ms"]["dq_ms"] + r["cuda_core_pair_ms"]["dkv_ms"])
+                                             * c for r, c in per)}
+            about = (f"one 3D train step of the easy run's flags: {steps.pop()} launches at Dh="
+                     f"{'/'.join(str(r['dh']) for r in rs)}, B={rs[0]['b']}, H={HEADS}, N={rs[0]['n']}, bf16, "
+                     f"route small_graph; cuda_core_pair_ms: the dQ + dK/dV pair it replaced, same inputs")
+        else:
+            # the forward kernel's figures are per denoiser step at the serving
+            # shapes (B = 1); the backward kernels' per train step (B = 8)
+            b = 1 if kernel == "masked_attention_fwd" else TRAIN_BATCH
+            per = [(r, r["launches_per_step"]) for r in rows
+                   if r["kernel"] == kernel and r["b"] == b and r["n"] == N_NODES and r["main_path"]]
+            routes = {"tensor_cores": source, "cuda_cores": CUDA_CORE_SOURCES[kernel]}
+            more = {} if b == 1 else {"library_computes": "dQ, dK and dV in one SDPA backward, the same call in "
+                                                          "both backward rows: set it against the sum of their ms"}
+            about = (f"one {'denoiser step' if b == 1 else 'train step'}: 3 launches at Dh=32 and 1 at Dh=144, "
+                     f"B={b}, H={HEADS}, N={N_NODES}, bf16, route {per[0][0]['route']}")
+            tp = [r for r in rows if r.get("tensor_parallel") and r["kernel"] == kernel and r["b"] == b]
+            more["tensor_parallel"] = {
+                **{key: sum(r[key] * r["launches_per_step"] for r in tp)
+                   for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
+                "times_are_for": f"a tp rank's {'denoiser step' if b == 1 else 'train step'}: H={HEADS // TP}, "
+                                 f"B={b}, N={N_NODES}, 3 launches at Dh=32 and 1 at Dh=144, bf16, tensor cores"}
+        step = {key: sum(r[key] * c for r, c in per) for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
         out.append({
             "name": kernel,
             "route": "cuda",
             "source": source,
-            "sources_by_route": {"tensor_cores": source, "cuda_cores": CUDA_CORE_SOURCES[kernel]},
-            "replaces": f"{REFERENCE_PACKAGE}/{cuda_attention.REPLACES[kernel]}",
+            "sources_by_route": routes,
+            "replaces": ", ".join(f"{REFERENCE_PACKAGE}/{x}" for x in cuda_attention.REPLACES[kernel]),
             "launches": sum(path[0][kernel] for path in paths.values()),
             "launches_by_path": {name: path[0][kernel] for name, path in paths.items()},
             "launches_by_route": {name: path[1][kernel] for name, path in paths.items()},
@@ -4254,22 +4490,12 @@ def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, t
             "ms": step["ms"],
             "plain_ms": step["plain_ms"],
             "bound_ms": step["bound_ms"],
-            "bound_by": "operations" if all(r["bound_by"] == "operations" for r in per) else "bytes",
+            "bound_by": "operations" if all(r["bound_by"] == "operations" for r, _ in per) else "bytes",
             "library_ms": step["library_ms"],
-            **({} if b == 1 else {"library_computes": "dQ, dK and dV in one SDPA backward, the same call in both "
-                                                      "backward rows: set it against the sum of their ms"}),
-            "times_are_for": (f"one {'denoiser step' if b == 1 else 'train step'}: 3 launches at Dh=32 and 1 at "
-                              f"Dh=144, B={b}, H={HEADS}, N={N_NODES}, bf16, route {per[0]['route']}"),
+            **more,
+            "times_are_for": about,
             "per_shape": [r for r in rows if r["kernel"] == kernel],
         })
-    for entry in out:
-        b = 1 if entry["name"] == "masked_attention_fwd" else TRAIN_BATCH
-        per = [r for r in rows if r.get("tensor_parallel") and r["kernel"] == entry["name"] and r["b"] == b]
-        entry["tensor_parallel"] = {
-            **{key: sum(r[key] * r["launches_per_step"] for r in per)
-               for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
-            "times_are_for": f"a tp rank's {'denoiser step' if b == 1 else 'train step'}: H={HEADS // TP}, B={b}, "
-                             f"N={N_NODES}, 3 launches at Dh=32 and 1 at Dh=144, bf16, tensor cores"}
     out[1]["tensor_parallel"]["paths"] = {name: r[2] for name, r in tp_paths.items()}
     out[0]["block_rows_sweep"] = sweep
     out[0]["seconds_per_request"] = serve[2]
@@ -4373,8 +4599,20 @@ def main() -> None:
                      "export_meshes_3d", "tp_request", "tp_heldout",
                      *(f"3D {name} {what}" for name in e_more for what in ("run_3d --evaluate", "held-out"))}
     no_attention = {"gcn"}  # its backbone is matrix products: it must launch no kernel (phase 17)
-    idle = {path: counts for path, counts in paths.items() if path not in no_attention and
-            any(v == 0 for k, v in counts.items() if path not in sampling_only or k == "masked_attention_fwd")}
+    # 3D training: the backward of the wide last layer (N <= 32, off the tensor cores) is the fused
+    # kernel's; the f32 steps have no tensor-core layer, so no dQ or dK/dV launch
+    fused_paths = {"3D train", *(f"3D train {label}" for label in t_more), "ddp_3d", "dptp_step_3d"}
+    fused_only = {"dptp_step_3d"}
+
+    def path_kernels(path: str) -> set[str]:
+        if path in no_attention:
+            return set()
+        if path in sampling_only:
+            return {"masked_attention_fwd"}
+        pair = set() if path in fused_only else {"masked_attention_bwd_dq", "masked_attention_bwd_dkv"}
+        return {"masked_attention_fwd", *pair, *({FUSED} if path in fused_paths else ())}
+
+    idle = {path: counts for path, counts in paths.items() if any(counts[k] == 0 for k in path_kernels(path))}
     if idle:
         raise AssertionError(f"a kernel of a main path was not launched: {idle}")
     line = kernel_line(errs, rows, sweep, serve, train, heldout, rec, mix, ddp, tuple(e3d), tuple(t3d), e_more,

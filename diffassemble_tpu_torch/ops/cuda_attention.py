@@ -1,17 +1,20 @@
 """Host side of the hand-written CUDA masked-attention kernels.
 
-Three kernels replace the three TPU kernels of the JAX package's
+Four kernels replace the three TPU kernels of the JAX package's
 ``ops/pallas_attention.py``:
 
 - ``masked_attention_fwd`` replaces ``_attn_kernel`` (launched by
   ``_flash_fwd``);
 - ``masked_attention_bwd_dq`` replaces ``_bwd_dq_kernel`` and
   ``masked_attention_bwd_dkv`` replaces ``_bwd_dkv_kernel`` (both launched by
-  ``_flash_bwd``).
+  ``_flash_bwd``);
+- ``masked_attention_bwd_small`` replaces both backward kernels at once on
+  graphs of at most ``SMALL_GRAPH_N`` (32) nodes: dQ, dK and dV in one
+  launch, with Δ computed in the block.
 
 Each takes every head width from 1 to ``MAX_HEAD_DIM`` (288) in float32 and
-bfloat16, by one of two routes, which ``route`` names and ``_launch``
-dispatches by type, width and alignment:
+bfloat16, by one of three routes, which ``route`` names and ``_launch``
+dispatches by type, width, alignment and graph size:
 
 - the tensor-core route (``"tensor_cores"``): ``csrc/masked_attention_fwd_tc.cu``
   (the forward) and ``csrc/masked_attention_bwd_tc.cu`` (dQ and dK/dV), on
@@ -24,9 +27,16 @@ dispatches by type, width and alignment:
   templated on the number of 32-column slots (1 to 9) and given the width at
   run time (32 and 144 are also compiled in), for float32 (a bf16 or TF32
   product would not hold its gate), every other width, and bfloat16 inputs
-  off a 16-byte boundary.
+  off a 16-byte boundary;
+- the small-graph route (``"small_graph"``): ``csrc/masked_attention_bwd_small.cu``,
+  the backward of a graph of at most ``SMALL_GRAPH_N`` nodes off the
+  tensor-core route, in f32 on the CUDA cores, one block holding a head's
+  whole graph. There ``masked_attention_bwd_dq`` and ``_dkv`` raise on CUDA
+  tensors: the backward is ``masked_attention_bwd_small``'s.
 
-Both routes are hand-written kernels, held against the same plain versions.
+Every route is a hand-written kernel, held against the same plain versions
+(``masked_attention_bwd_small_plain`` equals the dQ and dK/dV plain versions
+bit for bit).
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use (one ``nvcc`` per source, run in
@@ -37,9 +47,10 @@ Each wrapper launches its kernel for CUDA tensors and counts the launch in
 its ``launches`` attribute, and by route in ``launches_by_route``; for CPU
 tensors it computes the kernel's plain PyTorch version (``*_plain``). There
 is no fall back from the card to the plain version, nor from one route to the
-other. ``MaskedAttention`` is the autograd ``Function`` over the three: the
-forward kernel, then Δ = rowsum(dO∘O) and the two backward kernels (the JAX
-package's ``custom_vjp`` of ``flash_masked_attention``).
+other. ``MaskedAttention`` is the autograd ``Function`` over the four: the
+forward kernel, then on the small-graph route the fused backward, else Δ =
+rowsum(dO∘O) and the two backward kernels (the JAX package's ``custom_vjp``
+of ``flash_masked_attention``).
 """
 
 from __future__ import annotations
@@ -64,20 +75,26 @@ SOURCES = {
     "bwd": _PKG / "csrc" / "masked_attention_bwd.cu",
     "bwd_tc": _PKG / "csrc" / "masked_attention_bwd_tc.cu",
     "fwd_tc": _PKG / "csrc" / "masked_attention_fwd_tc.cu",
+    "bwd_small": _PKG / "csrc" / "masked_attention_bwd_small.cu",
 }
 HEADERS = tuple(sorted((_PKG / "csrc").glob("*.cuh")))  # included by the sources; part of each hash
 BUILD_DIR = _PKG / "_build"
-# the TPU kernel each one replaces, in the JAX package (REFERENCE_PACKAGE)
+# the TPU kernels each one replaces, in the JAX package (REFERENCE_PACKAGE)
 REPLACES = {
-    "masked_attention_fwd": "ops/pallas_attention.py:62",
-    "masked_attention_bwd_dq": "ops/pallas_attention.py:94",
-    "masked_attention_bwd_dkv": "ops/pallas_attention.py:121",
+    "masked_attention_fwd": ("ops/pallas_attention.py:62",),
+    "masked_attention_bwd_dq": ("ops/pallas_attention.py:94",),
+    "masked_attention_bwd_dkv": ("ops/pallas_attention.py:121",),
+    "masked_attention_bwd_small": ("ops/pallas_attention.py:94", "ops/pallas_attention.py:121"),
 }
 MAX_HEAD_DIM = 288  # the widest head the kernels take (9 slots of 32 columns)
 # the kernels with a tensor-core route (bfloat16), and its head widths
 TENSOR_CORE_KERNELS = ("masked_attention_fwd", "masked_attention_bwd_dq", "masked_attention_bwd_dkv")
-ROUTES = ("tensor_cores", "cuda_cores")
+ROUTES = ("tensor_cores", "cuda_cores", "small_graph")
 TENSOR_CORE_HEAD_DIMS = (32, 144)
+# the backward of a graph of at most SMALL_GRAPH_N nodes off the tensor-core
+# route is the fused kernel's (a block holds the whole graph)
+SMALL_GRAPH_N = 32
+BACKWARD_PAIR = ("masked_attention_bwd_dq", "masked_attention_bwd_dkv")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG_INF = -1e9
 NVCC_FLAGS = (
@@ -98,6 +115,7 @@ _SIGNATURES = {  # C function → (library, argtypes)
     # rows masked_attention_fwd_tc chooses for (batch, n, heads, head_dim): chip_smoke.py times each
     "masked_attention_fwd_tc_rows": ("fwd_tc", [_P] * 6 + [_I] * 5 + [ctypes.c_float, _I, _P]),
     "masked_attention_fwd_tc_block_rows": ("fwd_tc", [_I] * 4),
+    "masked_attention_bwd_small": ("bwd_small", [_P] * 10 + [_I] * 5 + [ctypes.c_float, _P]),
 }
 
 
@@ -224,16 +242,30 @@ def attention_delta(dout: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
     return (dout.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
 
 
+def masked_attention_bwd_small_plain(q, k, v, mask, dout, o, lse) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the fused small-graph kernel (the Pallas
+    ``_bwd_dq_kernel``'s and ``_bwd_dkv_kernel``'s math together): Δ from
+    ``attention_delta``, then P and dS once; dQ, dK and dV in the inputs'
+    type, equal bit for bit to ``masked_attention_bwd_dq_plain`` and
+    ``masked_attention_bwd_dkv_plain`` with that Δ. q, k, v, dout, o (B, N,
+    H, Dh); lse (B, H, N) f32."""
+    p, ds, scale = _bwd_plain_parts(q, k, v, mask, dout, lse, attention_delta(dout, o))
+    dq = torch.einsum("bhnm,bmhd->bnhd", ds, k.float()) * scale
+    dk = torch.einsum("bhnm,bnhd->bmhd", ds, q.float()) * scale
+    dv = torch.einsum("bhnm,bnhd->bmhd", p, dout.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 # ------------------------------------------------------------------ wrappers
 
 
-def _check(q, k, v, mask, dout=None, lse=None, delta=None):
-    """Shapes, types, device and contiguity the kernels take: q, k, v and dO
-    (B, N, H, Dh) alike, the mask (B, N, N), L and Δ (B, H, N) f32."""
+def _check(q, k, v, mask, dout=None, lse=None, delta=None, o=None):
+    """Shapes, types, device and contiguity the kernels take: q, k, v, dO and
+    O (B, N, H, Dh) alike, the mask (B, N, N), L and Δ (B, H, N) f32."""
     if q.dim() != 4:
         raise ValueError(f"q must be (B, N, H, Dh), got {tuple(q.shape)}")
     b, n, h, dh = q.shape
-    like_q = {"k": k, "v": v, "dout": dout}
+    like_q = {"k": k, "v": v, "dout": dout, "o": o}
     rows = {"lse": lse, "delta": delta}
     for name, t in like_q.items():
         if t is not None and (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device):
@@ -248,7 +280,7 @@ def _check(q, k, v, mask, dout=None, lse=None, delta=None):
                          "(wider heads: ROADMAP Queue 2, K3)")
     if mask.shape != (b, n, n) or mask.dtype not in (torch.bool, torch.int8) or mask.device != q.device:
         raise ValueError(f"mask must be (B, N, N) bool/int8 on {q.device}, got {tuple(mask.shape)} {mask.dtype}")
-    if not all(t.is_contiguous() for t in (q, k, v, mask, dout, lse, delta) if t is not None):
+    if not all(t.is_contiguous() for t in (q, k, v, mask, dout, lse, delta, o) if t is not None):
         raise ValueError("the kernels' inputs must be contiguous")
 
 
@@ -256,11 +288,15 @@ def route(name: str, *tensors: torch.Tensor) -> str:
     """The route kernel ``name`` takes for ``tensors`` (q first):
     ``"tensor_cores"`` for a kernel in ``TENSOR_CORE_KERNELS`` in bfloat16 at
     a width in ``TENSOR_CORE_HEAD_DIMS`` with every base pointer 16-byte
-    aligned, else ``"cuda_cores"``."""
+    aligned; else ``"small_graph"`` for the fused backward, and for the
+    backward pair (``BACKWARD_PAIR``) on at most ``SMALL_GRAPH_N`` nodes,
+    whose backward the fused kernel computes; else ``"cuda_cores"``."""
     q = tensors[0]
     if (name in TENSOR_CORE_KERNELS and q.dtype == torch.bfloat16 and q.shape[-1] in TENSOR_CORE_HEAD_DIMS
             and all(t.data_ptr() % 16 == 0 for t in tensors)):
         return "tensor_cores"
+    if name == "masked_attention_bwd_small" or (name in BACKWARD_PAIR and q.shape[1] <= SMALL_GRAPH_N):
+        return "small_graph"
     return "cuda_cores"
 
 
@@ -271,6 +307,9 @@ def _launch(name: str, *tensors: torch.Tensor) -> str:
     q = tensors[0]
     b, n, h, dh = q.shape
     way = route(name, *tensors)
+    if way == "small_graph" and name in BACKWARD_PAIR:
+        raise ValueError(f"{name}: the backward of a graph of at most {SMALL_GRAPH_N} nodes off the tensor cores "
+                         "is masked_attention_bwd_small's")
     c_name = name + "_tc" if way == "tensor_cores" else name
     rc = load_library().fn(c_name)(
         *(t.data_ptr() for t in tensors), b, n, h, dh, _DTYPES[q.dtype], 1.0 / math.sqrt(dh),
@@ -332,7 +371,27 @@ def masked_attention_bwd_dkv(q, k, v, mask, dout, lse, delta) -> tuple[torch.Ten
     return dk, dv
 
 
-KERNELS = (masked_attention_fwd, masked_attention_bwd_dq, masked_attention_bwd_dkv)
+def masked_attention_bwd_small(q, k, v, mask, dout, o, lse) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """dQ, dK, dV (B, N, H, Dh) in the inputs' type from the forward's inputs,
+    dO, O and L, on a graph of at most ``SMALL_GRAPH_N`` nodes: one launch,
+    Δ computed in it.
+
+    CUDA tensors launch the kernel on the current stream; CPU tensors use
+    ``masked_attention_bwd_small_plain``.
+    """
+    if not q.is_cuda:
+        return masked_attention_bwd_small_plain(q, k, v, mask, dout, o, lse)
+    _check(q, k, v, mask, dout, lse, o=o)
+    if q.shape[1] > SMALL_GRAPH_N:
+        raise ValueError(f"masked_attention_bwd_small takes graphs of at most {SMALL_GRAPH_N} nodes, "
+                         f"got {q.shape[1]}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _count(masked_attention_bwd_small,
+           _launch("masked_attention_bwd_small", q, k, v, mask, dout, o, lse, dq, dk, dv))
+    return dq, dk, dv
+
+
+KERNELS = (masked_attention_fwd, masked_attention_bwd_dq, masked_attention_bwd_dkv, masked_attention_bwd_small)
 
 
 def reset_launch_counts() -> None:
@@ -348,7 +407,9 @@ reset_launch_counts()
 class MaskedAttention(torch.autograd.Function):
     """Masked attention (B, N, H, Dh) × (B, N, N) → (B, N, H, Dh) whose
     forward and backward are the kernels above (the JAX package's
-    ``custom_vjp`` of ``flash_masked_attention``). The mask gets no gradient."""
+    ``custom_vjp`` of ``flash_masked_attention``): the backward is the fused
+    kernel's where ``route`` says ``"small_graph"``, one launch, else Δ and
+    the dQ and dK/dV kernels. The mask gets no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask):
@@ -360,6 +421,8 @@ class MaskedAttention(torch.autograd.Function):
     def backward(ctx, grad_out):
         q, k, v, mask, o, lse = ctx.saved_tensors
         dout = grad_out.contiguous()
+        if route(BACKWARD_PAIR[0], q, k, v, mask, dout, lse) == "small_graph":
+            return (*masked_attention_bwd_small(q, k, v, mask, dout, o, lse), None)
         delta = attention_delta(dout, o)
         dq = masked_attention_bwd_dq(q, k, v, mask, dout, lse, delta)
         dk, dv = masked_attention_bwd_dkv(q, k, v, mask, dout, lse, delta)

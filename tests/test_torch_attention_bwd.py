@@ -261,17 +261,19 @@ def test_check_takes_every_head_width_to_288(dh):
 def test_route_is_the_tensor_cores_for_bf16_at_the_main_path_widths():
     """bfloat16 at Dh 32 and 144 with 16-byte aligned inputs takes the
     tensor-core kernels, the forward and the backward pair alike; float32,
-    other widths and misaligned inputs take the CUDA-core kernels."""
+    other widths and misaligned inputs take the CUDA-core kernels (at N = 40:
+    a backward of at most 32 nodes off the tensor cores is the fused
+    kernel's, ``test_torch_attention_small_graph.py``)."""
     for name in ("masked_attention_fwd", "masked_attention_bwd_dq", "masked_attention_bwd_dkv"):
         for dh, dtype, want in ((32, torch.bfloat16, "tensor_cores"), (144, torch.bfloat16, "tensor_cores"),
                                 (32, torch.float32, "cuda_cores"), (144, torch.float32, "cuda_cores"),
                                 (20, torch.bfloat16, "cuda_cores"), (104, torch.bfloat16, "cuda_cores"),
                                 (264, torch.bfloat16, "cuda_cores")):
-            x = torch.zeros((1, 8, 2, dh), dtype=dtype)
+            x = torch.zeros((1, 40, 2, dh), dtype=dtype)
             assert ca.route(name, x, x, x) == want, (dh, dtype, name)
         for dh in (32, 144):
-            x = torch.zeros((1, 8, 2, dh + 1), dtype=torch.bfloat16)[..., 1:]  # 2 bytes off a 16-byte boundary
-            y = torch.zeros((1, 8, 2, dh), dtype=torch.bfloat16)
+            x = torch.zeros((1, 40, 2, dh + 1), dtype=torch.bfloat16)[..., 1:]  # 2 bytes off a 16-byte boundary
+            y = torch.zeros((1, 40, 2, dh), dtype=torch.bfloat16)
             assert x.shape[-1] == dh and x.data_ptr() % 16 == 2
             assert ca.route(name, x, y, y) == "cuda_cores" and ca.route(name, y, y, x) == "cuda_cores", (name, dh)
-    assert set(ca.TENSOR_CORE_KERNELS) == set(ca.REPLACES)
+    assert set(ca.REPLACES) == {*ca.TENSOR_CORE_KERNELS, "masked_attention_bwd_small"}

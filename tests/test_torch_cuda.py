@@ -44,6 +44,25 @@ def _inputs(b, n, h, dh, seed, n_virtual=8, n_padded=7, empty_rows=3):
 SHAPES = [(200, 32), (200, 144), (908, 32), (908, 144), (200, 20), (908, 104), (908, 264), (203, 144)]
 
 
+def _small_inputs(b, n, h, dh, seed):
+    """As the 3D batches make them: all pairs of each object's valid parts,
+    the padding parts last (3 in the last graph); in the first graph one
+    valid part's query row empty and one valid part no query attends."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.as_tensor(rng.standard_normal((b, n, h, dh)).astype(np.float32)) for _ in range(3))
+    valid = torch.ones((b, n), dtype=torch.bool)
+    valid[-1, n - 3:] = False
+    adj = valid[:, :, None] & valid[:, None, :]
+    adj[0, 1] = False
+    adj[0, :, 2] = False
+    return q, k, v, adj
+
+
+# graphs of at most 32 nodes (the 3D family's N = 8 and 20, and the largest):
+# off the tensor-core route their backward is the fused kernel's
+SMALL_SHAPES = [(8, 264), (8, 136), (20, 271), (20, 24), (20, 32), (32, 288)]
+
+
 def _misaligned(x):
     """A contiguous copy of ``x`` whose data starts 2 bytes past a 16-byte
     boundary: the tensor-core route refuses it, the CUDA-core route takes it."""
@@ -103,17 +122,23 @@ def _bwd_tol(ref, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("route", ["by width", "cuda_cores"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n, dh", SHAPES)
+@pytest.mark.parametrize("n, dh", SHAPES + SMALL_SHAPES)
 def test_cuda_bwd_kernels_match_plain(n, dh, dtype, route, card):
-    """dQ, dK and dV of the two backward kernels against their plain versions
+    """dQ, dK and dV of the backward kernels against their plain versions
     on the same inputs; empty query rows give dQ exactly 0 and keys no query
     attends give dK = dV exactly 0; nothing is NaN. By width, bfloat16 at
     Dh 32 and 144 takes the tensor-core kernels and everything else the
     CUDA-core kernels; with inputs off a 16-byte boundary every call takes
-    the CUDA-core kernels."""
+    the CUDA-core kernels. Off the tensor cores a graph of at most 32 nodes
+    takes the fused kernel instead, one launch for all three outputs, and
+    the dQ and dK/dV wrappers refuse it."""
     dt = getattr(torch, dtype)
-    q, k, v, adj = (x.to(card) for x in _inputs(2, n, 8, dh, seed=n + dh))
-    adj[0, :, 10:13] = False  # keys no query attends
+    small = n <= cuda_attention.SMALL_GRAPH_N
+    if small:
+        q, k, v, adj = (x.to(card) for x in _small_inputs(2, n, 8, dh, seed=n + dh))
+    else:
+        q, k, v, adj = (x.to(card) for x in _inputs(2, n, 8, dh, seed=n + dh))
+        adj[0, :, 10:13] = False  # keys no query attends
     q, k, v = (x.to(dt) for x in (q, k, v))
     dout = torch.randn(q.shape, generator=torch.Generator(device=card).manual_seed(n), device=card).to(dt)
     if route == "cuda_cores":
@@ -121,23 +146,87 @@ def test_cuda_bwd_kernels_match_plain(n, dh, dtype, route, card):
     o, lse = cuda_attention.masked_attention_fwd(q, k, v, adj)
     delta = cuda_attention.attention_delta(dout, o)
     tensor_cores = route == "by width" and dt == torch.bfloat16 and dh in (32, 144)
-    for name in ("masked_attention_bwd_dq", "masked_attention_bwd_dkv"):
+    want = "tensor_cores" if tensor_cores else "small_graph" if small else "cuda_cores"
+    for name in cuda_attention.BACKWARD_PAIR:
         got = cuda_attention.route(name, q, k, v, adj, dout, lse, delta)
-        assert got == ("tensor_cores" if tensor_cores else "cuda_cores"), (name, got)
-    before = [kern.launches for kern in cuda_attention.KERNELS[1:]]
-    dq = cuda_attention.masked_attention_bwd_dq(q, k, v, adj, dout, lse, delta)
-    dk, dv = cuda_attention.masked_attention_bwd_dkv(q, k, v, adj, dout, lse, delta)
-    torch.cuda.synchronize()
-    assert [kern.launches for kern in cuda_attention.KERNELS[1:]] == [b + 1 for b in before]
-    dq_p = cuda_attention.masked_attention_bwd_dq_plain(q, k, v, adj, dout, lse, delta)
-    dk_p, dv_p = cuda_attention.masked_attention_bwd_dkv_plain(q, k, v, adj, dout, lse, delta)
-    for got, ref in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
+        assert got == want, (name, got)
+    before = [kern.launches for kern in cuda_attention.KERNELS]
+    if want == "small_graph":
+        before_route = cuda_attention.masked_attention_bwd_small.launches_by_route["small_graph"]
+        dq, dk, dv = cuda_attention.masked_attention_bwd_small(q, k, v, adj, dout, o, lse)
+        torch.cuda.synchronize()
+        assert [kern.launches for kern in cuda_attention.KERNELS] == [b + (i == 3) for i, b in enumerate(before)]
+        assert cuda_attention.masked_attention_bwd_small.launches_by_route["small_graph"] == before_route + 1
+        refs = cuda_attention.masked_attention_bwd_small_plain(q, k, v, adj, dout, o, lse)
+        with pytest.raises(ValueError, match="masked_attention_bwd_small"):
+            cuda_attention.masked_attention_bwd_dq(q, k, v, adj, dout, lse, delta)
+    else:
+        dq = cuda_attention.masked_attention_bwd_dq(q, k, v, adj, dout, lse, delta)
+        dk, dv = cuda_attention.masked_attention_bwd_dkv(q, k, v, adj, dout, lse, delta)
+        torch.cuda.synchronize()
+        assert [kern.launches for kern in cuda_attention.KERNELS] == [b + (i in (1, 2)) for i, b in enumerate(before)]
+        refs = (cuda_attention.masked_attention_bwd_dq_plain(q, k, v, adj, dout, lse, delta),
+                *cuda_attention.masked_attention_bwd_dkv_plain(q, k, v, adj, dout, lse, delta))
+    for got, ref in zip((dq, dk, dv), refs):
         assert got.dtype == dt and got.shape == q.shape and bool(torch.isfinite(got).all())
         assert bool(((got.float() - ref.float()).abs() <= _bwd_tol(ref.float(), dt)).all())
     empty, unattended = ~adj.any(-1), ~adj.any(-2)
     assert int(empty.sum()) >= 3 and int(unattended.sum()) >= 3
     assert bool((dq[empty] == 0).all())
     assert bool((dk[unattended] == 0).all()) and bool((dv[unattended] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, dh, dtype", [(8, 32, "float32"), (8, 264, "float32"), (8, 264, "bfloat16"),
+                                          (20, 271, "bfloat16")])
+def test_cuda_fused_kernel_matches_plain_at_a_tp_ranks_heads(n, dh, dtype, card):
+    """The fused kernel at a tp = 2 rank's 4 of the 3D denoiser's 8 heads
+    (the dp 2 × tp 2 3D step's shapes, and the N = 20 graphs): on the
+    small-graph route, within ``_bwd_tol`` of its plain version, with exact
+    zeros on empty query rows and unattended keys."""
+    dt = getattr(torch, dtype)
+    q, k, v, adj = (x.to(card) for x in _small_inputs(8, n, 4, dh, seed=n + dh))
+    q, k, v = (x.to(dt) for x in (q, k, v))
+    dout = torch.randn(q.shape, generator=torch.Generator(device=card).manual_seed(n), device=card).to(dt)
+    o, lse = cuda_attention.masked_attention_fwd(q, k, v, adj)
+    assert cuda_attention.route(cuda_attention.BACKWARD_PAIR[0], q, k, v, adj, dout, lse) == "small_graph"
+    before = cuda_attention.masked_attention_bwd_small.launches_by_route["small_graph"]
+    dq, dk, dv = cuda_attention.masked_attention_bwd_small(q, k, v, adj, dout, o, lse)
+    torch.cuda.synchronize()
+    assert cuda_attention.masked_attention_bwd_small.launches_by_route["small_graph"] == before + 1
+    for got, ref in zip((dq, dk, dv), cuda_attention.masked_attention_bwd_small_plain(q, k, v, adj, dout, o, lse)):
+        assert got.dtype == dt and got.shape == q.shape and bool(torch.isfinite(got).all())
+        assert bool(((got.float() - ref.float()).abs() <= _bwd_tol(ref.float(), dt)).all())
+    empty, unattended = ~adj.any(-1), ~adj.any(-2)
+    assert bool((dq[empty] == 0).all())
+    assert bool((dk[unattended] == 0).all()) and bool((dv[unattended] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_function_backward_on_a_small_graph_is_one_fused_launch(dtype, card, monkeypatch):
+    """``MaskedAttention``'s backward on a 3D-sized graph (N = 20, Dh 271)
+    is one launch of the fused kernel: no dQ or dK/dV launch and no Δ
+    computed outside it; the gradients are the fused kernel's on the
+    forward's O and L."""
+    dt = getattr(torch, dtype)
+    q, k, v, adj = (x.to(card) for x in _small_inputs(2, 20, 8, 271, seed=3))
+    q, k, v = (x.to(dt).requires_grad_(True) for x in (q, k, v))
+    dout = torch.randn(q.shape, generator=torch.Generator(device=card).manual_seed(3), device=card).to(dt)
+    out = cuda_attention.MaskedAttention.apply(q, k, v, adj)
+
+    def no_delta(*args):
+        raise AssertionError("attention_delta ran outside the fused kernel")
+
+    monkeypatch.setattr(cuda_attention, "attention_delta", no_delta)
+    before = [kern.launches for kern in cuda_attention.KERNELS]
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert [kern.launches for kern in cuda_attention.KERNELS] == [b + (i == 3) for i, b in enumerate(before)]
+    o, lse = cuda_attention.masked_attention_fwd(q.detach(), k.detach(), v.detach(), adj)
+    want = cuda_attention.masked_attention_bwd_small(q.detach(), k.detach(), v.detach(), adj, dout, o, lse)
+    for got, ref in zip((q.grad, k.grad, v.grad), want):
+        assert torch.equal(got, ref)
 
 
 @pytest.mark.cuda
@@ -166,13 +255,14 @@ def test_cuda_train_step_gives_every_attention_projection_a_gradient(card):
     opt = model.make_optimizer()
     state = create_train_state(model, opt, torch.Generator(device=card).manual_seed(0))
     step = make_train_step(model.loss, opt)
+    kernels = cuda_attention.KERNELS[:3]  # the forward, dQ and dK/dV: 36 pieces + 8 virtual nodes
     before = [kern.launches for kern in cuda_attention.KERNELS]
-    before_tc = [kern.launches_by_route["tensor_cores"] for kern in cuda_attention.KERNELS]
+    before_tc = [kern.launches_by_route["tensor_cores"] for kern in kernels]
     state, aux = step(state, batch)
     torch.cuda.synchronize()
-    assert [kern.launches for kern in cuda_attention.KERNELS] == [b + 4 for b in before]
+    assert [kern.launches for kern in cuda_attention.KERNELS] == [b + 4 for b in before[:3]] + before[3:]
     # bf16 at the flagship's widths: every launch on the tensor cores
-    assert [kern.launches_by_route["tensor_cores"] for kern in cuda_attention.KERNELS] == [b + 4 for b in before_tc]
+    assert [kern.launches_by_route["tensor_cores"] for kern in kernels] == [b + 4 for b in before_tc]
     assert np.isfinite(float(aux["loss"])) and float(aux["grad_norm"]) > 0
     names = [f"denoiser.gnn.transformer.layers.{i}.{proj}.weight"
              for i in range(4) for proj in ("query", "key", "value")]
