@@ -15,7 +15,7 @@ Phases, each ending in a line with the elapsed seconds:
 1. environment: the card's name and power limit (nvidia-smi), device count;
 2. build: the masked-attention kernels from ``csrc/`` with nvcc (one nvcc
    per source, in parallel; -Xptxas -v), failing if a tensor-core kernel or
-   the fused small-graph backward spills registers;
+   a small-graph kernel (the forward, the fused backward) spills registers;
 3. the forward kernel against its plain PyTorch version on the card:
    the 10% expander + 8 virtual nodes at the main paths' batches (B = 1 for a
    request, B = 8 for a train step), the same with padded nodes and empty
@@ -117,12 +117,16 @@ Phases, each ending in a line with the elapsed seconds:
    ``scripts/tpu_eval_3d.py``'s protocol (64 synthetic objects, 512 points,
    2–8 parts, calls of 16, 30 DDIM steps). First the forward kernel against
    its plain version on the protocol's own masks (B = 16, N = 8, padding
-   parts with empty rows) at Dh 32 and 264 in bf16 and f32, timed beside
-   its bound over the attended pairs and SDPA; then the asset written as a
+   parts with empty rows) at Dh 32 and 264 in bf16 and f32 (the
+   small-graph forward, ``csrc/masked_attention_fwd_small.cu``, at all but
+   bf16 Dh 32), timed beside its bound over the attended pairs and SDPA,
+   the small-graph row beside the CUDA-core forward it replaced on the same
+   inputs; then the asset written as a
    port run and evaluated by ``cli/train_3d.py``'s ``run_3d --evaluate``,
    and the protocol through ``train/heldout3d.py``. Each call has exactly
-   120 forward launches, 90 on the tensor cores (Dh 32) and 30 on the CUDA
-   cores (Dh 264, ROADMAP K3), and no backward launch. It fails unless
+   120 forward launches, 90 on the tensor cores (Dh 32) and 30 on the
+   small-graph route (Dh 264, N = 8), none on the CUDA cores, and no
+   backward launch. It fails unless
    n_parts is 318, every metric is finite, and rmse_t, rmse_r and
    part_acc@0.05 lie within 0.005, 2° and 0.03 of the JAX package's CPU
    run of the protocol in bf16, and the metric's calibration scores the
@@ -147,8 +151,8 @@ Phases, each ending in a line with the elapsed seconds:
    training and 16 held-out objects: a sanity evaluation, 4 steps with an
    evaluation and a checkpoint at step 4, a resume to step 6. Every step
    has exactly 8 forward launches (the denoiser runs twice, its diffusion
-   pass and the aux-pose pass), 6 on the tensor cores and 2 on the CUDA
-   cores, 6 dQ and 6 dK/dV launches on the tensor cores with one Δ each,
+   pass and the aux-pose pass), 6 on the tensor cores and 2 on the
+   small-graph route, 6 dQ and 6 dK/dV launches on the tensor cores with one Δ each,
    and 2 fused backward launches (the small-graph route: N = 8, Dh 264)
    with no Δ outside them; finite losses and nonzero gradients in the
    encoder, the pairwise head and the denoiser; every evaluation call 120
@@ -158,12 +162,15 @@ Phases, each ending in a line with the elapsed seconds:
    phase 3) against their plain versions in bf16 and f32, with exact zeros
    and routes, on the 3D protocols' own masks: N = 8 (``diffusion3d_easy``'s
    first call) and N = 20 (``diffusion3d_vndgcnn``'s, mostly padding rows):
-   the forward, and the backward on its route, fused (``csrc/
-   masked_attention_bwd_small.cu``) at every width but bf16 Dh 32; on the N
+   the forward and the backward on their route, the small-graph forward
+   (``csrc/masked_attention_fwd_small.cu``) and the fused backward (``csrc/
+   masked_attention_bwd_small.cu``) at every width but bf16 Dh 32, and on
+   bf16 inputs 2 bytes off a 16-byte boundary at Dh 32 and 144; on the N
    = 20 mask at Dh 271 ``MaskedAttention``'s backward is one fused launch
    with no Δ outside it; then timed at N = 20 at Dh 24, 32, 40, 104, 136 and
    271 and at N = 8 at Dh 136 beside their bound over the attended pairs and
-   SDPA, each fused row beside the CUDA-core pair it replaced;
+   SDPA, each small-graph forward row beside the CUDA-core forward and each
+   fused row beside the CUDA-core pair it replaced;
 15. the other trained 3D checkpoints, the eighth main path: ``_relpose`` and
    ``_wallsurf`` (the latter refined by multiview ICP too) at ratio 10, and
    ``_vndgcnn`` (N = 20, its last layer Dh 104) at ratios 10 and 2, each
@@ -183,8 +190,9 @@ Phases, each ending in a line with the elapsed seconds:
    CPU's on the same seeded weights and draws; ``vnn`` and the split message
    passing hold their f32 gradients with the kernels to those with plain
    attention. Every step has the forward once a layer per denoiser pass, one
-   layer on the CUDA cores, the backward of that layer fused and the others'
-   dQ and dK/dV on the tensor cores, finite losses and nonzero gradients;
+   layer on the small-graph route, the backward of that layer fused and the
+   others' dQ and dK/dV on the tensor cores, finite losses and nonzero
+   gradients;
 17. the light encoders and the GCN backbone: ``run_2d`` of the rotation CLI
    at the flagship's flags (30×30 over the 10% expander, exophormer, bf16,
    batch 8) from seeded weights with ``--backbone convnet`` and ``tiny`` (2
@@ -215,10 +223,14 @@ Phases, each ending in a line with the elapsed seconds:
    EVAL_CLI_MIN_ACC, and within PIECE_ACC_TOL of the CPU's in f32);
 21. ``run_3d --evaluate --export_meshes`` on the trained
    ``diffusion3d_easy`` cut to 4 objects: 120 ``.ply`` and 4 ``_traj.npz``,
-   each trajectory's last step bit-equal to a ``sample`` without one; then
+   each trajectory's last step bit-equal to a ``sample`` without one, 90
+   forward launches a call of 120 on the tensor cores and 30 on the
+   small-graph route; then
    one ``Trainer`` step of the 3D model with the easy run's flags under DDP
-   in a world of one over NCCL, bit-equal to the plain step (8 forward, 6 +
-   6 tensor-core dQ and dK/dV and 2 fused launches a step);
+   in a world of one over NCCL, bit-equal to the plain step (8 forward, 6 on
+   the tensor cores and 2 on the small-graph route, 6 + 6 tensor-core dQ and
+   dK/dV and 2 fused launches a step). No 3D path launches a CUDA-core
+   kernel;
 22. tensor parallelism on one card (``tensor_parallel``): the three kernels
    at a tp rank's shapes (H = 4, N = 908, B = 1 and 8, Dh 32 and 144)
    against their plain versions in bf16 and f32, then timed
@@ -243,7 +255,8 @@ Phases, each ending in a line with the elapsed seconds:
    model with the easy run's flags at batch 16 against one process on the
    whole batch (``GRAD_TOL``, the 3D step's gradients within
    ``DPTP_3D_GRAD_REL``; each update equal to the single-process
-   optimizer's on the rank's gradients; the 3D step's backward all fused),
+   optimizer's on the rank's gradients; the 3D step's forward all on the
+   small-graph route and its backward all fused),
    with each rank's peak memory. A rank that fails fails the phase.
 
 ``python3 chip_smoke.py --profile train-device`` profiles one step of the
@@ -320,6 +333,11 @@ KERNEL_SOURCES = {
     "masked_attention_bwd_dkv": "diffassemble_tpu_torch/csrc/masked_attention_bwd_tc.cu",
     FUSED: "diffassemble_tpu_torch/csrc/masked_attention_bwd_small.cu",
 }
+# the forward's kernel on the small-graph route (N <= 32 off the tensor cores: every 3D path's wide
+# layer, every 3D layer in f32); it launches through the forward's wrapper, counted on that route
+FWD_SMALL = "masked_attention_fwd_small"
+FWD_SMALL_SOURCE = "diffassemble_tpu_torch/csrc/masked_attention_fwd_small.cu"
+ERR_KEYS = (*KERNEL_SOURCES, FWD_SMALL)  # the kernels line's max_abs_err, by kernel
 # bench.py's held-out protocol: 64 puzzles of 30x30, sampled 32 to a call
 EVAL_TOTAL, EVAL_N = 64, 32
 # the target: piece_acc of the same checkpoint and protocol on a TPU v5 lite
@@ -539,6 +557,9 @@ def bound_ms(kernel: str, b: int, n: int, h: int, dh: int, elem_bytes: int,
     the fused small-graph backward: S, dP, dQ, dK and dV, 10·H·Dh a pair; reads
     q, dO and O on the query rows with an edge, k and v on the attended keys,
     and L and the mask whole; writes dQ, dK and dV whole.
+    the small-graph forward: as the forward, 4·H·Dh a pair; reads q on the
+    query rows with an edge, k and v on the attended keys, and the mask;
+    writes O and L whole.
     ``pairs`` is the mask's attended pairs (default: all B·N², fully
     connected); ``edges`` its (query rows with an edge, attended keys), each
     counted over (B, N) (default: all B·N)."""
@@ -553,6 +574,7 @@ def bound_ms(kernel: str, b: int, n: int, h: int, dh: int, elem_bytes: int,
         "masked_attention_bwd_dq": (6, 5 * tensor + 2 * row + mask),
         "masked_attention_bwd_dkv": (8, 6 * tensor + 2 * row + mask),
         FUSED: (10, (3 * queries + 2 * keys) * per_row + 3 * tensor + row + mask),
+        FWD_SMALL: (4, (queries + 2 * keys) * per_row + tensor + row + mask),
     }[kernel]
     t_ops = flops * h * pairs * dh / (H100_BF16_FLOPS if elem_bytes == 2 else H100_F32_FLOPS)
     t_bytes = nbytes / H100_BYTES_PER_S
@@ -598,7 +620,7 @@ def build() -> None:
             spills.append(line.strip())
     phase(f"build: {', '.join(p.name for p in lib.paths.values())} in {lib.build_seconds:.2f} s")
     if spills:
-        raise AssertionError(f"a tensor-core or the fused small-graph kernel spills registers: {spills}")
+        raise AssertionError(f"a tensor-core or a small-graph kernel spills registers: {spills}")
 
 
 def reset_counts() -> None:
@@ -635,15 +657,16 @@ def on_routes(tensor_cores: int = 0, cuda_cores: int = 0, small_graph: int = 0) 
 
 def step_routes_3d(passes: int, layers: int, dtype: str = "bfloat16") -> dict[str, dict[str, int]]:
     """A 3D train step's launches by kernel and route: each denoiser pass
-    launches the forward once a layer, on the CUDA cores at the last layer's
-    width and (bf16) on the tensor cores at the others' Dh 32, and each
-    layer's backward once: on the tensor cores where its forward is (dQ and
-    dK/dV), else on the small-graph route (the fused kernel: N <= 32)."""
+    launches the forward once a layer, on the small-graph route (N <= 32) at
+    the last layer's width and (bf16) on the tensor cores at the others' Dh
+    32, and each layer's backward once: on the tensor cores where its
+    forward is (dQ and dK/dV), else on the small-graph route (the fused
+    kernel). No 3D layer launches a CUDA-core kernel."""
     tc = passes * (layers - 1) if dtype == "bfloat16" else 0
-    cc = passes * layers - tc
-    return {"masked_attention_fwd": on_routes(tensor_cores=tc, cuda_cores=cc),
+    sg = passes * layers - tc
+    return {"masked_attention_fwd": on_routes(tensor_cores=tc, small_graph=sg),
             "masked_attention_bwd_dq": on_routes(tensor_cores=tc),
-            "masked_attention_bwd_dkv": on_routes(tensor_cores=tc), FUSED: on_routes(small_graph=cc)}
+            "masked_attention_bwd_dkv": on_routes(tensor_cores=tc), FUSED: on_routes(small_graph=sg)}
 
 
 def counts_of(routes: dict[str, dict[str, int]]) -> dict[str, int]:
@@ -706,11 +729,12 @@ def _check_kernels(label: str, mask, dh: int, dtype, gen, max_err: dict[str, flo
     without ``backward``) against their plain versions on one mask, width,
     head count and type, on the route these call for: the tensor cores for
     bf16 at the main paths' widths (forward, dQ and dK/dV); else (and for
-    ``misaligned`` inputs, 2 bytes off a 16-byte boundary) the forward on the
-    CUDA cores, and the backward on the small-graph route (the fused kernel:
-    dQ, dK and dV in one launch) where N is at most ``SMALL_GRAPH_N``, on the
-    CUDA cores (dQ and dK/dV) above it; raises on a disagreement or another
-    route. Updates ``max_err`` per kernel, the fused kernel's too."""
+    ``misaligned`` inputs, 2 bytes off a 16-byte boundary) the small-graph
+    route where N is at most ``SMALL_GRAPH_N`` (the small-graph forward, and
+    the fused backward: dQ, dK and dV in one launch), the CUDA cores above
+    it (the forward, dQ and dK/dV); raises on a disagreement or another
+    route. Updates ``max_err`` per kernel (``ERR_KEYS``), the small-graph
+    forward's and the fused kernel's too."""
     import torch
 
     from diffassemble_tpu_torch.ops import cuda_attention as ca
@@ -723,7 +747,7 @@ def _check_kernels(label: str, mask, dh: int, dtype, gen, max_err: dict[str, flo
         q, k, v, dout = (_misaligned(t) for t in (q, k, v, dout))
         label = f"{label}, misaligned"
     want = ("tensor_cores" if dtype == torch.bfloat16 and dh in MAIN_HEAD_DIMS and not misaligned
-            else "cuda_cores")
+            else "small_graph" if n <= ca.SMALL_GRAPH_N else "cuda_cores")
     fwd_route = ca.route("masked_attention_fwd", q, k, v, mask)
     if fwd_route != want:
         raise AssertionError(f"forward route {fwd_route} at Dh={dh} {dtype}, expected {want}")
@@ -749,7 +773,8 @@ def _check_kernels(label: str, mask, dh: int, dtype, gen, max_err: dict[str, flo
         and bool((of[empty] == 0).all())
         and torch.equal(lse[~nonempty], lse_p[~nonempty])
     )
-    max_err["masked_attention_fwd"] = max(max_err["masked_attention_fwd"], err.max().item())
+    fwd_key = FWD_SMALL if fwd_route == "small_graph" else "masked_attention_fwd"
+    max_err[fwd_key] = max(max_err[fwd_key], err.max().item())
     phase(f"fwd vs plain: {label:34s} B={b} N={n} H={heads} Dh={dh:3d} {str(dtype)[6:]:8s} {fwd_route:12s} "
           f"max|dO|={err.max().item():.3e} worst err/tol {(err / tol).max().item():.3f} "
           f"max|dL|={lse_err.max().item():.3e} "
@@ -759,12 +784,10 @@ def _check_kernels(label: str, mask, dh: int, dtype, gen, max_err: dict[str, flo
     if not backward:
         return
 
-    # the backward, from this forward's O and L: on a graph of at most SMALL_GRAPH_N nodes off the
-    # tensor cores the fused kernel (dQ, dK and dV in one launch, Δ in it), else the dQ and dK/dV kernels
+    # the backward, from this forward's O and L, on the forward's route: on the small-graph route the
+    # fused kernel (dQ, dK and dV in one launch, Δ in it), else the dQ and dK/dV kernels
     delta = ca.attention_delta(dout, o)
     args = (q, k, v, mask, dout, lse, delta)
-    if n <= ca.SMALL_GRAPH_N and want != "tensor_cores":
-        want = "small_graph"
     routes = {ca.route(name, *args) for name in ca.BACKWARD_PAIR}
     if routes != {want}:
         raise AssertionError(f"backward routes {routes} at Dh={dh} {dtype}, expected {want}")
@@ -816,7 +839,7 @@ def kernels_vs_plain() -> dict[str, float]:
     from diffassemble_tpu_torch.ops import cuda_attention as ca
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    max_err = dict.fromkeys(KERNEL_SOURCES, 0.0)
+    max_err = dict.fromkeys(ERR_KEYS, 0.0)
     masks = _masks(torch, np)
     for label, mask in masks:
         for dh in MAIN_HEAD_DIMS:
@@ -1826,14 +1849,15 @@ def mixed_kernels(corpus: Path, max_err: dict[str, float]) -> list[dict]:
 
 def time_on_masks(mask, label: str, widths, gen, heads: int = HEADS) -> list[dict]:
     """The kernels timed on ``mask`` at each head width in bf16, beside
-    their plain versions, the bound over the mask's attended pairs (the fused
-    kernel's reads also over its rows with an edge) and
+    their plain versions, the bound over the mask's attended pairs (the
+    small-graph kernels' reads also over its rows with an edge) and
     ``scaled_dot_product_attention`` with the same boolean mask (its forward,
     and one backward for dQ, dK and dV together): the forward, and the
     backward its route takes, dQ and dK/dV or the fused kernel. A fused row
     carries the CUDA-core dQ + dK/dV pair it replaced, timed on the same
-    inputs (``cuda_core_pair_ms``). One row a kernel and width; the caller
-    adds its launches (``attach_launches_2d``)."""
+    inputs (``cuda_core_pair_ms``), and a small-graph forward row the
+    CUDA-core forward (``cuda_core_fwd_ms``). One row a kernel and width;
+    the caller adds its launches (``attach_launches_2d``)."""
     import torch
 
     from diffassemble_tpu_torch.ops import cuda_attention as ca
@@ -1870,15 +1894,18 @@ def time_on_masks(mask, label: str, widths, gen, heads: int = HEADS) -> list[dic
                        lambda: ca.masked_attention_bwd_dkv_plain(*args), lib_bwd)]
         for kernel, fn, plain, library_ms in cases:
             ms, plain_ms = cuda_ms(fn), cuda_ms(plain)
-            bound, bound_by = bound_ms(kernel, b, n, heads, dh, 2, pairs=pairs, edges=edges)
             route = ca.route(kernel, *args)
+            small = route == "small_graph"  # the small-graph forward or the fused backward
+            bound, bound_by = bound_ms(FWD_SMALL if small and kernel == "masked_attention_fwd" else kernel, b, n,
+                                       heads, dh, 2, pairs=pairs, edges=edges)
             here.append({"kernel": kernel, "b": b, "n": n, "dh": dh, "route": route, "main_path": True,
                          "mask": label, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                         "bound_ms": bound, "bound_by": bound_by,
-                         **({"edges": list(edges)} if kernel == FUSED else {})})
+                         "bound_ms": bound, "bound_by": bound_by, **({"edges": list(edges)} if small else {})})
             phase(f"timing {kernel:25s} B={b} N={n} H={heads} Dh={dh:3d} bf16 {route:12s} ({label}): kernel "
                   f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
                   f"bound {bound:.6f} ms ({bound_by})")
+        if here[0]["route"] == "small_graph":
+            _beside_cuda_core_fwd(here[0], q, k, v, mask, heads, label)
         if fused:
             old = cuda_core_pair_ms(q, k, v, mask, dout, o, lse)
             row = here[1]
@@ -1935,6 +1962,56 @@ def cuda_core_pair_ms(q, k, v, mask, dout, o, lse) -> dict[str, float]:
             "delta_ms": cuda_ms(lambda: ca.attention_delta(dout, o))}
 
 
+def cuda_core_fwd_ms(q, k, v, mask) -> float:
+    """The CUDA-core forward (``csrc/masked_attention_fwd.cu``) on a small
+    graph's inputs through the library's C entry point, uncounted (the
+    wrapper gives a graph of at most ``SMALL_GRAPH_N`` nodes off the tensor
+    cores to the small-graph forward): timed after its O and L are held to
+    the plain version within phase 3's tolerances (exact zeros and L on the
+    rows with no edges). Its time beside the small-graph forward's comes
+    from one run."""
+    import torch
+
+    from diffassemble_tpu_torch.ops import cuda_attention as ca
+
+    lib = ca.load_library()
+    b, n, h, dh = q.shape
+    stream = torch.cuda.current_stream().cuda_stream
+    o, lse = torch.empty_like(q), torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+
+    def call():
+        rc = lib.fn("masked_attention_fwd")(*(t.data_ptr() for t in (q, k, v, mask, o, lse)), b, n, h, dh,
+                                            ca._DTYPES[q.dtype], 1.0 / math.sqrt(dh), stream)
+        if rc != 0:
+            raise RuntimeError(f"masked_attention_fwd failed: CUDA error {rc}")
+
+    call()
+    torch.cuda.synchronize()
+    o_p, lse_p = ca.masked_attention_fwd_plain(q, k, v, mask)
+    opf, vmax = o_p.float(), v.float().abs().max()
+    tol = (1e-5 * opf.abs() + 1e-5 * vmax if q.dtype == torch.float32 else 2.0**-7 * opf.abs() + 2.0**-9 * vmax)
+    empty = ~mask.any(-1)
+    rows = empty[:, None, :].expand(b, h, n)
+    if not (bool(((o.float() - opf).abs() <= tol).all()) and bool((o[empty] == 0).all())
+            and bool(((lse - lse_p).abs()[~rows] <= 1e-5 * (1 + lse_p.abs()[~rows])).all())
+            and torch.equal(lse[rows], lse_p[rows])):
+        raise AssertionError(f"the CUDA-core forward disagrees with the plain version at B={b} N={n} Dh={dh}")
+    return cuda_ms(call)
+
+
+def _beside_cuda_core_fwd(row: dict, q, k, v, mask, heads: int, label: str) -> None:
+    """A small-graph forward row gets the CUDA-core forward it replaced, timed
+    on the same inputs (``cuda_core_fwd_ms``), and a line that sets the two
+    beside SDPA and the bound."""
+    row["cuda_core_fwd_ms"] = old = cuda_core_fwd_ms(q, k, v, mask)
+    b, n, dh = row["b"], row["n"], row["dh"]
+    phase(f"timing small-graph forward    B={b} N={n} H={heads} Dh={dh:3d} bf16 small_graph : "
+          f"{row['ms']:.4f} ms against the CUDA-core forward {old:.4f} ms: {old / row['ms']:.2f}x faster; against "
+          f"SDPA {row['library_ms']:.4f} ms: {row['ms'] / row['library_ms']:.2f}x; {row['ms'] / row['bound_ms']:.1f}x "
+          f"its bound (reads over {row['edges'][0]} query rows with an edge and {row['edges'][1]} attended keys "
+          f"of B·N = {b * n}; {label})")
+
+
 def ddp_world_of_one() -> tuple[dict[str, int], dict[str, dict[str, int]]]:
     """One ``Trainer`` step at full width (bf16, the flagship's config and
     encoder_init, batch 8 of 30×30 puzzles over the 10% expander) without a
@@ -1986,8 +2063,10 @@ def first_batch_3d(protocol: dict):
 def kernels_3d(protocol: dict, heads: int, widths: tuple[int, int], max_err: dict[str, float]) -> list[dict]:
     """The forward kernel on the 3D protocol's masks (B = 16, N = 8): against
     its plain version at the denoiser's two head widths in bf16 and f32 (the
-    existing tolerances and exact zeros on empty rows), then timed in bf16
-    (``time_forward_on_mask``)."""
+    existing tolerances and exact zeros on empty rows; the small-graph
+    forward at all but bf16 Dh 32), then timed in bf16
+    (``time_forward_on_mask``: the small-graph row beside the CUDA-core
+    forward it replaced)."""
     import torch
 
     # all pairs of each object's valid parts: padding parts have empty rows and unattended keys
@@ -2006,15 +2085,18 @@ def kernels_3d(protocol: dict, heads: int, widths: tuple[int, int], max_err: dic
 
 def time_forward_on_mask(mask, label: str, heads: int, widths, gen) -> list[dict]:
     """The forward kernel timed on ``mask`` at each head width in bf16,
-    beside its plain version, the bound over the mask's attended pairs and
-    ``scaled_dot_product_attention`` with the same boolean mask: one row a
-    width; the caller adds its launches."""
+    beside its plain version, the bound over the mask's attended pairs (the
+    small-graph forward's reads over its rows with an edge) and
+    ``scaled_dot_product_attention`` with the same boolean mask, a
+    small-graph row also beside the CUDA-core forward it replaced
+    (``cuda_core_fwd_ms``): one row a width; the caller adds its launches."""
     import torch
 
     from diffassemble_tpu_torch.ops import cuda_attention as ca
 
     b, n, _ = mask.shape
     pairs = int(mask.sum())
+    edges = (int(mask.any(-1).sum()), int(mask.any(-2).sum()))
     rows = []
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for dh in widths:
@@ -2024,14 +2106,19 @@ def time_forward_on_mask(mask, label: str, heads: int, widths, gen) -> list[dict
             library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask[:, None]))
         ms = cuda_ms(lambda: ca.masked_attention_fwd(q, k, v, mask))
         plain_ms = cuda_ms(lambda: ca.masked_attention_fwd_plain(q, k, v, mask))
-        bound, bound_by = bound_ms("masked_attention_fwd", b, n, heads, dh, 2, pairs=pairs)
         route = ca.route("masked_attention_fwd", q, k, v, mask)
+        small = route == "small_graph"
+        bound, bound_by = bound_ms(FWD_SMALL if small else "masked_attention_fwd", b, n, heads, dh, 2, pairs=pairs,
+                                   edges=edges)
         rows.append({"kernel": "masked_attention_fwd", "b": b, "n": n, "dh": dh, "route": route, "main_path": True,
                      "mask": label, "ms": ms, "plain_ms": plain_ms,
-                     "library_ms": library_ms, "bound_ms": bound, "bound_by": bound_by})
+                     "library_ms": library_ms, "bound_ms": bound, "bound_by": bound_by,
+                     **({"edges": list(edges)} if small else {})})
         phase(f"timing masked_attention_fwd      B={b} N={n} H={heads} Dh={dh:3d} bf16 {route:12s} ({label}): "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
               f"bound {bound:.6f} ms ({bound_by})")
+        if small:
+            _beside_cuda_core_fwd(rows[-1], q, k, v, mask, heads, label)
     return rows
 
 
@@ -2125,8 +2212,8 @@ def eval3d(workdir: Path, max_err: dict[str, float]) -> tuple[dict, dict, dict, 
     fragment adapter in calls of 16; then ``heldout3d_eval`` runs the protocol
     itself over the 64 objects in 4 calls of 16. Each run has its launches
     counted from 0: exactly 120 forward launches a call (4 layers × 30 steps),
-    90 on the tensor cores (Dh 32) and 30 on the CUDA cores (Dh 264, the
-    tensor-core route for that width is ROADMAP K3), no backward launch. The
+    90 on the tensor cores (Dh 32) and 30 on the small-graph route (Dh 264,
+    N = 8: ``csrc/masked_attention_fwd_small.cu``), no backward launch. The
     phase fails unless those hold, n_parts is 318, every metric is finite and
     rmse_t, rmse_r and part_acc@0.05 lie within ``TOL_3D`` of the JAX
     package's CPU run in bf16. The TPU's figures are printed beside the
@@ -2173,8 +2260,8 @@ def protocol_runs_3d(run_dir: Path, model, cfg, step: int, protocol: dict, name:
     ``heldout3d``'s protocol at each of its ratios (``timed_protocol_3d``),
     and the metric's calibration rows. Each run has its launches counted from
     0: the denoiser's layers × reverse steps forward launches a call, one
-    layer's on the CUDA cores and the others' on the tensor cores, no
-    backward launch. Gates: those launches, n_parts (``N_PARTS_3D_ASSETS``),
+    layer's on the small-graph route (N <= 32) and the others' on the tensor
+    cores, none on the CUDA cores, no backward launch. Gates: those launches, n_parts (``N_PARTS_3D_ASSETS``),
     finite metrics, the zero-noise calibration row at part_acc 1.0, and each
     key of ``TOL_3D_ASSETS`` that the row has within its tolerance of the
     JAX package's CPU run in the checkpoint's type (``JAX_CPU_3D_ASSETS``).
@@ -2186,7 +2273,7 @@ def protocol_runs_3d(run_dir: Path, model, cfg, step: int, protocol: dict, name:
 
     def want(ratio):
         steps = cfg.steps // ratio
-        return cfg.n_layers * steps, on_routes(tensor_cores=(cfg.n_layers - 1) * steps, cuda_cores=steps)
+        return cfg.n_layers * steps, on_routes(tensor_cores=(cfg.n_layers - 1) * steps, small_graph=steps)
 
     per_call, want_routes = want(cfg.inference_ratio)
     cli, cli_seconds, cli_counts, cli_routes = cli_evaluate_3d(run_dir, model, cfg, step, protocol)
@@ -2520,7 +2607,7 @@ def train3d(workdir: Path, max_err: dict[str, float]) -> tuple[dict[str, int], d
     16, 512 points, up to 8 parts) from seeded weights: a sanity
     evaluation, 4 steps with an evaluation and a checkpoint at step 4, then a
     resume to step 6. Gates: every step exactly 8 forward launches, 6 on the
-    tensor cores (Dh 32) and 2 on the CUDA cores (Dh 264), 6 dQ and 6 dK/dV
+    tensor cores (Dh 32) and 2 on the small-graph route (Dh 264), 6 dQ and 6 dK/dV
     launches on the tensor cores with a Δ each, 2 fused backward launches on
     the small-graph route (Dh 264, N = 8) and no Δ for them, finite
     losses and gradient norms, nonzero gradients in the encoder, the pairwise
@@ -2563,7 +2650,7 @@ def train3d(workdir: Path, max_err: dict[str, float]) -> tuple[dict[str, int], d
     for e in evals:
         n = per_call * e["calls"]
         if (e["calls"] != 1 or e["launches"] != launches_of(fwd=n)
-                or e["routes"]["masked_attention_fwd"] != on_routes(tensor_cores=n * 3 // 4, cuda_cores=n // 4)):
+                or e["routes"]["masked_attention_fwd"] != on_routes(tensor_cores=n * 3 // 4, small_graph=n // 4)):
             raise AssertionError(f"3D evaluation: {e}, expected {per_call} forward launches a call (3/4 on the "
                                  f"tensor cores) and no backward")
     if [(e["tag"], e["step"]) for e in evals] != [("sanity", 0), ("val", TRAIN3D_STEPS), ("sanity", 0)]:
@@ -2609,8 +2696,10 @@ def kernels_3d_widths(max_err: dict[str, float]) -> list[dict]:
     parts) and N = 20 (``diffusion3d_vndgcnn``'s, 2–20 parts: most rows are
     padding, with empty query rows and unattended keys), against their plain
     versions in bf16 and f32 with phase 3's tolerances, exact zeros and
-    routes: the forward, and the backward on its route, the fused kernel at
-    every width but bf16 Dh 32 (the tensor cores' dQ and dK/dV). On the N =
+    routes: the forward and the backward on their route, the small-graph
+    forward and the fused kernel at every width but bf16 Dh 32 (the tensor
+    cores' forward, dQ and dK/dV), and at Dh 32 and 144 for bf16 inputs 2
+    bytes off a 16-byte boundary. On the N =
     20 mask at Dh 271, ``MaskedAttention``'s backward in both types is one
     fused launch and computes no Δ outside it (``fused_backward_alone``).
     Then timed in bf16 where a main path launches them (``time_on_masks``):
@@ -2632,6 +2721,8 @@ def kernels_3d_widths(max_err: dict[str, float]) -> list[dict]:
         for dh in (32, *OTHER_HEAD_DIMS):
             for dtype in (torch.bfloat16, torch.float32):
                 _check_kernels(label, mask, dh, dtype, gen, max_err)
+        for dh in MAIN_HEAD_DIMS:  # bf16 2 bytes off a 16-byte boundary: the small-graph route at the TC widths
+            _check_kernels(label, mask, dh, torch.bfloat16, gen, max_err, misaligned=True)
         if name == "diffusion3d_vndgcnn":
             for dtype in (torch.bfloat16, torch.float32):
                 fused_backward_alone(mask, 271, dtype, gen)
@@ -2676,7 +2767,7 @@ def eval3d_more(workdir: Path) -> dict[str, tuple]:
     (``MORE_ASSETS_3D``) through ``run_3d --evaluate`` and ``heldout3d``'s
     protocol (``protocol_runs_3d``): ``diffusion3d_relpose`` and
     ``diffusion3d_wallsurf`` (its refined row too) at ratio 10,
-    ``diffusion3d_vndgcnn`` (N = 20, Dh 104 on the CUDA cores) at ratios 10
+    ``diffusion3d_vndgcnn`` (N = 20, Dh 104 on the small-graph route) at ratios 10
     and 2. Each checkpoint's two head widths must take two routes. Returns,
     by asset, (launches, by route, the result, the calls by ratio, the head
     widths, N)."""
@@ -2743,8 +2834,8 @@ def card_vs_cpu_loss_3d(args, nb, draws, label: str) -> dict[str, float]:
 
 def _check_steps_3d(label: str, cfg, steps: list[dict], evals: list[dict], width: int) -> None:
     """Each step: the denoiser's passes × layers forward launches, one
-    layer's (head width ``width``) on the CUDA cores and the others' on the
-    tensor cores; the backward of that layer fused (the small-graph route),
+    layer's (head width ``width``) on the small-graph route and the others'
+    on the tensor cores; the backward of that layer fused (the small-graph route),
     the others' dQ and dK/dV on the tensor cores, Δ computed once for each
     of those and never for the fused (``step_routes_3d``); finite losses and
     gradient norms, every group's gradient nonzero. Each evaluation: one
@@ -2757,7 +2848,8 @@ def _check_steps_3d(label: str, cfg, steps: list[dict], evals: list[dict], width
         if (s["launches"], s["routes"], s["delta_calls"]) != (step_want, route_want, deltas):
             raise AssertionError(f"{label} step {s['step']}: launches {s['launches']} by route {s['routes']}, "
                                  f"{s['delta_calls']} Δ outside the fused kernel; expected {step_want}, {route_want} "
-                                 f"(Dh {width}: the forward on the CUDA cores, the backward fused), one Δ a dQ launch")
+                                 f"(Dh {width}: the forward and the backward on the small-graph route), one Δ a dQ "
+                                 f"launch")
         norms = [v for k, v in s.items() if k.startswith("grad_norm/")]
         if not (all(math.isfinite(v) for v in s.values() if isinstance(v, float)) and s["grad_nonfinite"] == 0
                 and len(norms) >= 2 and min(norms) > 0):
@@ -2767,7 +2859,7 @@ def _check_steps_3d(label: str, cfg, steps: list[dict], evals: list[dict], width
     for e in evals:
         if (e["calls"] != 1 or e["launches"] != launches_of(fwd=per_call)
                 or e["routes"]["masked_attention_fwd"] != on_routes(tensor_cores=(cfg.n_layers - 1) * reverse,
-                                                                    cuda_cores=reverse)):
+                                                                    small_graph=reverse)):
             raise AssertionError(f"{label} evaluation: {e}, expected {per_call} forward launches a call")
 
 
@@ -3756,7 +3848,8 @@ def export_meshes_3d(workdir: Path) -> tuple[dict, dict, dict]:
     --export_meshes`` on the trained ``diffusion3d_easy`` (step 12000)
     written as a run of the port, its protocol cut to 4 objects in one call:
     the trajectories of the 4 objects (30 ``.ply`` and one ``_traj.npz``
-    each), then the evaluation; 120 forward launches each. The trajectory's last
+    each), then the evaluation; 120 forward launches each, 90 on the tensor
+    cores (Dh 32) and 30 on the small-graph route (Dh 264). The trajectory's last
     step is, bit for bit, a ``sample`` of the same objects without a
     trajectory on a generator seeded as the export's."""
     import dataclasses
@@ -3777,8 +3870,11 @@ def export_meshes_3d(workdir: Path) -> tuple[dict, dict, dict]:
     npz = sorted(meshes.glob("*_traj.npz"))
     if len(ply) != 4 * 30 or len(npz) != 4:
         raise AssertionError(f"export_meshes: {len(ply)} .ply and {len(npz)} _traj.npz files")
-    if counts != launches_of(fwd=2 * 120):
-        raise AssertionError(f"export_meshes: launches {counts}")
+    reverse = cfg.steps // cfg.inference_ratio
+    want = on_routes(tensor_cores=2 * (cfg.n_layers - 1) * reverse, small_graph=2 * reverse)
+    if counts != launches_of(fwd=2 * 120) or routes["masked_attention_fwd"] != want:
+        raise AssertionError(f"export_meshes: launches {counts}, forward by route {routes['masked_attention_fwd']}; "
+                             f"expected {want}")
     ap = train_3d.argparse.ArgumentParser()
     train_3d.add_3d_args(ap)
     args = ap.parse_args(["--dataset", "synthetic", "--test_n", "4", "--num_points", str(protocol["num_points"]),
@@ -3796,7 +3892,8 @@ def export_meshes_3d(workdir: Path) -> tuple[dict, dict, dict]:
     result = {"seconds": seconds, "ply": len(ply), "traj_npz": len(npz),
               "ply_bytes": sum(p.stat().st_size for p in ply), "metrics": {k: v[0] for k, v in cli.items()}}
     phase(f"export_meshes: {len(ply)} .ply ({result['ply_bytes'] / 2**20:.1f} MiB) and {len(npz)} _traj.npz in "
-          f"{seconds:.2f} s with the evaluation of 4 objects; launches {counts}; each trajectory's last step "
+          f"{seconds:.2f} s with the evaluation of 4 objects; launches {counts}, forward by route "
+          f"{routes['masked_attention_fwd']}; each trajectory's last step "
           f"bit-equal to a sample without one")
     del model
     return counts, routes, result
@@ -3808,7 +3905,7 @@ def ddp_world_of_one_3d() -> tuple[dict, dict]:
     its encoder_init, batch 16, the relative-pose losses) on the run's first
     batch without a process group, under DDP in a world of one over NCCL,
     and without again: parameters and gradients bit-equal. Each step 8
-    forward launches (6 on the tensor cores, 2 on the CUDA cores), 6 dQ and
+    forward launches (6 on the tensor cores, 2 on the small-graph route), 6 dQ and
     6 dK/dV launches on the tensor cores and 2 fused backward launches on
     the small-graph route (``step_routes_3d``). A second card would let 2
     NCCL ranks run against one process; one card does not."""
@@ -4389,7 +4486,7 @@ def tensor_parallel(workdir: Path, max_err: dict[str, float]) -> tuple[dict[str,
 
     ranks, seconds = run_tp_ranks("dptp_steps", 2 * TP, workdir)
     # f32 steps: the 2D step's 4 + 4 + 4 launches on the CUDA cores (N = 908); the 3D step's 8 forward
-    # launches on the CUDA cores and its 8 backward launches on the small-graph route (N = 8)
+    # and 8 backward launches on the small-graph route (N = 8)
     for family, routes in (("2d", {k: on_routes(cuda_cores=n) for k, n in launches_of(4, 4, 4).items()}),
                            ("3d", step_routes_3d(2, 4, "float32"))):
         recs = [r[family] for r in ranks]
@@ -4405,7 +4502,8 @@ def tensor_parallel(workdir: Path, max_err: dict[str, float]) -> tuple[dict[str,
                   f"{[(round(r, 2), k, f'{g:.3e}', f'{d:.3e}') for r, k, g, d in off]}")
         b = TRAIN_BATCH if family == "2d" else DPTP_BATCH_3D
         phase(f"dp=2 x tp=2 {family} f32 step, batch {b} ({b // 2} a dp place), four processes on one card: worst "
-              f"err/tol {worst} (tol {tol}); launches a rank {recs[0]['launches']} on the CUDA cores; "
+              f"err/tol {worst} (tol {tol}); launches a rank {recs[0]['launches']} on the "
+              f"{'CUDA cores' if family == '2d' else 'small-graph route'}; "
               f"{[round(r['ms'], 2) for r in recs]} ms by CUDA events (one process {ref_dptp[family]['ms']:.2f} ms); "
               f"peak {[round(r['max_memory_allocated'] / 2**30, 2) for r in recs]} GiB a rank (one process "
               f"{ref_dptp[family]['max_memory_allocated'] / 2**30:.2f} GiB)")
@@ -4433,7 +4531,12 @@ def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, t
     a tp rank's shapes (H = 4) over a denoiser step or a train step. The fused small-graph
     backward's figures are per 3D train step of the easy run's flags (its
     launches at Dh 264 on the run's first batch, N = 8), beside the
-    CUDA-core pair it replaced on the same inputs."""
+    CUDA-core pair it replaced on the same inputs; the small-graph forward's
+    per 3D held-out call of the easy checkpoint (its launches at Dh 264 on
+    the protocol's first call, N = 8), beside the CUDA-core forward it
+    replaced. Each kernel's launches are its wrapper's on the routes in its
+    ``sources_by_route``: the forward's wrapper launches the small-graph
+    forward on the small-graph route."""
     from diffassemble_tpu_torch import REFERENCE_PACKAGE
     from diffassemble_tpu_torch.ops import cuda_attention
 
@@ -4444,8 +4547,23 @@ def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, t
              **{f"eval3d_{name}": v for name, v in e_more.items()},
              **{f"train3d_{label}": v for label, v in t_more.items()}, **more_2d, **rest, **tp_paths}
     out = []
-    for kernel, source in KERNEL_SOURCES.items():
-        if kernel == FUSED:
+    for name, source in (*KERNEL_SOURCES.items(), (FWD_SMALL, FWD_SMALL_SOURCE)):
+        kernel = "masked_attention_fwd" if name == FWD_SMALL else name  # its wrapper
+        if name == FWD_SMALL:
+            # per 3D held-out call of the easy checkpoint: its launches on the protocol's first call (N = 8)
+            rs = [r for r in rows if r["kernel"] == kernel and r["route"] == "small_graph"
+                  and r["mask"] == "3D protocol, first call"]
+            calls = {sum(call) for call in zip(*(r["launches_per_3d_call"] for r in rs))}
+            if len(calls) != 1:
+                raise AssertionError(f"the 3D held-out calls launched the small-graph forward {calls} times")
+            per = [(r, r["launches_per_3d_call"][0]) for r in rs]
+            routes = {"small_graph": source}
+            more = {"cuda_core_fwd_ms": sum(r["cuda_core_fwd_ms"] * c for r, c in per)}
+            about = (f"one 3D held-out call of the easy checkpoint: {calls.pop()} launches at Dh="
+                     f"{'/'.join(str(r['dh']) for r in rs)}, B={rs[0]['b']}, H={HEADS}, N={rs[0]['n']}, bf16, "
+                     f"route small_graph; cuda_core_fwd_ms: the CUDA-core forward it replaced, same inputs")
+            shapes = [r for r in rows if r["kernel"] == kernel and r["route"] == "small_graph"]
+        elif kernel == FUSED:
             # per 3D train step of the easy run's flags: its launches on the run's first batch (N = 8)
             rs = [r for r in rows if r["kernel"] == kernel and r["mask"] == "3D training, first batch"]
             steps = {sum(step) for step in zip(*(r["launches_per_step"] for r in rs))}
@@ -4459,6 +4577,7 @@ def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, t
             about = (f"one 3D train step of the easy run's flags: {steps.pop()} launches at Dh="
                      f"{'/'.join(str(r['dh']) for r in rs)}, B={rs[0]['b']}, H={HEADS}, N={rs[0]['n']}, bf16, "
                      f"route small_graph; cuda_core_pair_ms: the dQ + dK/dV pair it replaced, same inputs")
+            shapes = [r for r in rows if r["kernel"] == kernel]
         else:
             # the forward kernel's figures are per denoiser step at the serving
             # shapes (B = 1); the backward kernels' per train step (B = 8)
@@ -4476,17 +4595,19 @@ def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, t
                    for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
                 "times_are_for": f"a tp rank's {'denoiser step' if b == 1 else 'train step'}: H={HEADS // TP}, "
                                  f"B={b}, N={N_NODES}, 3 launches at Dh=32 and 1 at Dh=144, bf16, tensor cores"}
+            shapes = [r for r in rows if r["kernel"] == kernel and r["route"] != "small_graph"]
         step = {key: sum(r[key] * c for r, c in per) for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        by_path = {path: sum(v[1][kernel][route] for route in routes) for path, v in paths.items()}
         out.append({
-            "name": kernel,
+            "name": name,
             "route": "cuda",
             "source": source,
             "sources_by_route": routes,
             "replaces": ", ".join(f"{REFERENCE_PACKAGE}/{x}" for x in cuda_attention.REPLACES[kernel]),
-            "launches": sum(path[0][kernel] for path in paths.values()),
-            "launches_by_path": {name: path[0][kernel] for name, path in paths.items()},
-            "launches_by_route": {name: path[1][kernel] for name, path in paths.items()},
-            "max_abs_err": errs[kernel],
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "launches_by_route": {path: {route: v[1][kernel][route] for route in routes} for path, v in paths.items()},
+            "max_abs_err": errs[name],
             "ms": step["ms"],
             "plain_ms": step["plain_ms"],
             "bound_ms": step["bound_ms"],
@@ -4494,7 +4615,7 @@ def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, t
             "library_ms": step["library_ms"],
             **more,
             "times_are_for": about,
-            "per_shape": [r for r in rows if r["kernel"] == kernel],
+            "per_shape": shapes,
         })
     out[1]["tensor_parallel"]["paths"] = {name: r[2] for name, r in tp_paths.items()}
     out[0]["block_rows_sweep"] = sweep
@@ -4538,7 +4659,7 @@ def main() -> None:
         return
     if args.only:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
-            tensor_parallel(Path(tmp), dict.fromkeys(KERNEL_SOURCES, 0.0))
+            tensor_parallel(Path(tmp), dict.fromkeys(ERR_KEYS, 0.0))
         phase("done")
         print(smi, flush=True)
         return
@@ -4584,14 +4705,18 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
         tp_paths, rows_tp = tensor_parallel(Path(tmp), errs)
     rows += rows_tp
-    paths = {"serve": serve[0], "train": train[0], "held-out eval": heldout[0], "recipe": rec[0],
-             "mixed": mix[0], "ddp": ddp[0], "3D run_3d --evaluate": e3d[2]["cli_launches"],
-             "3D held-out": e3d[0], "3D train": t3d[0],
-             **{f"3D {name} run_3d --evaluate": v[2]["cli_launches"] for name, v in e_more.items()},
-             **{f"3D {name} held-out": v[0] for name, v in e_more.items()},
-             **{f"3D train {label}": v[0] for label, v in t_more.items()},
-             **{name: v[0] for name, v in more_2d.items()}, **{name: v[0] for name, v in rest.items()},
-             **{name: v[0] for name, v in tp_paths.items()}}
+    # each main path's (launches, launches by route)
+    def cli(result):
+        return result["cli_launches"], result["cli_routes"]
+
+    paths = {"serve": serve[:2], "train": train[:2], "held-out eval": heldout[:2], "recipe": rec[:2],
+             "mixed": mix[:2], "ddp": ddp[:2], "3D run_3d --evaluate": cli(e3d[2]),
+             "3D held-out": e3d[:2], "3D train": t3d[:2],
+             **{f"3D {name} run_3d --evaluate": cli(v[2]) for name, v in e_more.items()},
+             **{f"3D {name} held-out": v[:2] for name, v in e_more.items()},
+             **{f"3D train {label}": v[:2] for label, v in t_more.items()},
+             **{name: v[:2] for name, v in more_2d.items()}, **{name: v[:2] for name, v in rest.items()},
+             **{name: v[:2] for name, v in tp_paths.items()}}
     # these launch the forward kernel alone
     sampling_only = {"serve", "held-out eval", "3D run_3d --evaluate", "3D held-out", "rot_ms_heldout",
                      "discrete_heldout", "serve_norm_stats", "angle_sample", "evaluate_rot30",
@@ -4612,9 +4737,20 @@ def main() -> None:
         pair = set() if path in fused_only else {"masked_attention_bwd_dq", "masked_attention_bwd_dkv"}
         return {"masked_attention_fwd", *pair, *({FUSED} if path in fused_paths else ())}
 
-    idle = {path: counts for path, counts in paths.items() if any(counts[k] == 0 for k in path_kernels(path))}
+    idle = {path: counts for path, (counts, _) in paths.items() if any(counts[k] == 0 for k in path_kernels(path))}
     if idle:
         raise AssertionError(f"a kernel of a main path was not launched: {idle}")
+    # every 3D path's forward at N <= 32 off the tensor cores is the small-graph kernel's: it launches
+    # there, and the CUDA-core forward never
+    paths_3d = {path for path in paths if path.startswith("3D ")} | {"export_meshes_3d", "ddp_3d", "dptp_step_3d"}
+    fwd_3d = {path: paths[path][1]["masked_attention_fwd"] for path in paths_3d & set(paths)}
+    off_route = {path: by_route for path, by_route in fwd_3d.items()
+                 if by_route["cuda_cores"] or not by_route["small_graph"]}
+    if off_route or len(fwd_3d) != len(paths_3d):
+        raise AssertionError(f"3D paths' forward launches by route {off_route}; paths missing "
+                             f"{sorted(paths_3d - set(fwd_3d))}")
+    phase(f"3D paths: {len(paths_3d)}, each forward at N <= 32 off the tensor cores on the small-graph route "
+          f"({sum(r['small_graph'] for r in fwd_3d.values())} launches), none on the CUDA cores")
     line = kernel_line(errs, rows, sweep, serve, train, heldout, rec, mix, ddp, tuple(e3d), tuple(t3d), e_more,
                        t_more, more_2d, rest, tp_paths)
     phase("done")

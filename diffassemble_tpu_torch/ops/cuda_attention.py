@@ -1,16 +1,18 @@
 """Host side of the hand-written CUDA masked-attention kernels.
 
-Four kernels replace the three TPU kernels of the JAX package's
+Five kernels replace the three TPU kernels of the JAX package's
 ``ops/pallas_attention.py``:
 
 - ``masked_attention_fwd`` replaces ``_attn_kernel`` (launched by
-  ``_flash_fwd``);
+  ``_flash_fwd``), by two kernels: one for every graph size, and
+  ``masked_attention_fwd_small`` for graphs of at most ``SMALL_GRAPH_N`` (32)
+  nodes, a head's whole graph in one block;
 - ``masked_attention_bwd_dq`` replaces ``_bwd_dq_kernel`` and
   ``masked_attention_bwd_dkv`` replaces ``_bwd_dkv_kernel`` (both launched by
   ``_flash_bwd``);
 - ``masked_attention_bwd_small`` replaces both backward kernels at once on
-  graphs of at most ``SMALL_GRAPH_N`` (32) nodes: dQ, dK and dV in one
-  launch, with Δ computed in the block.
+  graphs of at most ``SMALL_GRAPH_N`` nodes: dQ, dK and dV in one launch,
+  with Δ computed in the block.
 
 Each takes every head width from 1 to ``MAX_HEAD_DIM`` (288) in float32 and
 bfloat16, by one of three routes, which ``route`` names and ``_launch``
@@ -20,19 +22,21 @@ dispatches by type, width, alignment and graph size:
   (the forward) and ``csrc/masked_attention_bwd_tc.cu`` (dQ and dK/dV), on
   ``mma.sync`` with bf16 operands and f32 accumulators, for bfloat16 at the
   widths in ``TENSOR_CORE_HEAD_DIMS`` (32 and 144, the main paths'), whose
-  base pointers are 16-byte aligned (as every fresh allocation is); both
-  include the device helpers of ``csrc/tc_common.cuh``;
-- the CUDA-core route (``"cuda_cores"``): ``csrc/masked_attention_fwd.cu`` and
-  ``csrc/masked_attention_bwd.cu``, products in f32 on the CUDA cores,
-  templated on the number of 32-column slots (1 to 9) and given the width at
-  run time (32 and 144 are also compiled in), for float32 (a bf16 or TF32
-  product would not hold its gate), every other width, and bfloat16 inputs
-  off a 16-byte boundary;
-- the small-graph route (``"small_graph"``): ``csrc/masked_attention_bwd_small.cu``,
-  the backward of a graph of at most ``SMALL_GRAPH_N`` nodes off the
-  tensor-core route, in f32 on the CUDA cores, one block holding a head's
-  whole graph. There ``masked_attention_bwd_dq`` and ``_dkv`` raise on CUDA
-  tensors: the backward is ``masked_attention_bwd_small``'s.
+  base pointers are 16-byte aligned (as every fresh allocation is), at any
+  graph size; both include the device helpers of ``csrc/tc_common.cuh``;
+- the small-graph route (``"small_graph"``), a graph of at most
+  ``SMALL_GRAPH_N`` nodes off the tensor-core route, in f32 on the CUDA
+  cores, one block holding a head's whole graph: the forward
+  ``csrc/masked_attention_fwd_small.cu`` and the fused backward
+  ``csrc/masked_attention_bwd_small.cu``. There ``masked_attention_bwd_dq``
+  and ``_dkv`` raise on CUDA tensors: the backward is
+  ``masked_attention_bwd_small``'s;
+- the CUDA-core route (``"cuda_cores"``), larger graphs off the tensor-core
+  route: ``csrc/masked_attention_fwd.cu`` and ``csrc/masked_attention_bwd.cu``,
+  products in f32 on the CUDA cores, templated on the number of 32-column
+  slots (1 to 9) and given the width at run time (32 and 144 are also
+  compiled in), for float32 (a bf16 or TF32 product would not hold its
+  gate), every other width, and bfloat16 inputs off a 16-byte boundary.
 
 Every route is a hand-written kernel, held against the same plain versions
 (``masked_attention_bwd_small_plain`` equals the dQ and dK/dV plain versions
@@ -46,9 +50,9 @@ source and the headers, and loaded with ``ctypes``.
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
 its ``launches`` attribute, and by route in ``launches_by_route``; for CPU
 tensors it computes the kernel's plain PyTorch version (``*_plain``). There
-is no fall back from the card to the plain version, nor from one route to the
-other. ``MaskedAttention`` is the autograd ``Function`` over the four: the
-forward kernel, then on the small-graph route the fused backward, else Δ =
+is no fall back from the card to the plain version, nor from one route to
+another. ``MaskedAttention`` is the autograd ``Function`` over the wrappers:
+the forward, then on the small-graph route the fused backward, else Δ =
 rowsum(dO∘O) and the two backward kernels (the JAX package's ``custom_vjp``
 of ``flash_masked_attention``).
 """
@@ -76,6 +80,7 @@ SOURCES = {
     "bwd_tc": _PKG / "csrc" / "masked_attention_bwd_tc.cu",
     "fwd_tc": _PKG / "csrc" / "masked_attention_fwd_tc.cu",
     "bwd_small": _PKG / "csrc" / "masked_attention_bwd_small.cu",
+    "fwd_small": _PKG / "csrc" / "masked_attention_fwd_small.cu",
 }
 HEADERS = tuple(sorted((_PKG / "csrc").glob("*.cuh")))  # included by the sources; part of each hash
 BUILD_DIR = _PKG / "_build"
@@ -91,10 +96,12 @@ MAX_HEAD_DIM = 288  # the widest head the kernels take (9 slots of 32 columns)
 TENSOR_CORE_KERNELS = ("masked_attention_fwd", "masked_attention_bwd_dq", "masked_attention_bwd_dkv")
 ROUTES = ("tensor_cores", "cuda_cores", "small_graph")
 TENSOR_CORE_HEAD_DIMS = (32, 144)
-# the backward of a graph of at most SMALL_GRAPH_N nodes off the tensor-core
-# route is the fused kernel's (a block holds the whole graph)
+# a graph of at most SMALL_GRAPH_N nodes off the tensor-core route takes the
+# small-graph kernels (a block holds the whole graph): the forward's, and for
+# the backward pair the fused kernel's
 SMALL_GRAPH_N = 32
 BACKWARD_PAIR = ("masked_attention_bwd_dq", "masked_attention_bwd_dkv")
+SMALL_GRAPH_KERNELS = ("masked_attention_fwd", *BACKWARD_PAIR)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG_INF = -1e9
 NVCC_FLAGS = (
@@ -116,6 +123,7 @@ _SIGNATURES = {  # C function → (library, argtypes)
     "masked_attention_fwd_tc_rows": ("fwd_tc", [_P] * 6 + [_I] * 5 + [ctypes.c_float, _I, _P]),
     "masked_attention_fwd_tc_block_rows": ("fwd_tc", [_I] * 4),
     "masked_attention_bwd_small": ("bwd_small", [_P] * 10 + [_I] * 5 + [ctypes.c_float, _P]),
+    "masked_attention_fwd_small": ("fwd_small", [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P]),
 }
 
 
@@ -289,13 +297,14 @@ def route(name: str, *tensors: torch.Tensor) -> str:
     ``"tensor_cores"`` for a kernel in ``TENSOR_CORE_KERNELS`` in bfloat16 at
     a width in ``TENSOR_CORE_HEAD_DIMS`` with every base pointer 16-byte
     aligned; else ``"small_graph"`` for the fused backward, and for the
-    backward pair (``BACKWARD_PAIR``) on at most ``SMALL_GRAPH_N`` nodes,
-    whose backward the fused kernel computes; else ``"cuda_cores"``."""
+    forward and the backward pair (``SMALL_GRAPH_KERNELS``) on at most
+    ``SMALL_GRAPH_N`` nodes (the backward pair's is the fused kernel's);
+    else ``"cuda_cores"``."""
     q = tensors[0]
     if (name in TENSOR_CORE_KERNELS and q.dtype == torch.bfloat16 and q.shape[-1] in TENSOR_CORE_HEAD_DIMS
             and all(t.data_ptr() % 16 == 0 for t in tensors)):
         return "tensor_cores"
-    if name == "masked_attention_bwd_small" or (name in BACKWARD_PAIR and q.shape[1] <= SMALL_GRAPH_N):
+    if name == "masked_attention_bwd_small" or (name in SMALL_GRAPH_KERNELS and q.shape[1] <= SMALL_GRAPH_N):
         return "small_graph"
     return "cuda_cores"
 
@@ -310,7 +319,12 @@ def _launch(name: str, *tensors: torch.Tensor) -> str:
     if way == "small_graph" and name in BACKWARD_PAIR:
         raise ValueError(f"{name}: the backward of a graph of at most {SMALL_GRAPH_N} nodes off the tensor cores "
                          "is masked_attention_bwd_small's")
-    c_name = name + "_tc" if way == "tensor_cores" else name
+    if way == "tensor_cores":
+        c_name = name + "_tc"
+    elif way == "small_graph" and name == "masked_attention_fwd":
+        c_name = "masked_attention_fwd_small"
+    else:
+        c_name = name
     rc = load_library().fn(c_name)(
         *(t.data_ptr() for t in tensors), b, n, h, dh, _DTYPES[q.dtype], 1.0 / math.sqrt(dh),
         torch.cuda.current_stream(q.device).cuda_stream,
@@ -330,8 +344,9 @@ def masked_attention_fwd(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused masked attention forward: O (B, N, H, Dh) and L (B, H, N) f32.
 
-    CUDA tensors launch the kernel on the current stream; CPU tensors use
-    ``masked_attention_fwd_plain``.
+    CUDA tensors launch the kernel of their ``route`` on the current stream
+    (on the small-graph route ``masked_attention_fwd_small``); CPU tensors
+    use ``masked_attention_fwd_plain``.
     """
     if not q.is_cuda:
         return masked_attention_fwd_plain(q, k, v, mask)

@@ -103,8 +103,9 @@ def test_small_plain_is_the_pair_bit_for_bit_in_bf16():
 def test_route_sends_small_graphs_off_the_tensor_cores_to_the_fused_kernel(n):
     """N <= 32 off the tensor-core route: the fused kernel, in both types and
     for inputs off a 16-byte boundary; bf16 at Dh 32/144 keeps the tensor
-    cores at any N; above 32 nodes the CUDA cores, as before. The forward's
-    route does not depend on N."""
+    cores at any N; above 32 nodes the CUDA cores, as before. The forward
+    takes the same route as the backward (its small-graph kernel at N <= 32
+    off the tensor cores)."""
     small = n <= ca.SMALL_GRAPH_N
     for dh, dtype, tensor_cores in ((32, torch.bfloat16, True), (144, torch.bfloat16, True),
                                     (32, torch.float32, False), (264, torch.float32, False),
@@ -114,7 +115,7 @@ def test_route_sends_small_graphs_off_the_tensor_cores_to_the_fused_kernel(n):
         for name in ca.BACKWARD_PAIR:
             assert ca.route(name, x, x, x) == want, (n, dh, dtype, name)
         assert ca.route("masked_attention_bwd_small", x, x, x) == "small_graph"
-        assert ca.route("masked_attention_fwd", x, x, x) == ("tensor_cores" if tensor_cores else "cuda_cores")
+        assert ca.route("masked_attention_fwd", x, x, x) == want
     off = torch.zeros((1, n, 2, 33), dtype=torch.bfloat16)[..., 1:]  # 2 bytes off a 16-byte boundary
     assert off.data_ptr() % 16 == 2
     for name in ca.BACKWARD_PAIR:

@@ -111,6 +111,76 @@ def test_cuda_kernel_matches_plain(n, dh, dtype, route, card):
     assert torch.equal(lse[~nonempty], l_p[~nonempty])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n, dh", SMALL_SHAPES)
+def test_cuda_small_forward_matches_plain(n, dh, dtype, aligned, card):
+    """The forward on graphs of at most 32 nodes (3D-like masks: padding
+    parts last, an empty query row and an unattended key): off the tensor
+    cores (f32, widths other than 32/144, inputs 2 bytes off a 16-byte
+    boundary) one launch of the small-graph kernel, counted on its route;
+    within ``test_cuda_kernel_matches_plain``'s tolerances of the plain
+    version, O exactly 0 on empty rows and their L equal to the plain
+    version's."""
+    dt = getattr(torch, dtype)
+    q, k, v, adj = (x.to(card) for x in _small_inputs(2, n, 8, dh, seed=n + dh + 1))
+    q, k, v = (x.to(dt) for x in (q, k, v))
+    if not aligned:
+        q, k, v = (_misaligned(x) for x in (q, k, v))
+    tensor_cores = aligned and dt == torch.bfloat16 and dh in (32, 144)
+    want = "tensor_cores" if tensor_cores else "small_graph"
+    assert cuda_attention.route("masked_attention_fwd", q, k, v, adj) == want
+    kern = cuda_attention.masked_attention_fwd
+    before, before_route = kern.launches, kern.launches_by_route[want]
+    o, lse = cuda_attention.masked_attention_fwd(q, k, v, adj)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1 and kern.launches_by_route[want] == before_route + 1
+    o_p, l_p = cuda_attention.masked_attention_fwd_plain(q, k, v, adj)
+    vmax = v.float().abs().max()
+    if dt == torch.float32:
+        tol = 1e-5 * o_p.abs() + 1e-5 * vmax
+    else:
+        tol = 2.0**-7 * o_p.float().abs() + 2.0**-9 * vmax
+    assert o.dtype == dt and bool(torch.isfinite(o.float()).all()) and bool(torch.isfinite(lse).all())
+    assert bool(((o.float() - o_p.float()).abs() <= tol).all())
+    empty = ~adj.any(-1)
+    assert int(empty.sum()) >= 4
+    assert bool((o[empty] == 0).all())
+    nonempty = ~empty[:, None, :].expand_as(lse)
+    assert bool(((lse - l_p).abs()[nonempty] <= 1e-5 * (1 + l_p.abs()[nonempty])).all())
+    assert torch.equal(lse[~nonempty], l_p[~nonempty])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [8, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_function_on_a_small_graph_is_one_forward_and_one_fused_launch(heads, dtype, card):
+    """``MaskedAttention`` forward and backward on a 3D-sized graph (N = 8,
+    Dh 264, the easy run's wide layer) at H = 8 and at a tp = 2 rank's
+    H = 4: one launch of the small-graph forward and one of the fused
+    backward, nothing else; the output is the forward kernel's, the
+    gradients the fused kernel's on its O and L."""
+    dt = getattr(torch, dtype)
+    q, k, v, adj = (x.to(card) for x in _small_inputs(8, 8, heads, 264, seed=heads))
+    q, k, v = (x.to(dt).requires_grad_(True) for x in (q, k, v))
+    dout = torch.randn(q.shape, generator=torch.Generator(device=card).manual_seed(heads), device=card).to(dt)
+    before = [dict(kern.launches_by_route) for kern in cuda_attention.KERNELS]
+    out = cuda_attention.MaskedAttention.apply(q, k, v, adj)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    launched = [{r: n - b[r] for r, n in kern.launches_by_route.items()}
+                for kern, b in zip(cuda_attention.KERNELS, before)]
+    one = {"tensor_cores": 0, "cuda_cores": 0, "small_graph": 1}
+    none = dict.fromkeys(one, 0)
+    assert launched == [one, none, none, one]
+    o, lse = cuda_attention.masked_attention_fwd(q.detach(), k.detach(), v.detach(), adj)
+    assert torch.equal(out.detach(), o)
+    want = cuda_attention.masked_attention_bwd_small(q.detach(), k.detach(), v.detach(), adj, dout, o, lse)
+    for got, ref in zip((q.grad, k.grad, v.grad), want):
+        assert torch.equal(got, ref)
+
+
 def _bwd_tol(ref, dtype):
     """f32: 1e-5 relative plus 1e-5 of max|ref| (sums of ~N products in
     another order); bf16: one bf16 ulp of the output (2^-7 relative) plus
