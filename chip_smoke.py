@@ -9,13 +9,15 @@
     python3 chip_smoke.py --profile eval3d  # one 3D held-out call of 16 objects, trained weights
     python3 chip_smoke.py --profile train3d  # one full-width 3D train step
     python3 chip_smoke.py --only tensor_parallel  # the build and phase 22 alone
+    python3 chip_smoke.py --only f32_rounding  # the f32 tensor-core pair's error against emulations
 
 Phases, each ending in a line with the elapsed seconds:
 
 1. environment: the card's name and power limit (nvidia-smi), device count;
 2. build: the masked-attention kernels from ``csrc/`` with nvcc (one nvcc
-   per source, in parallel; -Xptxas -v), failing if a tensor-core kernel or
-   a small-graph kernel (the forward, the fused backward) spills registers;
+   per source, in parallel; -Xptxas -v), failing if a tensor-core kernel
+   (bf16, or the f32 backward pair) or a small-graph kernel (the forward,
+   the fused backward) spills registers;
 3. the forward kernel against its plain PyTorch version on the card:
    the 10% expander + 8 virtual nodes at the main paths' batches (B = 1 for a
    request, B = 8 for a train step), the same with padded nodes and empty
@@ -23,10 +25,12 @@ Phases, each ending in a line with the elapsed seconds:
    expander + 8 virtual nodes at B = 32, at head widths 32 and 144, in bf16 and
    f32; then the two backward kernels (dQ, and dK/dV) against theirs over the
    same masks, with exact zeros on empty query rows and unattended keys. In
-   bf16 at Dh 32 and 144 all three run on the tensor-core route, in f32 on
-   the CUDA-core route; each line names its route, and a kernel on another
-   route than its type and width call for fails. bf16 inputs 2 bytes off a
-   16-byte boundary run all three on the CUDA-core route on the B = 1
+   bf16 at Dh 32 and 144 all three run on the tensor-core route; in f32 the
+   forward runs on the CUDA-core route and dQ and dK/dV on the tensor cores
+   (3xTF32, ``csrc/masked_attention_bwd_tc_f32.cu``); each line names its
+   route, and a kernel on another route than its type and width call for
+   fails. Inputs 2 bytes (bf16) or 4 bytes (f32) off a 16-byte boundary run
+   all three on the CUDA-core route on the B = 1
    expander. Then all three kernels at the other head widths they take, 20,
    24, 40, 104, 136, 264 and 271 (odd: each bf16 head starts 2 bytes off a
    4-byte boundary), in both types, on the B = 1 expander and the
@@ -39,7 +43,11 @@ Phases, each ending in a line with the elapsed seconds:
    same kernels on the CUDA-core route in bf16 (inputs 2 bytes off a 16-byte
    boundary take it); the tensor-core forward with 64-, 32- and 16-row query
    blocks (each bit-equal to the launch's own choice); at B = 8 the three
-   kernels at Dh 20, 104 and 264;
+   kernels at Dh 20, 104 and 264; in f32 at B = 8 (``time_on_masks``) the
+   tensor-core dQ and dK/dV beside the CUDA-core pair on the same inputs,
+   their plain versions, one f32 SDPA backward and their bound, and the
+   CUDA-core forward beside the f32 SDPA forward (every f32 bound at the
+   TF32 rate);
 5. serving, the first main path: the flagship 30×30 rotation config from
    ``weights/diffusion2d_rot30/config.json`` (JSON only) with seeded weights;
    one denoiser call with the kernel against the same call with plain
@@ -49,8 +57,9 @@ Phases, each ending in a line with the elapsed seconds:
    no backward launch each;
 6. training: a full-width f32 step's gradients with the kernels against the
    same step with plain attention (every query/key/value weight gets a
-   finite, nonzero gradient); a 6×6 f32 train step on the card against the
-   CPU; then the second main path, ``run_2d`` of the rotation CLI with the
+   finite, nonzero gradient; the forward on the CUDA cores, dQ and dK/dV on
+   the tensor cores); a 6×6 f32 train step on the card against the CPU (the
+   same routes at N = 44); then the second main path, ``run_2d`` of the rotation CLI with the
    flagship's flags at batch 8 on 30×30 puzzles: a sanity eval, 3 steps
    with exactly 4 + 4 + 4 kernel launches each, all on the tensor cores, a
    checkpoint, and a resume that continues from it for 2 more steps;
@@ -84,8 +93,9 @@ Phases, each ending in a line with the elapsed seconds:
    all on the tensor cores, and its seeded f32 loss card against CPU; then
    the three kernels against their plain versions on its masks (B = 16, N =
    152 with padding rows and unattended keys; bf16 on the tensor cores, f32
-   on the CUDA cores) and timed there beside their bound and
-   ``scaled_dot_product_attention``; then the forward kernel against its
+   with the forward on the CUDA cores and the backward pair on the tensor
+   cores) and timed there beside their bound and
+   ``scaled_dot_product_attention``, in bf16 and f32; then the forward kernel against its
    plain version on a 6×6 request's mask (B = 1, N = 44, fully connected)
    at Dh 32 and 144 in bf16 and f32, timed there; ``serve --run_dir`` on
    that run after its OrientationNorm statistics were calibrated and written
@@ -100,7 +110,7 @@ Phases, each ending in a line with the elapsed seconds:
    over NCCL, bit-equal to the same step without DDP; then the discrete
    family: the three kernels against their plain versions on the discrete
    protocol's masks (the committed 60% expander over 36 pieces + 8 virtual
-   nodes, B = 32) and timed there; the trained ``diffusion2d_discrete_rot6``
+   nodes, B = 32) and timed there, in bf16 and f32; the trained ``diffusion2d_discrete_rot6``
    (step 6000) under ``scripts/tpu_train_variants.py``'s protocol
    (``train/heldout.py:run_protocol``: 64 6×6 puzzles in calls of 32, 30
    Gumbel steps each re-running the encoder on the re-rotated patches, bf16):
@@ -234,7 +244,8 @@ Phases, each ending in a line with the elapsed seconds:
 22. tensor parallelism on one card (``tensor_parallel``): the three kernels
    at a tp rank's shapes (H = 4, N = 908, B = 1 and 8, Dh 32 and 144)
    against their plain versions in bf16 and f32, then timed
-   beside their bound, plain versions and SDPA, and the forward at phase
+   beside their bound, plain versions and SDPA (in f32 too, the backward
+   pair beside the CUDA-core pair), and the forward at phase
    20's and 21a's shapes (B = 4 at N = 908; the 3D export's N = 8); the
    kernels at the dp 2 × tp 2 3D rank step's shapes (H = 4, each dp place's
    8 objects, N = 8, Dh 32 and 264: the fused kernel at all but bf16 Dh 32)
@@ -243,7 +254,8 @@ Phases, each ending in a line with the elapsed seconds:
    two ranks on one device), each held to the same work in this process:
    at tp = 2 and the flagship's full width (each rank 4 of the 8 heads), a
    Trainer step at batch 8 over the 10% expander in f32 (``GRAD_TOL``, 4 +
-   4 + 4 launches a rank on the CUDA cores) and in bf16 (its loss, gradient
+   4 + 4 launches a rank: the forward on the CUDA cores, dQ and dK/dV on the
+   tensor cores) and in bf16 (its loss, gradient
    norms and gradients within ``TP_BF16_TOL``, 4 + 4 + 4 on the tensor
    cores), the ranks' whole parameters equal, each update equal to the
    single-process optimizer's on the rank's gradients, the tp
@@ -302,7 +314,7 @@ DISCRETE_FLAGS = [
 ]
 DISCRETE_STEPS, DISCRETE_RESUME_TO = 2, 3
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, NVIDIA H100 SXM data sheet
-H100_F32_FLOPS = 67e12  # non-tensor-core f32 peak
+H100_TF32_FLOPS = 495e12  # dense TF32 tensor-core peak: the card's f32 products, whichever kernel does them
 H100_BYTES_PER_S = 3.35e12
 N_NODES = 908  # 900 pieces + 8 virtual nodes
 HEADS = 8
@@ -319,25 +331,29 @@ TRAIN_FLAGS = [
     "--aux_loss_weight", "0.1", "--warmup_steps", "500", "--compute_dtype", "bfloat16",
     "--device", "cuda",
 ]
-CUDA_CORE_SOURCES = {
-    "masked_attention_fwd": "diffassemble_tpu_torch/csrc/masked_attention_fwd.cu",
-    "masked_attention_bwd_dq": "diffassemble_tpu_torch/csrc/masked_attention_bwd.cu",
-    "masked_attention_bwd_dkv": "diffassemble_tpu_torch/csrc/masked_attention_bwd.cu",
-}
-# each kernel's source on the main paths: the tensor-core route (bf16 at Dh 32 and 144), and the
-# fused backward of the small-graph route (N <= 32 off the tensor cores: the 3D family's graphs)
+# the wrappers of cuda_attention, each counting its launches (read_counts, read_routes)
 FUSED = "masked_attention_bwd_small"
-KERNEL_SOURCES = {
-    "masked_attention_fwd": "diffassemble_tpu_torch/csrc/masked_attention_fwd_tc.cu",
-    "masked_attention_bwd_dq": "diffassemble_tpu_torch/csrc/masked_attention_bwd_tc.cu",
-    "masked_attention_bwd_dkv": "diffassemble_tpu_torch/csrc/masked_attention_bwd_tc.cu",
-    FUSED: "diffassemble_tpu_torch/csrc/masked_attention_bwd_small.cu",
-}
+WRAPPERS = ("masked_attention_fwd", "masked_attention_bwd_dq", "masked_attention_bwd_dkv", FUSED)
 # the forward's kernel on the small-graph route (N <= 32 off the tensor cores: every 3D path's wide
 # layer, every 3D layer in f32); it launches through the forward's wrapper, counted on that route
 FWD_SMALL = "masked_attention_fwd_small"
-FWD_SMALL_SOURCE = "diffassemble_tpu_torch/csrc/masked_attention_fwd_small.cu"
-ERR_KEYS = (*KERNEL_SOURCES, FWD_SMALL)  # the kernels line's max_abs_err, by kernel
+# read_routes's entry of launches by C function, beside each wrapper's launches by route
+FUNCTIONS = "by_function"
+# the kernels line's entries: each one's C functions (cuda_attention.c_function) by route, the first
+# one's source naming the entry: the forward, dQ and dK/dV on the tensor cores in bf16 (Dh 32 and 144)
+# and on the CUDA cores, the fused small-graph backward, the small-graph forward, and dQ and dK/dV on
+# the tensor cores in float32 (3xTF32, N > 32 at Dh 32 and 144)
+LINE_ENTRIES = {
+    **{name: {"tensor_cores": f"{name}_tc", "cuda_cores": name}
+       for name in ("masked_attention_fwd", "masked_attention_bwd_dq", "masked_attention_bwd_dkv")},
+    FUSED: {"small_graph": FUSED},
+    FWD_SMALL: {"small_graph": FWD_SMALL},
+    **{f"{name}_tc_f32": {"tensor_cores": f"{name}_tc_f32"}
+       for name in ("masked_attention_bwd_dq", "masked_attention_bwd_dkv")},
+}
+F32_STEP_ROUTES = "the forward on the CUDA cores, dQ and dK/dV on the tensor cores"
+# the kernels line's max_abs_err, by C function
+ERR_KEYS = tuple(fn for functions in LINE_ENTRIES.values() for fn in functions.values())
 # bench.py's held-out protocol: 64 puzzles of 30x30, sampled 32 to a call
 EVAL_TOTAL, EVAL_N = 64, 32
 # the target: piece_acc of the same checkpoint and protocol on a TPU v5 lite
@@ -546,8 +562,10 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def bound_ms(kernel: str, b: int, n: int, h: int, dh: int, elem_bytes: int,
              pairs: int | None = None, edges: tuple[int, int] | None = None) -> tuple[float, str]:
     """Least time on an H100 for one launch: the larger of its operations over
-    the peak rate for the type and the bytes it must move (each input read
-    once, each output written once) over the memory rate.
+    the card's peak rate for the type (bf16 and f32 products on the tensor
+    cores, f32 at the TF32 rate, each product counted once whatever route
+    does it) and the bytes it must move (each input read once, each output
+    written once) over the memory rate.
 
     forward: S and O·V, 4·H·Dh per attended (query, key) pair; reads q, k, v
     and the mask, writes O, L.
@@ -576,7 +594,8 @@ def bound_ms(kernel: str, b: int, n: int, h: int, dh: int, elem_bytes: int,
         FUSED: (10, (3 * queries + 2 * keys) * per_row + 3 * tensor + row + mask),
         FWD_SMALL: (4, (queries + 2 * keys) * per_row + tensor + row + mask),
     }[kernel]
-    t_ops = flops * h * pairs * dh / (H100_BF16_FLOPS if elem_bytes == 2 else H100_F32_FLOPS)
+    rate = H100_BF16_FLOPS if elem_bytes == 2 else H100_TF32_FLOPS
+    t_ops = flops * h * pairs * dh / rate
     t_bytes = nbytes / H100_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -615,7 +634,7 @@ def build() -> None:
             source = line
         if line.startswith("==") or "registers" in line or "spill" in line:
             print("  " + line.strip(), flush=True)
-        if ("_tc." in source or "_small." in source) and "spill" in line \
+        if ("_tc" in source or "_small." in source) and "spill" in line \
                 and not line.strip().endswith("0 bytes spill stores, 0 bytes spill loads"):
             spills.append(line.strip())
     phase(f"build: {', '.join(p.name for p in lib.paths.values())} in {lib.build_seconds:.2f} s")
@@ -636,18 +655,27 @@ def read_counts() -> dict[str, int]:
 
 
 def read_routes() -> dict[str, dict[str, int]]:
+    """Each wrapper's launches by route, and under ``FUNCTIONS`` the launches
+    by C function of all of them (``cuda_attention.c_function``)."""
     from diffassemble_tpu_torch.ops import cuda_attention
 
-    return {kern.__name__: dict(kern.launches_by_route) for kern in cuda_attention.KERNELS}
+    routes = {kern.__name__: dict(kern.launches_by_route) for kern in cuda_attention.KERNELS}
+    routes[FUNCTIONS] = {fn: n for kern in cuda_attention.KERNELS for fn, n in kern.launches_by_function.items()}
+    return routes
 
 
 def routes_since(before: dict[str, dict[str, int]]) -> dict[str, dict[str, int]]:
-    return {k: {r: n - before[k][r] for r, n in by_route.items()} for k, by_route in read_routes().items()}
+    return {k: {r: n - before[k].get(r, 0) for r, n in now.items()} for k, now in read_routes().items()}
+
+
+def by_route(routes: dict[str, dict[str, int]]) -> dict[str, dict[str, int]]:
+    """``routes`` without its launches by C function: as the gates' expectations are keyed."""
+    return {k: v for k, v in routes.items() if k != FUNCTIONS}
 
 
 def launches_of(fwd: int = 0, dq: int = 0, dkv: int = 0, fused: int = 0) -> dict[str, int]:
     """A gate's launches of each kernel, keyed as ``read_counts``."""
-    return dict(zip(KERNEL_SOURCES, (fwd, dq, dkv, fused)))
+    return dict(zip(WRAPPERS, (fwd, dq, dkv, fused)))
 
 
 def on_routes(tensor_cores: int = 0, cuda_cores: int = 0, small_graph: int = 0) -> dict[str, int]:
@@ -669,9 +697,18 @@ def step_routes_3d(passes: int, layers: int, dtype: str = "bfloat16") -> dict[st
             "masked_attention_bwd_dkv": on_routes(tensor_cores=tc), FUSED: on_routes(small_graph=sg)}
 
 
+def f32_step_routes_2d(launches: int = 4) -> dict[str, dict[str, int]]:
+    """A float32 2D step's launches by kernel and route (N > 32 nodes at the
+    main widths): each kernel ``launches`` times, the forward on the CUDA
+    cores, dQ and dK/dV on the tensor cores (3xTF32), no fused launch."""
+    return {"masked_attention_fwd": on_routes(cuda_cores=launches),
+            "masked_attention_bwd_dq": on_routes(tensor_cores=launches),
+            "masked_attention_bwd_dkv": on_routes(tensor_cores=launches), FUSED: on_routes()}
+
+
 def counts_of(routes: dict[str, dict[str, int]]) -> dict[str, int]:
     """Launches by kernel from launches by kernel and route."""
-    return {k: sum(by_route.values()) for k, by_route in routes.items()}
+    return {k: sum(n.values()) for k, n in by_route(routes).items()}
 
 
 def committed_adj():
@@ -728,13 +765,14 @@ def _check_kernels(label: str, mask, dh: int, dtype, gen, max_err: dict[str, flo
     """The forward kernel and the backward of its route (the forward alone
     without ``backward``) against their plain versions on one mask, width,
     head count and type, on the route these call for: the tensor cores for
-    bf16 at the main paths' widths (forward, dQ and dK/dV); else (and for
-    ``misaligned`` inputs, 2 bytes off a 16-byte boundary) the small-graph
-    route where N is at most ``SMALL_GRAPH_N`` (the small-graph forward, and
-    the fused backward: dQ, dK and dV in one launch), the CUDA cores above
-    it (the forward, dQ and dK/dV); raises on a disagreement or another
-    route. Updates ``max_err`` per kernel (``ERR_KEYS``), the small-graph
-    forward's and the fused kernel's too."""
+    bf16 at the main paths' widths (forward, dQ and dK/dV), and in f32 there
+    on more than ``SMALL_GRAPH_N`` nodes for dQ and dK/dV (3xTF32) beside
+    the CUDA-core forward; else (and for ``misaligned`` inputs, one element
+    past a 16-byte boundary) the small-graph route where N is at most
+    ``SMALL_GRAPH_N`` (the small-graph forward, and the fused backward: dQ, dK
+    and dV in one launch), the CUDA cores above it (the forward, dQ and
+    dK/dV); raises on a disagreement or another route. Updates ``max_err``
+    per C function launched (``ERR_KEYS``)."""
     import torch
 
     from diffassemble_tpu_torch.ops import cuda_attention as ca
@@ -746,11 +784,14 @@ def _check_kernels(label: str, mask, dh: int, dtype, gen, max_err: dict[str, flo
     if misaligned:
         q, k, v, dout = (_misaligned(t) for t in (q, k, v, dout))
         label = f"{label}, misaligned"
-    want = ("tensor_cores" if dtype == torch.bfloat16 and dh in MAIN_HEAD_DIMS and not misaligned
-            else "small_graph" if n <= ca.SMALL_GRAPH_N else "cuda_cores")
+    aligned_main = dh in MAIN_HEAD_DIMS and not misaligned
+    off_tc = "small_graph" if n <= ca.SMALL_GRAPH_N else "cuda_cores"
+    want_fwd = "tensor_cores" if aligned_main and dtype == torch.bfloat16 else off_tc
+    # the backward pair: in f32 too, on more than SMALL_GRAPH_N nodes (3xTF32)
+    want = "tensor_cores" if aligned_main and (dtype == torch.bfloat16 or off_tc == "cuda_cores") else off_tc
     fwd_route = ca.route("masked_attention_fwd", q, k, v, mask)
-    if fwd_route != want:
-        raise AssertionError(f"forward route {fwd_route} at Dh={dh} {dtype}, expected {want}")
+    if fwd_route != want_fwd:
+        raise AssertionError(f"forward route {fwd_route} at Dh={dh} {dtype}, expected {want_fwd}")
     o, lse = ca.masked_attention_fwd(q, k, v, mask)
     torch.cuda.synchronize()
     o_p, lse_p = ca.masked_attention_fwd_plain(q, k, v, mask)
@@ -773,7 +814,7 @@ def _check_kernels(label: str, mask, dh: int, dtype, gen, max_err: dict[str, flo
         and bool((of[empty] == 0).all())
         and torch.equal(lse[~nonempty], lse_p[~nonempty])
     )
-    fwd_key = FWD_SMALL if fwd_route == "small_graph" else "masked_attention_fwd"
+    fwd_key = ca.c_function("masked_attention_fwd", fwd_route, dtype)
     max_err[fwd_key] = max(max_err[fwd_key], err.max().item())
     phase(f"fwd vs plain: {label:34s} B={b} N={n} H={heads} Dh={dh:3d} {str(dtype)[6:]:8s} {fwd_route:12s} "
           f"max|dO|={err.max().item():.3e} worst err/tol {(err / tol).max().item():.3f} "
@@ -802,7 +843,9 @@ def _check_kernels(label: str, mask, dh: int, dtype, gen, max_err: dict[str, flo
         torch.cuda.synchronize()
         dq_p = ca.masked_attention_bwd_dq_plain(*args)
         dk_p, dv_p = ca.masked_attention_bwd_dkv_plain(*args)
-        owner = {"dQ": "masked_attention_bwd_dq", "dK": "masked_attention_bwd_dkv", "dV": "masked_attention_bwd_dkv"}
+        owner = {key: ca.c_function(kernel, want, dtype) for key, kernel in
+                 (("dQ", "masked_attention_bwd_dq"), ("dK", "masked_attention_bwd_dkv"),
+                  ("dV", "masked_attention_bwd_dkv"))}
     # f32: 1e-5 relative plus 1e-5 of max|ref| (sums of ~N products in
     # another order); bf16: one bf16 ulp (2^-7 relative) plus 1e-4 of
     # max|ref| (the same f32 sums, then rounded once to bf16)
@@ -845,8 +888,9 @@ def kernels_vs_plain() -> dict[str, float]:
         for dh in MAIN_HEAD_DIMS:
             for dtype in (torch.bfloat16, torch.float32):
                 _check_kernels(label, mask, dh, dtype, gen, max_err)
-    for dh in MAIN_HEAD_DIMS:  # the CUDA-core route in bf16 at the main paths' widths
-        _check_kernels(masks[0][0], masks[0][1], dh, torch.bfloat16, gen, max_err, misaligned=True)
+    for dh in MAIN_HEAD_DIMS:  # the CUDA-core route in both types at the main paths' widths
+        for dtype in (torch.bfloat16, torch.float32):
+            _check_kernels(masks[0][0], masks[0][1], dh, dtype, gen, max_err, misaligned=True)
     for label, mask in (masks[0], masks[2]):  # B = 1 expander; padded nodes and empty rows
         for dh in OTHER_HEAD_DIMS:
             for dtype in (torch.bfloat16, torch.float32):
@@ -862,8 +906,8 @@ def kernels_vs_plain() -> dict[str, float]:
 
 
 def _misaligned(x):
-    """A contiguous copy of ``x`` starting 2 bytes past a 16-byte boundary:
-    the kernels take the CUDA-core route for it."""
+    """A contiguous copy of ``x`` starting one element (2 bytes in bf16, 4 in
+    f32) past a 16-byte boundary: the kernels take the CUDA-core route for it."""
     import torch
 
     buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
@@ -919,7 +963,8 @@ def timing() -> tuple[list[dict], list[dict]]:
     the main paths' widths the same kernels on the CUDA-core route in bf16
     are timed beside the tensor-core route, and the tensor-core forward at
     each query block size; at B = 8 the three kernels at the widths off the
-    main paths. Rows off the main paths have
+    main paths, and in f32 the tensor-core backward pair and the CUDA-core
+    forward (``time_on_masks``). Rows off the main paths have
     ``main_path`` false. Returns the rows and the block-size sweep."""
     import torch
 
@@ -961,9 +1006,10 @@ def timing() -> tuple[list[dict], list[dict]]:
                 ms, plain_ms = cuda_ms(fn), cuda_ms(plain)
                 bound, bound_by = bound_ms(kernel, b, N_NODES, HEADS, dh, 2)
                 route = ca.route(kernel, *args)
-                here.append({"kernel": kernel, "b": b, "n": N_NODES, "dh": dh, "route": route, "main_path": main,
-                             "launches_per_step": count, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                             "bound_ms": bound, "bound_by": bound_by})
+                here.append({"kernel": kernel, "function": ca.c_function(kernel, route, q.dtype), "b": b,
+                             "n": N_NODES, "h": HEADS, "dh": dh, "dtype": "bfloat16", "route": route,
+                             "main_path": main, "launches_per_step": count, "ms": ms, "plain_ms": plain_ms,
+                             "library_ms": library_ms, "bound_ms": bound, "bound_by": bound_by})
                 phase(f"timing {kernel:25s} B={b} N={N_NODES} H={HEADS} Dh={dh:3d} bf16 {route:12s}: kernel "
                       f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
                       f"bound {bound:.5f} ms ({bound_by})")
@@ -980,8 +1026,8 @@ def timing() -> tuple[list[dict], list[dict]]:
                     assert ca.route(kernel, *margs) == "cuda_cores"
                     ref = next(r for r in here if r["kernel"] == kernel)
                     cc[kernel] = cuda_ms(fn)
-                    here.append({**ref, "route": "cuda_cores", "main_path": False, "launches_per_step": 0,
-                                 "ms": cc[kernel]})
+                    here.append({**ref, "route": "cuda_cores", "function": kernel, "main_path": False,
+                                 "launches_per_step": 0, "ms": cc[kernel]})
                 tc_fwd = here[0]["ms"]
                 phase(f"timing forward, CUDA cores    B={b} N={N_NODES} H={HEADS} Dh={dh:3d} bf16: "
                       f"{cc['masked_attention_fwd']:.4f} ms; the tensor-core forward is "
@@ -995,7 +1041,14 @@ def timing() -> tuple[list[dict], list[dict]]:
                 sweep += _fwd_block_rows_sweep(q, k, v, mask, o, lse)
             rows += here
             del out_t, qt, kt, vt
-    return rows, sweep
+    # float32 at the training shapes: the tensor-core backward pair (3xTF32) and the CUDA-core forward
+    mask = torch.ones((TRAIN_BATCH, N_NODES, N_NODES), dtype=torch.bool, device="cuda")
+    f32 = time_on_masks(mask, f"fully connected, B={TRAIN_BATCH}", MAIN_HEAD_DIMS, gen, dtype="float32")
+    for r in f32:
+        if r["route"] != ("cuda_cores" if r["kernel"] == "masked_attention_fwd" else "tensor_cores"):
+            raise AssertionError(f"f32 {r['kernel']} at Dh={r['dh']} takes the {r['route']} route")
+        r["launches_per_step"] = dict(STEP_LAUNCHES)[r["dh"]]
+    return rows + f32, sweep
 
 
 class PlainAttention:
@@ -1120,7 +1173,9 @@ def gradient_parity() -> None:
     step with plain attention, on two 30×30 puzzles with the flagship's 10%
     expander. Tolerance: 1e-3 of each parameter's largest gradient entry plus
     1e-6 of the model's (sums in another order through four layers and the
-    encoder; gradients that are 0 in exact arithmetic are rounding noise)."""
+    encoder; gradients that are 0 in exact arithmetic are rounding noise).
+    The kernels' step launches the forward on the CUDA cores and dQ and dK/dV
+    on the tensor cores (3xTF32), once a layer each."""
     import dataclasses
 
     import numpy as np
@@ -1138,13 +1193,15 @@ def gradient_parity() -> None:
         gen = torch.Generator(device="cuda").manual_seed(4)
         ctx = mock.patch.object(attention, "MaskedAttention", PlainAttention) if swap else contextlib.nullcontext()
         with ctx:
-            before = read_counts()
+            before, before_routes = read_counts(), read_routes()
             loss, _ = model.loss(batch, gen)
             loss.backward()
             torch.cuda.synchronize()
             launched = {k: v - before[k] for k, v in read_counts().items()}
-        if launched != launches_of(*(3 * [0 if swap else cfg.n_layers])):
-            raise AssertionError(f"unexpected launches {launched} (plain attention: {swap})")
+            routes = routes_since(before_routes)
+        if launched != launches_of(*(3 * [0 if swap else cfg.n_layers])) or \
+                (not swap and by_route(routes) != f32_step_routes_2d(cfg.n_layers)):
+            raise AssertionError(f"unexpected launches {launched}, by route {routes} (plain attention: {swap})")
         grads.append({k: p.grad.detach().clone() for k, p in model.named_parameters()})
     kern, plain = grads
     gmax = max(float(g.abs().max()) for g in plain.values())
@@ -1161,7 +1218,8 @@ def gradient_parity() -> None:
     if not smallest > 0:
         raise AssertionError("a query/key/value weight got no gradient through the kernels")
     phase(f"gradient parity f32, B=2 30x30: kernels vs plain attention, worst err/tol {worst:.3f} over "
-          f"{len(plain)} parameters; all {len(qkv)} query/key/value weights finite, smallest max|g| {smallest:.3e}")
+          f"{len(plain)} parameters; all {len(qkv)} query/key/value weights finite, smallest max|g| {smallest:.3e}; "
+          f"{cfg.n_layers} forward launches on the CUDA cores, {cfg.n_layers} dQ and dK/dV on the tensor cores")
 
 
 def card_vs_cpu_training() -> None:
@@ -1172,7 +1230,9 @@ def card_vs_cpu_training() -> None:
     normalises them). Where an unfactored parameter's gradient is within
     rounding noise of 0, the direction of its step is set by that noise in
     either run: there the step is only held to Adafactor's clip, an RMS of at
-    most lr·max(RMS(param), 1e-3)."""
+    most lr·max(RMS(param), 1e-3). On the card each step launches the forward
+    on the CUDA cores and dQ and dK/dV on the tensor cores (N = 44: 36
+    pieces + 8 virtual nodes)."""
     import dataclasses
 
     import numpy as np
@@ -1197,9 +1257,12 @@ def card_vs_cpu_training() -> None:
         batch = host.to(device)
         before = {k: p.detach().cpu().clone() for k, p in model.named_parameters()}
         losses = []
+        before_routes = read_routes()
         for _ in range(2):
             state, aux = step(state, batch)
             losses.append(float(aux["total_loss"]))
+        if device == "cuda" and by_route(routes_since(before_routes)) != f32_step_routes_2d(2 * cfg.n_layers):
+            raise AssertionError(f"6x6 f32 train steps: launches by route {routes_since(before_routes)}")
         runs[device] = (losses, before, {k: p.detach().cpu() for k, p in model.named_parameters()},
                         {k: p.grad.detach().cpu() for k, p in model.named_parameters()}, set(state.opt_state["v"]))
     (l_cpu, before, p_cpu, g_cpu, unfactored), (l_gpu, _, p_gpu, _, _) = runs["cpu"], runs["cuda"]
@@ -1538,7 +1601,7 @@ def _check_recipe_launches(steps: list[dict], evals: list[dict], per_call: int, 
     step_want = launches_of(4, 4, 4)
     step_routes = {k: on_routes(tensor_cores=n) for k, n in step_want.items()}
     for s in steps:
-        if s["launches"] != step_want or s["routes"] != step_routes:
+        if s["launches"] != step_want or by_route(s["routes"]) != step_routes:
             raise AssertionError(f"{label} step {s['step']}: launches {s['launches']} by route {s['routes']}, "
                                  f"expected {step_want}, all on the tensor cores")
         if not (math.isfinite(s["total_loss"]) and math.isfinite(s["grad_norm"]) and s["grad_norm/encoder"] > 0
@@ -1830,9 +1893,10 @@ def mixed_loss_card_vs_cpu(corpus: Path) -> dict[str, float]:
 
 def mixed_kernels(corpus: Path, max_err: dict[str, float]) -> list[dict]:
     """The three kernels on the mixed corpus's masks: against their plain
-    versions (bf16 on the tensor cores, f32 on the CUDA cores, at Dh 32 and
-    144, the same tolerances and exact zeros as every other mask), then timed
-    (``time_on_masks``)."""
+    versions (bf16 on the tensor cores; f32: the backward pair on the tensor
+    cores, the forward on the CUDA cores; at Dh 32 and 144, the same
+    tolerances and exact zeros as every other mask), then timed in both
+    types (``time_on_masks``)."""
     import torch
 
     label, mask = mixed_masks(corpus)
@@ -1844,20 +1908,23 @@ def mixed_kernels(corpus: Path, max_err: dict[str, float]) -> list[dict]:
     for dh in MAIN_HEAD_DIMS:
         for dtype in (torch.bfloat16, torch.float32):
             _check_kernels(label, mask, dh, dtype, gen, max_err)
-    return time_on_masks(mask, label, MAIN_HEAD_DIMS, gen)
+    return time_on_masks(mask, label, MAIN_HEAD_DIMS, gen) + time_on_masks(mask, label, MAIN_HEAD_DIMS, gen,
+                                                                           dtype="float32")
 
 
-def time_on_masks(mask, label: str, widths, gen, heads: int = HEADS) -> list[dict]:
-    """The kernels timed on ``mask`` at each head width in bf16, beside
+def time_on_masks(mask, label: str, widths, gen, heads: int = HEADS, dtype: str = "bfloat16") -> list[dict]:
+    """The kernels timed on ``mask`` at each head width in ``dtype``, beside
     their plain versions, the bound over the mask's attended pairs (the
     small-graph kernels' reads also over its rows with an edge) and
     ``scaled_dot_product_attention`` with the same boolean mask (its forward,
     and one backward for dQ, dK and dV together): the forward, and the
-    backward its route takes, dQ and dK/dV or the fused kernel. A fused row
-    carries the CUDA-core dQ + dK/dV pair it replaced, timed on the same
-    inputs (``cuda_core_pair_ms``), and a small-graph forward row the
-    CUDA-core forward (``cuda_core_fwd_ms``). One row a kernel and width;
-    the caller adds its launches (``attach_launches_2d``)."""
+    backward its route takes, dQ and dK/dV or the fused kernel. A fused row,
+    and a float32 dQ or dK/dV row on the tensor cores, carries the CUDA-core
+    dQ + dK/dV pair on the same inputs (``cuda_core_pair_ms``), and a
+    small-graph forward row the CUDA-core forward (``cuda_core_fwd_ms``). One
+    row a kernel and width, with the C function its route launches
+    (``cuda_attention.c_function``); the caller adds its launches
+    (``attach_launches_2d``)."""
     import torch
 
     from diffassemble_tpu_torch.ops import cuda_attention as ca
@@ -1867,9 +1934,10 @@ def time_on_masks(mask, label: str, widths, gen, heads: int = HEADS) -> list[dic
     edges = (int(mask.any(-1).sum()), int(mask.any(-2).sum()))
     rows = []
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    dt = getattr(torch, dtype)
+    short = {"bfloat16": "bf16", "float32": "f32"}[dtype]
     for dh in widths:
-        q, k, v, dout = (torch.randn((b, n, heads, dh), generator=gen, device="cuda").to(torch.bfloat16)
-                         for _ in range(4))
+        q, k, v, dout = (torch.randn((b, n, heads, dh), generator=gen, device="cuda").to(dt) for _ in range(4))
         o, lse = ca.masked_attention_fwd(q, k, v, mask)
         delta = ca.attention_delta(dout, o)
         args = (q, k, v, mask, dout, lse, delta)
@@ -1895,33 +1963,39 @@ def time_on_masks(mask, label: str, widths, gen, heads: int = HEADS) -> list[dic
         for kernel, fn, plain, library_ms in cases:
             ms, plain_ms = cuda_ms(fn), cuda_ms(plain)
             route = ca.route(kernel, *args)
+            function = ca.c_function(kernel, route, dt)
             small = route == "small_graph"  # the small-graph forward or the fused backward
-            bound, bound_by = bound_ms(FWD_SMALL if small and kernel == "masked_attention_fwd" else kernel, b, n,
-                                       heads, dh, 2, pairs=pairs, edges=edges)
-            here.append({"kernel": kernel, "b": b, "n": n, "dh": dh, "route": route, "main_path": True,
-                         "mask": label, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                         "bound_ms": bound, "bound_by": bound_by, **({"edges": list(edges)} if small else {})})
-            phase(f"timing {kernel:25s} B={b} N={n} H={heads} Dh={dh:3d} bf16 {route:12s} ({label}): kernel "
+            bound, bound_by = bound_ms(function if small else kernel, b, n, heads, dh, q.element_size(),
+                                       pairs=pairs, edges=edges)
+            here.append({"kernel": kernel, "function": function, "b": b, "n": n, "h": heads, "dh": dh,
+                         "dtype": dtype, "route": route, "main_path": True, "mask": label, "ms": ms,
+                         "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound, "bound_by": bound_by,
+                         **({"edges": list(edges)} if small else {})})
+            phase(f"timing {function:31s} B={b} N={n} H={heads} Dh={dh:3d} {short} {route:12s} ({label}): kernel "
                   f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
                   f"bound {bound:.6f} ms ({bound_by})")
         if here[0]["route"] == "small_graph":
             _beside_cuda_core_fwd(here[0], q, k, v, mask, heads, label)
-        if fused:
+        pair = here[1]["ms"] + (0.0 if fused else here[2]["ms"])
+        if fused or dtype == "float32":
             old = cuda_core_pair_ms(q, k, v, mask, dout, o, lse)
-            row = here[1]
-            row["cuda_core_pair_ms"] = old
-            pair = old["dq_ms"] + old["dkv_ms"]
-            phase(f"timing fused backward         B={b} N={n} H={heads} Dh={dh:3d} bf16 small_graph : fused "
-                  f"{row['ms']:.4f} ms against the CUDA-core pair dQ {old['dq_ms']:.4f} + dK/dV {old['dkv_ms']:.4f} "
-                  f"= {pair:.4f} ms (and its Δ {old['delta_ms']:.4f} ms): {pair / row['ms']:.2f}x faster; against "
-                  f"one SDPA backward {lib_bwd:.4f} ms: {row['ms'] / lib_bwd:.2f}x; {row['ms'] / row['bound_ms']:.1f}x "
-                  f"its bound (reads over {edges[0]} query rows with an edge and {edges[1]} attended keys of "
-                  f"B·N = {b * n})")
+            for row in here[1:]:
+                row["cuda_core_pair_ms"] = old
+            cc_pair = old["dq_ms"] + old["dkv_ms"]
+            beside = (f"against the CUDA-core pair dQ {old['dq_ms']:.4f} + dK/dV {old['dkv_ms']:.4f} = {cc_pair:.4f} "
+                      f"ms (and its Δ {old['delta_ms']:.4f} ms): {cc_pair / pair:.2f}x faster; ")
         else:
-            pair = here[1]["ms"] + here[2]["ms"]
-            phase(f"timing backward pair          B={b} N={n} H={heads} Dh={dh:3d} bf16 {here[1]['route']:12s}: "
-                  f"dQ + dK/dV {pair:.4f} ms against one SDPA backward {lib_bwd:.4f} ms ({pair / lib_bwd:.2f}x), "
-                  f"{pair / (here[1]['bound_ms'] + here[2]['bound_ms']):.0f}x their bound")
+            beside = ""
+        bound = sum(r["bound_ms"] for r in here[1:])
+        phase(f"timing {'fused backward' if fused else 'backward pair':24s} B={b} N={n} H={heads} Dh={dh:3d} {short} "
+              f"{here[1]['route']:12s}: {pair:.4f} ms {beside}against one SDPA backward {lib_bwd:.4f} ms: "
+              f"{pair / lib_bwd:.2f}x; {pair / bound:.1f}x the bound"
+              + (f" (reads over {edges[0]} query rows with an edge and {edges[1]} attended keys of B·N = {b * n})"
+                 if fused else ""))
+        if here[0]["route"] == "cuda_cores":
+            phase(f"timing forward, CUDA cores    B={b} N={n} H={heads} Dh={dh:3d} {short}: {here[0]['ms']:.4f} ms "
+                  f"against one SDPA forward {lib_fwd:.4f} ms: {here[0]['ms'] / lib_fwd:.2f}x; "
+                  f"{here[0]['ms'] / here[0]['bound_ms']:.1f}x the bound")
         rows += here
         del out_t, qt, kt, vt
     return rows
@@ -1929,11 +2003,13 @@ def time_on_masks(mask, label: str, widths, gen, heads: int = HEADS) -> list[dic
 
 def cuda_core_pair_ms(q, k, v, mask, dout, o, lse) -> dict[str, float]:
     """The CUDA-core dQ and dK/dV kernels (``csrc/masked_attention_bwd.cu``)
-    on a small graph's inputs through the library's C entry points,
-    uncounted (the wrappers give a graph of at most ``SMALL_GRAPH_N`` nodes
-    to the fused kernel), with the Δ they need: each timed, after their
-    outputs are held to the fused kernel's plain version within phase 3's
-    bf16 tolerance. Their times beside the fused kernel's come from one run."""
+    through the library's C entry points, uncounted, with the Δ they need: on
+    a small graph's inputs (the wrappers give a graph of at most
+    ``SMALL_GRAPH_N`` nodes to the fused kernel) and on f32 inputs at the main
+    widths (the wrappers give them to the tensor cores). Each is timed after
+    their outputs are held to the fused kernel's plain version (the pair's
+    with that Δ) within phase 3's tolerance for the type. Their times beside
+    the fused kernel's, or the f32 tensor-core pair's, come from one run."""
     import torch
 
     from diffassemble_tpu_torch.ops import cuda_attention as ca
@@ -1953,9 +2029,10 @@ def cuda_core_pair_ms(q, k, v, mask, dout, o, lse) -> dict[str, float]:
     call("masked_attention_bwd_dq", dq)
     call("masked_attention_bwd_dkv", dk, dv)
     torch.cuda.synchronize()
+    rel, floor = (1e-5, 1e-5) if q.dtype == torch.float32 else (2.0**-7, 1e-4)
     for got, ref in zip((dq, dk, dv), ca.masked_attention_bwd_small_plain(q, k, v, mask, dout, o, lse)):
         rf = ref.float()
-        if not bool(((got.float() - rf).abs() <= 2.0**-7 * rf.abs() + 1e-4 * rf.abs().max()).all()):
+        if not bool(((got.float() - rf).abs() <= rel * rf.abs() + floor * rf.abs().max()).all()):
             raise AssertionError(f"the CUDA-core pair disagrees with the plain version at B={b} N={n} Dh={dh}")
     return {"dq_ms": cuda_ms(lambda: call("masked_attention_bwd_dq", dq)),
             "dkv_ms": cuda_ms(lambda: call("masked_attention_bwd_dkv", dk, dv)),
@@ -2110,9 +2187,10 @@ def time_forward_on_mask(mask, label: str, heads: int, widths, gen) -> list[dict
         small = route == "small_graph"
         bound, bound_by = bound_ms(FWD_SMALL if small else "masked_attention_fwd", b, n, heads, dh, 2, pairs=pairs,
                                    edges=edges)
-        rows.append({"kernel": "masked_attention_fwd", "b": b, "n": n, "dh": dh, "route": route, "main_path": True,
-                     "mask": label, "ms": ms, "plain_ms": plain_ms,
-                     "library_ms": library_ms, "bound_ms": bound, "bound_by": bound_by,
+        rows.append({"kernel": "masked_attention_fwd",
+                     "function": ca.c_function("masked_attention_fwd", route, q.dtype), "b": b, "n": n, "h": heads,
+                     "dh": dh, "dtype": "bfloat16", "route": route, "main_path": True, "mask": label, "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound, "bound_by": bound_by,
                      **({"edges": list(edges)} if small else {})})
         phase(f"timing masked_attention_fwd      B={b} N={n} H={heads} Dh={dh:3d} bf16 {route:12s} ({label}): "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
@@ -2297,7 +2375,7 @@ def protocol_runs_3d(run_dir: Path, model, cfg, step: int, protocol: dict, name:
         raise AssertionError(f"{name} calibration: the true poses do not score part_acc 1.0: {calib[0]}")
 
     counts = launches_of()
-    routes = {k: on_routes() for k in KERNEL_SOURCES}
+    routes = {**{k: on_routes() for k in WRAPPERS}, FUNCTIONS: {}}
     out, calls_by_ratio = {"cli": {k: m for k, (m, _) in cli.items()}, "cli_seconds": cli_seconds,
                            "cli_launches": cli_counts, "cli_routes": cli_routes, "calibration": calib,
                            "rows": []}, {}
@@ -2305,10 +2383,11 @@ def protocol_runs_3d(run_dir: Path, model, cfg, step: int, protocol: dict, name:
         ratio = ratio or cfg.inference_ratio
         per_call, want_routes = want(ratio)
         result, calls, c_counts, c_routes, peak = timed_protocol_3d(model, protocol, ratio)
-        for k in KERNEL_SOURCES:
+        for k in WRAPPERS:
             counts[k] += c_counts[k]
-            for r in routes[k]:
-                routes[k][r] += c_routes[k][r]
+        for k, by in c_routes.items():
+            for r, n in by.items():
+                routes[k][r] = routes[k].get(r, 0) + n
         for c in calls:
             phase(f"{name} held-out call, ratio {ratio}, {c['objects']} objects ({c['parts']} parts): "
                   f"{c['ms']:.2f} ms (CUDA events), {c['host_s']:.3f} s host, launches {c['launches']}, forward by "
@@ -2640,7 +2719,7 @@ def train3d(workdir: Path, max_err: dict[str, float]) -> tuple[dict[str, int], d
         raise AssertionError(f"3D training: steps {[s['step'] for s in steps]}, the first run {first_run}")
     for s in steps:
         deltas = step_want["masked_attention_bwd_dq"]  # one Δ a tensor-core dQ launch, none for the fused
-        if (s["launches"], s["routes"], s["delta_calls"]) != (step_want, route_want, deltas):
+        if (s["launches"], by_route(s["routes"]), s["delta_calls"]) != (step_want, route_want, deltas):
             raise AssertionError(f"3D train step {s['step']}: launches {s['launches']} by route {s['routes']}, "
                                  f"{s['delta_calls']} Δ outside the fused kernel; expected {step_want}, {route_want}, "
                                  f"one Δ a dQ launch")
@@ -2845,7 +2924,7 @@ def _check_steps_3d(label: str, cfg, steps: list[dict], evals: list[dict], width
     step_want = counts_of(route_want)
     for s in steps:
         deltas = step_want["masked_attention_bwd_dq"]  # one Δ a tensor-core dQ launch, none for the fused
-        if (s["launches"], s["routes"], s["delta_calls"]) != (step_want, route_want, deltas):
+        if (s["launches"], by_route(s["routes"]), s["delta_calls"]) != (step_want, route_want, deltas):
             raise AssertionError(f"{label} step {s['step']}: launches {s['launches']} by route {s['routes']}, "
                                  f"{s['delta_calls']} Δ outside the fused kernel; expected {step_want}, {route_want} "
                                  f"(Dh {width}: the forward and the backward on the small-graph route), one Δ a dQ "
@@ -2986,8 +3065,11 @@ def attach_launches_2d(rows: list[dict], paths: dict[str, dict[str, list[dict]]]
     of its kernel on its route in each call or step (both head widths
     together: 3 at Dh 32 and 1 at Dh 144 a denoiser pass). The mixed rows'
     mask is the mixed training corpus's first batch; rot_ms's held-out calls
-    run the same sizes and padding over their own corpus."""
+    run the same sizes and padding over their own corpus. The f32 rows get
+    none: these paths run in bf16."""
     for r in rows:
+        if r["dtype"] == "float32":
+            continue
         r["launches_by_path"] = {path: [rec["routes"][r["kernel"]][r["route"]] for rec in recs]
                                  for path, recs in paths[r["mask"]].items()}
     return rows
@@ -3106,8 +3188,9 @@ def discrete_masks():
 
 def kernels_discrete_masks(max_err: dict[str, float]) -> list[dict]:
     """The three kernels against their plain versions on the discrete
-    protocol's masks (bf16 on the tensor cores, f32 on the CUDA cores, Dh 32
-    and 144, exact zeros), then timed there (``time_on_masks``)."""
+    protocol's masks (bf16 on the tensor cores; f32: the backward pair on the
+    tensor cores, the forward on the CUDA cores; Dh 32 and 144, exact zeros),
+    then timed there in both types (``time_on_masks``)."""
     import torch
 
     label, mask = discrete_masks()
@@ -3118,7 +3201,8 @@ def kernels_discrete_masks(max_err: dict[str, float]) -> list[dict]:
     for dh in MAIN_HEAD_DIMS:
         for dtype in (torch.bfloat16, torch.float32):
             _check_kernels(label, mask, dh, dtype, gen, max_err)
-    return time_on_masks(mask, label, MAIN_HEAD_DIMS, gen)
+    return time_on_masks(mask, label, MAIN_HEAD_DIMS, gen) + time_on_masks(mask, label, MAIN_HEAD_DIMS, gen,
+                                                                           dtype="float32")
 
 
 def train_discrete(workdir: Path) -> tuple[dict[str, int], dict[str, dict[str, int]], dict]:
@@ -3165,8 +3249,8 @@ def train_discrete(workdir: Path) -> tuple[dict[str, int], dict[str, dict[str, i
         raise AssertionError(f"discrete training: steps {[s['step'] for s in steps]} in runs {runs}")
     _check_trainer_steps(steps, "discrete")
     per_call = cfg.n_layers * (cfg.steps // cfg.inference_ratio)
-    in_steps = {k: sum(s["launches"][k] for s in steps) for k in KERNEL_SOURCES}
-    sanity = {k: counts[k] - in_steps[k] for k in KERNEL_SOURCES}  # one sanity call in each run
+    in_steps = {k: sum(s["launches"][k] for s in steps) for k in WRAPPERS}
+    sanity = {k: counts[k] - in_steps[k] for k in WRAPPERS}  # one sanity call in each run
     if sanity != launches_of(fwd=2 * per_call) or routes["masked_attention_fwd"]["cuda_cores"]:
         raise AssertionError(f"discrete training: sanity evaluations launched {sanity}, by route {routes}")
     saved = json.loads((run_dir / "checkpoints" / "config.json").read_text())
@@ -3192,7 +3276,7 @@ def _check_trainer_steps(steps: list[dict], label: str, launches: int = 4) -> No
     want = launches_of(launches, launches, launches)
     on_tc = {k: on_routes(tensor_cores=n) for k, n in want.items()}
     for s in steps:
-        if s["launches"] != want or s["routes"] != on_tc:
+        if s["launches"] != want or by_route(s["routes"]) != on_tc:
             raise AssertionError(f"{label} step {s['step']}: launches {s['launches']} by route {s['routes']}")
         if not (math.isfinite(s["total_loss"]) and math.isfinite(s["grad_norm"]) and s["grad_nonfinite"] == 0
                 and s["grad_norm/encoder"] > 0 and s["grad_norm/denoiser"] > 0):
@@ -3377,6 +3461,135 @@ def _profile(fn, label: str) -> None:
         phase(f"profile:     {ms:9.3f} ms {calls:6d}x  {key[:100]}")
 
 
+def _tf32(x):
+    """f32 → the nearest TF32 value (ties away from zero, as ``cvt.rna``), as f32."""
+    import torch
+
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _to_f32(x64, rounding: str):
+    """f64 → f32, rounded to nearest (``"rn"``) or toward zero (``"rz"``)."""
+    import torch
+
+    y = x64.float()
+    if rounding == "rz":
+        y = torch.where(y.double().abs() > x64.abs(), torch.nextafter(y, torch.zeros_like(y)), y)
+    return y
+
+
+def _mma_chain(eq: str, a, ax_a: int, b, ax_b: int, model: str):
+    """Σ_k a·b over the steps ``masked_attention_bwd_tc_f32.cu`` takes: 8-wide
+    k-steps in order, each the three m16n8k8 products of the operands' TF32
+    halves (lo·hi, hi·lo, hi·hi), each product's 8 terms summed exactly (f64).
+    ``model`` says how they reach the f32 sum: ``"rn"`` or ``"rz"``, each
+    product added by the tensor cores to the running sum, rounded to nearest
+    or toward zero; ``"rz3+rn"``, the three products of a step into a zeroed
+    accumulator toward zero, then added to the running sum by an f32 add, to
+    nearest (what a kernel that keeps its sums outside the tensor cores'
+    accumulator would give)."""
+    import torch
+
+    a_hi = _tf32(a)
+    b_hi = _tf32(b)
+    halves = [(_tf32(a - a_hi).double(), b_hi.double()), (a_hi.double(), _tf32(b - b_hi).double()),
+              (a_hi.double(), b_hi.double())]
+    k, acc = a.shape[ax_a], None
+    each = "rz" if model == "rz3+rn" else model
+    for k0 in range(0, k, 8):
+        w = min(8, k - k0)
+        step = None
+        for x, y in halves:
+            p = torch.einsum(eq, x.narrow(ax_a, k0, w), y.narrow(ax_b, k0, w))
+            if model == "rz3+rn":
+                step = _to_f32(p if step is None else step.double() + p, each)
+            else:
+                acc = _to_f32(p if acc is None else acc.double() + p, each)
+        if model == "rz3+rn":
+            acc = step if acc is None else _to_f32(acc.double() + step.double(), "rn")
+    return acc
+
+
+def _emulate_f32_pair(q, k, v, mask, dout, lse, delta, model: str):
+    """dQ, dK and dV as the two f32 tensor-core kernels compute them, their
+    products accumulated by ``model`` (``_mma_chain``): S and dP per kernel
+    in its own operand order (the dQ kernel Q·Kᵀ, the dK/dV kernel K·Qᵀ),
+    P = exp(S·scale − L) with one rounding before the exponential (a fused
+    multiply-add), dS = P∘(dP − Δ) in f32, masked entries 0."""
+    import torch
+
+    scale = torch.tensor(1.0 / math.sqrt(q.shape[-1]), dtype=torch.float32).item()
+    m = mask.bool()[:, None]
+    out = []
+    for s_args, dp_args in (((q, 3, k, 3), (dout, 3, v, 3)), ((k, 3, q, 3), (v, 3, dout, 3))):
+        eq = "bnhd,bmhd->bhnm" if s_args[0] is q else "bmhd,bnhd->bhnm"
+        s = _mma_chain(eq, *s_args, model)
+        dp = _mma_chain(eq, *dp_args, model)
+        x = (s.double() * scale - lse[..., None].double()).float()
+        p = torch.where(m, torch.exp(x), torch.zeros_like(x))
+        ds = torch.where(m, p * (dp - delta[..., None]), torch.zeros_like(x))
+        out.append((p, ds))
+        del s, dp, x
+    (_, ds_q), (p_kv, ds_kv) = out
+    dq = _mma_chain("bhnm,bmhd->bnhd", ds_q, 3, k, 1, model) * scale
+    dk = _mma_chain("bhnm,bnhd->bmhd", ds_kv, 2, q, 1, model) * scale
+    dv = _mma_chain("bhnm,bnhd->bmhd", p_kv, 2, dout, 1, model)
+    return dq, dk, dv
+
+
+def f32_rounding() -> None:
+    """Where the f32 tensor-core pair's error against its plain version comes
+    from: at B = 8, N = 908 fully connected (a train step's, the worst case:
+    every key in every sum), H = 8 and a tp rank's 4, Dh 32 and 144, the two
+    kernels' dQ, dK and dV beside emulations of their arithmetic in f64 on the
+    card (``_emulate_f32_pair``: the same TF32 halves and m16n8k8 steps in the
+    same order), whose products reach the f32 accumulator rounded to nearest
+    (rn) or toward zero (rz) at each product, or toward zero within a step and
+    to nearest across steps (rz3+rn). For each output: the worst error over
+    the f32 gate's tolerance (1e-5 relative plus 1e-5 of max|ref|, ref the
+    plain version) of the kernel and of each emulation, and the largest
+    |kernel − emulation| over the same tolerance; and the two kernels' times
+    (CUDA events, as the timing phase takes them)."""
+    import torch
+
+    from diffassemble_tpu_torch.ops import cuda_attention as ca
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for heads in (HEADS // TP, HEADS):
+        for dh in MAIN_HEAD_DIMS:
+            mask = torch.ones((TRAIN_BATCH, N_NODES, N_NODES), dtype=torch.bool, device="cuda")
+            q, k, v, dout = (torch.randn((TRAIN_BATCH, N_NODES, heads, dh), generator=gen, device="cuda")
+                             for _ in range(4))
+            o, lse = ca.masked_attention_fwd(q, k, v, mask)
+            args = (q, k, v, mask, dout, lse, ca.attention_delta(dout, o))
+            if {ca.route(name, *args) for name in ca.BACKWARD_PAIR} != {"tensor_cores"}:
+                raise AssertionError(f"f32 pair off the tensor cores at H={heads} Dh={dh}")
+            got = (ca.masked_attention_bwd_dq(*args), *ca.masked_attention_bwd_dkv(*args))
+            refs = (ca.masked_attention_bwd_dq_plain(*args), *ca.masked_attention_bwd_dkv_plain(*args))
+            phase(f"f32 rounding: B={TRAIN_BATCH} N={N_NODES} H={heads} Dh={dh} kernels dQ "
+                  f"{cuda_ms(lambda: ca.masked_attention_bwd_dq(*args)):.4f} ms, dK/dV "
+                  f"{cuda_ms(lambda: ca.masked_attention_bwd_dkv(*args)):.4f} ms")
+            tols = [1e-5 * r.abs() + 1e-5 * r.abs().max() for r in refs]
+            emus = {}
+            for model in ("rn", "rz", "rz3+rn"):
+                start = time.perf_counter()
+                emus[model] = _emulate_f32_pair(*args, model)
+                torch.cuda.synchronize()
+                phase(f"f32 rounding: emulated {model} at B={TRAIN_BATCH} N={N_NODES} H={heads} Dh={dh} in "
+                      f"{time.perf_counter() - start:.1f} s")
+            for i, key in enumerate(("dQ", "dK", "dV")):
+                worst = {"kernel": ((got[i] - refs[i]).abs() / tols[i]).max().item()}
+                worst.update({m: ((e[i] - refs[i]).abs() / tols[i]).max().item() for m, e in emus.items()})
+                apart = {m: ((got[i] - e[i]).abs() / tols[i]).max().item() for m, e in emus.items()}
+                equal = {m: (got[i] == e[i]).float().mean().item() for m, e in emus.items()}
+                phase(f"f32 rounding: {key} H={heads} Dh={dh:3d} worst err/tol against the plain version "
+                      f"{ {m: round(x, 4) for m, x in worst.items()} }; kernel apart from each emulation, "
+                      f"max |kernel - emulation|/tol {({m: round(x, 4) for m, x in apart.items()})}, share "
+                      f"bit-equal {({m: round(x, 4) for m, x in equal.items()})}")
+            del emus, got, refs, tols
+            torch.cuda.empty_cache()
+
+
 def profile_request() -> None:
     import numpy as np
 
@@ -3551,10 +3764,10 @@ def _run_2d_phase(label: str, argvs: list[list[str]], launches: int, cli=None) -
     counts, routes = read_counts(), read_routes()
     peak = torch.cuda.max_memory_allocated()
     _check_trainer_steps(steps, label, launches)
-    in_steps = {k: sum(s["launches"][k] for s in steps) for k in KERNEL_SOURCES}
-    sanity = {k: counts[k] - in_steps[k] for k in KERNEL_SOURCES}
+    in_steps = {k: sum(s["launches"][k] for s in steps) for k in WRAPPERS}
+    sanity = {k: counts[k] - in_steps[k] for k in WRAPPERS}
     per_call = 4 * 30 if launches else 0  # 4 layers × 30 DDIM steps a sanity call
-    if sanity != launches_of(fwd=len(argvs) * per_call) or any(r["cuda_cores"] for r in routes.values()):
+    if sanity != launches_of(fwd=len(argvs) * per_call) or any(r["cuda_cores"] for r in by_route(routes).values()):
         raise AssertionError(f"{label}: sanity evaluations launched {sanity}, by route {routes}")
     steady = [s for i, s in enumerate(steps) if i not in (0, runs[0])] or steps[1:]
     result = {"seconds": seconds, "runs": runs, "max_memory_allocated": peak,
@@ -3922,7 +4135,7 @@ def ddp_world_of_one_3d() -> tuple[dict, dict]:
                              "nccl")
     counts, routes = read_counts(), read_routes()
     step = step_routes_3d(2, train_3d.config_from_args(args).n_layers)
-    if routes != {k: {r: 3 * n for r, n in by_route.items()} for k, by_route in step.items()}:
+    if by_route(routes) != {k: {r: 3 * n for r, n in per.items()} for k, per in step.items()}:
         raise AssertionError(f"3D ddp: launches {counts} by route {routes}, expected {step} in each of 3 steps")
     phase(f"3D ddp: a world of one over NCCL, one Trainer step bit-equal to the plain step ({n} parameters and "
           f"their gradients; a second plain step equal too); launches {counts}; 2 NCCL ranks against one process: "
@@ -4244,7 +4457,8 @@ def run_tp_ranks(job: str, world: int, workdir: Path) -> tuple[list[dict], float
 def _sum_counts(records: list[dict]) -> tuple[dict, dict]:
     """Launches and launches by route summed over ranks' records."""
     counts = {k: sum(r["launches"][k] for r in records) for k in records[0]["launches"]}
-    routes = {k: {route: sum(r["routes"][k][route] for r in records) for route in records[0]["routes"][k]}
+    routes = {k: {route: sum(r["routes"][k].get(route, 0) for r in records)
+                  for route in {route for r in records for route in r["routes"][k]}}
               for k in records[0]["routes"]}
     return counts, routes
 
@@ -4252,7 +4466,7 @@ def _sum_counts(records: list[dict]) -> tuple[dict, dict]:
 def _check_step_launches(label: str, recs: list[dict], routes: dict[str, dict[str, int]]) -> None:
     """Each rank's step launched each kernel by route as given."""
     for r, rec in enumerate(recs):
-        if rec["launches"] != counts_of(routes) or rec["routes"] != routes:
+        if rec["launches"] != counts_of(routes) or by_route(rec["routes"]) != routes:
             raise AssertionError(f"{label}, rank {r}: launches {rec['launches']}, by route {rec['routes']}; "
                                  f"expected {routes}")
 
@@ -4261,10 +4475,11 @@ def timing_tp(max_err: dict[str, float]) -> list[dict]:
     """The three kernels at a tp rank's shapes (H = HEADS / TP, N = 908,
     fully connected, B = 1 as a request's and 8 as a train step's, Dh 32 and
     144): each held against its plain version in bf16 (the tensor cores) and
-    f32 (the CUDA cores, as the f32 steps launch them; ``_check_kernels``,
-    updating ``max_err``), then timed in bf16: the forward at B = 1 and all
-    three at B = 8, each on the tensor cores, beside their plain versions,
-    their bound and SDPA (``time_forward_on_mask``, ``time_on_masks``)."""
+    f32 (the forward on the CUDA cores, dQ and dK/dV on the tensor cores, as
+    the f32 steps launch them; ``_check_kernels``, updating ``max_err``),
+    then timed in bf16: the forward at B = 1 and all three at B = 8, each on
+    the tensor cores, beside their plain versions, their bound and SDPA
+    (``time_forward_on_mask``, ``time_on_masks``); and in f32 at B = 8."""
     import torch
 
     h = HEADS // TP
@@ -4279,6 +4494,8 @@ def timing_tp(max_err: dict[str, float]) -> list[dict]:
     for r in rows:
         if r["route"] != "tensor_cores":
             raise AssertionError(f"{r['kernel']} at H={h} Dh={r['dh']} takes the {r['route']} route")
+    rows += time_on_masks(ones[1], "a tp rank's train step", MAIN_HEAD_DIMS, gen, heads=h, dtype="float32")
+    for r in rows:
         r.update(h=h, main_path=False, tensor_parallel=True, launches_per_step=dict(STEP_LAUNCHES)[r["dh"]])
     return rows
 
@@ -4341,8 +4558,9 @@ def tensor_parallel(workdir: Path, max_err: dict[str, float]) -> tuple[dict[str,
       heads, each rank 4 of them; 8 virtual nodes, hidden 256, N = 908, the
       flagship's encoder_init): (a) one Trainer step at batch 8 over the 10%
       expander in f32 against the single-process step on the card
-      (``parallel/dryrun.py:GRAD_TOL``; 4 + 4 + 4 launches a rank on the
-      CUDA cores, as f32 takes), then in bf16 against the bf16 step (its
+      (``parallel/dryrun.py:GRAD_TOL``; 4 + 4 + 4 launches a rank, the
+      forward on the CUDA cores and dQ and dK/dV on the tensor cores, as
+      f32 takes them), then in bf16 against the bf16 step (its
       loss, gradient norms and gradients within ``TP_BF16_TOL``; 4 + 4 + 4 on
       the tensor cores), the ranks' whole parameters equal after each and
       equal to the single-process optimizer's update on the rank's
@@ -4364,7 +4582,9 @@ def tensor_parallel(workdir: Path, max_err: dict[str, float]) -> tuple[dict[str,
     The kernels are first held against their plain versions at a rank's
     shapes: N = 908 (``timing_tp``) and the dp 2 × tp 2 3D step's N = 8
     (``kernels_tp_3d``, the fused kernel's). The single-process references
-    run in this process next. Returns, by path, (launches summed over the
+    run in this process next; their f32 and bf16 flagship steps are printed
+    by CUDA events with their launches by route, gated as a rank's, and
+    kept as paths. Returns, by path, (launches summed over the
     ranks, by route, the result), and the kernels' rows at a rank's shapes
     (``timing_tp``) and at phases 20 and 21a's (``timing_rest_shapes``)."""
     import gc
@@ -4402,6 +4622,18 @@ def tensor_parallel(workdir: Path, max_err: dict[str, float]) -> tuple[dict[str,
           f"request {ref['request']['ms']:.2f} ms, held-out call {ref['heldout']['calls'][0]['ms']:.2f} ms, "
           f"piece_acc {ref['heldout']['piece_acc']!r}; peak {ref['float32']['max_memory_allocated'] / 2**30:.2f} / "
           f"{ref['bfloat16']['max_memory_allocated'] / 2**30:.2f} GiB)")
+    # the one-process flagship steps at batch 8: f32 with the backward pair on the tensor cores (3xTF32) and
+    # the forward on the CUDA cores, bf16 all on the tensor cores
+    paths = {}
+    one = {"float32": f32_step_routes_2d(), "bfloat16": {k: on_routes(tensor_cores=n)
+                                                         for k, n in launches_of(4, 4, 4).items()}}
+    for dtype, routes in one.items():
+        _check_step_launches(f"one-process {dtype} step", [ref[dtype]], routes)
+        phase(f"one-process flagship {dtype} step, batch {TRAIN_BATCH} (first step): {ref[dtype]['ms']:.2f} ms by "
+              f"CUDA events, {ref[dtype]['host_s']:.3f} s host; launches by route "
+              f"{ {k: {r: c for r, c in v.items() if c} for k, v in ref[dtype]['routes'].items()} }")
+        paths[f"one_process_step_{dtype}"] = (ref[dtype]["launches"], ref[dtype]["routes"],
+                                              {"ms": ref[dtype]["ms"], "host_s": ref[dtype]["host_s"]})
 
     rounding = step_ratios(ref["bfloat16"], ref["float32"], *TP_BF16_TOL)
     phase(f"bf16 rounding in one process: the bf16 step against the f32 step on the same weights and batch, "
@@ -4409,14 +4641,11 @@ def tensor_parallel(workdir: Path, max_err: dict[str, float]) -> tuple[dict[str,
           f"{rounding['grads']:.3f}, gradient norms {rounding['norms']:.3f}, loss terms {rounding['loss']:.3f}")
 
     ranks, seconds = run_tp_ranks("tp_flagship", TP, workdir)
-    paths = {}
     for dtype, tol in (("float32", GRAD_TOL["efficientnet_b0"]), ("bfloat16", TP_BF16_TOL)):
         recs = [r[dtype] for r in ranks]
         worst = compare_steps(recs, ref[dtype], *tol, steps=dtype == "float32")
         worst["update_replay"] = hold_update(f"tp {dtype} step", recs[0], ref[dtype]["optimizer"])
-        route = "cuda_cores" if dtype == "float32" else "tensor_cores"
-        _check_step_launches(f"tp {dtype} step", recs, {k: {**on_routes(), route: n} for k, n in
-                                                         launches_of(4, 4, 4).items()})
+        _check_step_launches(f"tp {dtype} step", recs, one[dtype])
         if dtype == "bfloat16":
             off = update_readings(recs[0], ref[dtype], tol[0])
             phase(f"tp=2 bf16 step's update against one process's (a reading): {len(off)} of {len(recs[0]['grads'])} "
@@ -4424,7 +4653,8 @@ def tensor_parallel(workdir: Path, max_err: dict[str, float]) -> tuple[dict[str,
                   f"gradient difference): {[(round(r, 2), k, f'{g:.3e}', f'{d:.3e}') for r, k, g, d in off]}")
         phase(f"tp=2 {dtype} step, flagship batch 8: worst err/tol {worst} (tol {tol}; update_replay: the largest "
               f"difference from the single-process optimizer on the rank's gradients); launches a rank "
-              f"{recs[0]['launches']} on the {route}; {recs[0]['ms']:.2f} / {recs[1]['ms']:.2f} ms by CUDA events, "
+              f"{recs[0]['launches']} ({F32_STEP_ROUTES if dtype == 'float32' else 'all on the tensor cores'}); "
+              f"{recs[0]['ms']:.2f} / {recs[1]['ms']:.2f} ms by CUDA events, "
               f"{recs[0]['host_s']:.3f} s host (one process {ref[dtype]['ms']:.2f} ms); peak "
               f"{[round(r['max_memory_allocated'] / 2**30, 2) for r in recs]} GiB")
         paths[f"tp_step_{dtype}"] = (*_sum_counts(recs), {"worst": worst, "ms": [r["ms"] for r in recs],
@@ -4485,10 +4715,10 @@ def tensor_parallel(workdir: Path, max_err: dict[str, float]) -> tuple[dict[str,
                                                 "one_process_calls": ref["heldout"]["calls"]})
 
     ranks, seconds = run_tp_ranks("dptp_steps", 2 * TP, workdir)
-    # f32 steps: the 2D step's 4 + 4 + 4 launches on the CUDA cores (N = 908); the 3D step's 8 forward
-    # and 8 backward launches on the small-graph route (N = 8)
-    for family, routes in (("2d", {k: on_routes(cuda_cores=n) for k, n in launches_of(4, 4, 4).items()}),
-                           ("3d", step_routes_3d(2, 4, "float32"))):
+    # f32 steps: the 2D step's 4 + 4 + 4 launches (N = 908), the forward on the CUDA cores and dQ and
+    # dK/dV on the tensor cores; the 3D step's 8 forward and 8 backward launches on the small-graph
+    # route (N = 8)
+    for family, routes in (("2d", f32_step_routes_2d()), ("3d", step_routes_3d(2, 4, "float32"))):
         recs = [r[family] for r in ranks]
         tol = GRAD_TOL["efficientnet_b0"] if family == "2d" else (DPTP_3D_GRAD_REL, *GRAD_TOL["3d"][1:])
         worst = compare_steps(recs, ref_dptp[family], *tol, steps=family == "2d")
@@ -4502,8 +4732,8 @@ def tensor_parallel(workdir: Path, max_err: dict[str, float]) -> tuple[dict[str,
                   f"{[(round(r, 2), k, f'{g:.3e}', f'{d:.3e}') for r, k, g, d in off]}")
         b = TRAIN_BATCH if family == "2d" else DPTP_BATCH_3D
         phase(f"dp=2 x tp=2 {family} f32 step, batch {b} ({b // 2} a dp place), four processes on one card: worst "
-              f"err/tol {worst} (tol {tol}); launches a rank {recs[0]['launches']} on the "
-              f"{'CUDA cores' if family == '2d' else 'small-graph route'}; "
+              f"err/tol {worst} (tol {tol}); launches a rank {recs[0]['launches']} "
+              f"{f'({F32_STEP_ROUTES})' if family == '2d' else 'on the small-graph route'}; "
               f"{[round(r['ms'], 2) for r in recs]} ms by CUDA events (one process {ref_dptp[family]['ms']:.2f} ms); "
               f"peak {[round(r['max_memory_allocated'] / 2**30, 2) for r in recs]} GiB a rank (one process "
               f"{ref_dptp[family]['max_memory_allocated'] / 2**30:.2f} GiB)")
@@ -4534,9 +4764,11 @@ def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, t
     CUDA-core pair it replaced on the same inputs; the small-graph forward's
     per 3D held-out call of the easy checkpoint (its launches at Dh 264 on
     the protocol's first call, N = 8), beside the CUDA-core forward it
-    replaced. Each kernel's launches are its wrapper's on the routes in its
-    ``sources_by_route``: the forward's wrapper launches the small-graph
-    forward on the small-graph route."""
+    replaced. The f32 tensor-core dQ's and dK/dV's figures are per f32 train
+    step of the flagship (B = 8, H = 8, N = 908, fully connected) beside the
+    CUDA-core pair on the same inputs. Each entry's launches are those of its
+    C functions (``LINE_ENTRIES``), as the wrappers counted them by the
+    function they launched; an entry that no main path launched fails."""
     from diffassemble_tpu_torch import REFERENCE_PACKAGE
     from diffassemble_tpu_torch.ops import cuda_attention
 
@@ -4546,68 +4778,79 @@ def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, t
              **{f"eval3d_{name}_cli": (v[2]["cli_launches"], v[2]["cli_routes"]) for name, v in e_more.items()},
              **{f"eval3d_{name}": v for name, v in e_more.items()},
              **{f"train3d_{label}": v for label, v in t_more.items()}, **more_2d, **rest, **tp_paths}
+    root = Path(__file__).resolve().parent
+
+    def source(fn: str) -> str:  # the source file that holds C function fn, in the repo
+        return str(cuda_attention.SOURCES[cuda_attention._SIGNATURES[fn][0]].relative_to(root))
+
     out = []
-    for name, source in (*KERNEL_SOURCES.items(), (FWD_SMALL, FWD_SMALL_SOURCE)):
-        kernel = "masked_attention_fwd" if name == FWD_SMALL else name  # its wrapper
+    for name, functions in LINE_ENTRIES.items():
+        main = next(iter(functions.values()))  # the entry's kernel on the main paths' timed shapes
+        kernel = "masked_attention_fwd" if name == FWD_SMALL else name.removesuffix("_tc_f32")  # its wrapper
         if name == FWD_SMALL:
             # per 3D held-out call of the easy checkpoint: its launches on the protocol's first call (N = 8)
-            rs = [r for r in rows if r["kernel"] == kernel and r["route"] == "small_graph"
-                  and r["mask"] == "3D protocol, first call"]
+            rs = [r for r in rows if r["function"] == main and r["mask"] == "3D protocol, first call"]
             calls = {sum(call) for call in zip(*(r["launches_per_3d_call"] for r in rs))}
             if len(calls) != 1:
                 raise AssertionError(f"the 3D held-out calls launched the small-graph forward {calls} times")
             per = [(r, r["launches_per_3d_call"][0]) for r in rs]
-            routes = {"small_graph": source}
             more = {"cuda_core_fwd_ms": sum(r["cuda_core_fwd_ms"] * c for r, c in per)}
             about = (f"one 3D held-out call of the easy checkpoint: {calls.pop()} launches at Dh="
                      f"{'/'.join(str(r['dh']) for r in rs)}, B={rs[0]['b']}, H={HEADS}, N={rs[0]['n']}, bf16, "
                      f"route small_graph; cuda_core_fwd_ms: the CUDA-core forward it replaced, same inputs")
-            shapes = [r for r in rows if r["kernel"] == kernel and r["route"] == "small_graph"]
-        elif kernel == FUSED:
+        elif name == FUSED:
             # per 3D train step of the easy run's flags: its launches on the run's first batch (N = 8)
-            rs = [r for r in rows if r["kernel"] == kernel and r["mask"] == "3D training, first batch"]
+            rs = [r for r in rows if r["function"] == main and r["mask"] == "3D training, first batch"]
             steps = {sum(step) for step in zip(*(r["launches_per_step"] for r in rs))}
             if len(steps) != 1:
                 raise AssertionError(f"the 3D train steps launched the fused kernel {steps} times")
             per = [(r, r["launches_per_step"][0]) for r in rs]
-            routes = {"small_graph": source}
             more = {"library_computes": "dQ, dK and dV in one SDPA backward, as the fused kernel",
                     "cuda_core_pair_ms": sum((r["cuda_core_pair_ms"]["dq_ms"] + r["cuda_core_pair_ms"]["dkv_ms"])
                                              * c for r, c in per)}
             about = (f"one 3D train step of the easy run's flags: {steps.pop()} launches at Dh="
                      f"{'/'.join(str(r['dh']) for r in rs)}, B={rs[0]['b']}, H={HEADS}, N={rs[0]['n']}, bf16, "
                      f"route small_graph; cuda_core_pair_ms: the dQ + dK/dV pair it replaced, same inputs")
-            shapes = [r for r in rows if r["kernel"] == kernel]
         else:
-            # the forward kernel's figures are per denoiser step at the serving
-            # shapes (B = 1); the backward kernels' per train step (B = 8)
+            # the forward's figures are per denoiser step at the serving shapes (B = 1); the backward
+            # kernels' per train step (B = 8), the f32 ones' per f32 train step
             b = 1 if kernel == "masked_attention_fwd" else TRAIN_BATCH
             per = [(r, r["launches_per_step"]) for r in rows
-                   if r["kernel"] == kernel and r["b"] == b and r["n"] == N_NODES and r["main_path"]]
-            routes = {"tensor_cores": source, "cuda_cores": CUDA_CORE_SOURCES[kernel]}
+                   if r["function"] == main and r["b"] == b and r["n"] == N_NODES and r["main_path"]]
+            tp = [r for r in rows if r.get("tensor_parallel") and r["function"] == main and r["b"] == b]
+            keys = ["ms", "plain_ms", "library_ms", "bound_ms"]
             more = {} if b == 1 else {"library_computes": "dQ, dK and dV in one SDPA backward, the same call in "
                                                           "both backward rows: set it against the sum of their ms"}
-            about = (f"one {'denoiser step' if b == 1 else 'train step'}: 3 launches at Dh=32 and 1 at Dh=144, "
-                     f"B={b}, H={HEADS}, N={N_NODES}, bf16, route {per[0][0]['route']}")
-            tp = [r for r in rows if r.get("tensor_parallel") and r["kernel"] == kernel and r["b"] == b]
+            what = f"{'denoiser step' if b == 1 else 'train step'}, {per[0][0]['dtype']}"
+            if "cuda_core_pair_ms" in per[0][0]:  # the f32 tensor-core pair: the CUDA-core kernel beside it
+                ms_key = "dq_ms" if kernel == "masked_attention_bwd_dq" else "dkv_ms"
+                for r in (*(r for r, _ in per), *tp):
+                    r["cuda_core_ms"] = r["cuda_core_pair_ms"][ms_key]
+                keys.append("cuda_core_ms")
+                more["cuda_core_ms"] = sum(r["cuda_core_ms"] * c for r, c in per)
+            about = (f"one {what}: 3 launches at Dh=32 and 1 at Dh=144, B={b}, H={HEADS}, N={N_NODES}, route "
+                     f"{per[0][0]['route']}" + ("; cuda_core_ms: the CUDA-core kernel on the same inputs"
+                                                if "cuda_core_ms" in more else ""))
             more["tensor_parallel"] = {
-                **{key: sum(r[key] * r["launches_per_step"] for r in tp)
-                   for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
-                "times_are_for": f"a tp rank's {'denoiser step' if b == 1 else 'train step'}: H={HEADS // TP}, "
-                                 f"B={b}, N={N_NODES}, 3 launches at Dh=32 and 1 at Dh=144, bf16, tensor cores"}
-            shapes = [r for r in rows if r["kernel"] == kernel and r["route"] != "small_graph"]
+                **{key: sum(r[key] * r["launches_per_step"] for r in tp) for key in keys},
+                "times_are_for": f"a tp rank's {what}: H={HEADS // TP}, B={b}, N={N_NODES}, 3 launches at Dh=32 "
+                                 f"and 1 at Dh=144, route {per[0][0]['route']}"}
         step = {key: sum(r[key] * c for r, c in per) for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-        by_path = {path: sum(v[1][kernel][route] for route in routes) for path, v in paths.items()}
+        by_route = {path: {route: paths[path][1][FUNCTIONS].get(fn, 0) for route, fn in functions.items()}
+                    for path in paths}
+        by_path = {path: sum(n.values()) for path, n in by_route.items()}
+        if not sum(by_path.values()):
+            raise AssertionError(f"{name}: none of {sorted(functions.values())} was launched on a main path")
         out.append({
             "name": name,
             "route": "cuda",
-            "source": source,
-            "sources_by_route": routes,
+            "source": source(main),
+            "sources_by_route": {route: source(fn) for route, fn in functions.items()},
             "replaces": ", ".join(f"{REFERENCE_PACKAGE}/{x}" for x in cuda_attention.REPLACES[kernel]),
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "launches_by_route": {path: {route: v[1][kernel][route] for route in routes} for path, v in paths.items()},
-            "max_abs_err": errs[name],
+            "launches_by_route": by_route,
+            "max_abs_err": max(errs[fn] for fn in functions.values()),
             "ms": step["ms"],
             "plain_ms": step["plain_ms"],
             "bound_ms": step["bound_ms"],
@@ -4615,7 +4858,7 @@ def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, t
             "library_ms": step["library_ms"],
             **more,
             "times_are_for": about,
-            "per_shape": shapes,
+            "per_shape": [r for r in rows if r["function"] in functions.values()],
         })
     out[1]["tensor_parallel"]["paths"] = {name: r[2] for name, r in tp_paths.items()}
     out[0]["block_rows_sweep"] = sweep
@@ -4640,8 +4883,9 @@ def main() -> None:
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
-    ap.add_argument("--only", choices=["tensor_parallel"],
-                    help="instead of the smoke run, build the kernels and run phase 22 alone")
+    ap.add_argument("--only", choices=["tensor_parallel", "f32_rounding"],
+                    help="instead of the smoke run, build the kernels and run phase 22 alone, or read the f32 "
+                         "tensor-core pair's error against emulations of its rounding (f32_rounding)")
     ap.add_argument("--profile", nargs="?", const="serve",
                     choices=["serve", "train", "eval", "train-device", "eval3d", "train3d"],
                     help="instead of the smoke run, profile one serving request (default), one train step, "
@@ -4657,9 +4901,12 @@ def main() -> None:
          "train3d": profile_train3d_step}[args.profile]()
         print(smi, flush=True)
         return
-    if args.only:
+    if args.only == "f32_rounding":
+        f32_rounding()
+    elif args.only:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
             tensor_parallel(Path(tmp), dict.fromkeys(ERR_KEYS, 0.0))
+    if args.only:
         phase("done")
         print(smi, flush=True)
         return
@@ -4744,8 +4991,7 @@ def main() -> None:
     # there, and the CUDA-core forward never
     paths_3d = {path for path in paths if path.startswith("3D ")} | {"export_meshes_3d", "ddp_3d", "dptp_step_3d"}
     fwd_3d = {path: paths[path][1]["masked_attention_fwd"] for path in paths_3d & set(paths)}
-    off_route = {path: by_route for path, by_route in fwd_3d.items()
-                 if by_route["cuda_cores"] or not by_route["small_graph"]}
+    off_route = {path: per for path, per in fwd_3d.items() if per["cuda_cores"] or not per["small_graph"]}
     if off_route or len(fwd_3d) != len(paths_3d):
         raise AssertionError(f"3D paths' forward launches by route {off_route}; paths missing "
                              f"{sorted(paths_3d - set(fwd_3d))}")

@@ -34,9 +34,12 @@
 // 13.5 GFLOP), against some 2 bytes·B·N·H·Dh per tensor plus B·N² mask bytes:
 // hundreds of operations per byte, far above the card's ~295 bf16 ridge, so
 // the bound is the tensor-core rate. These kernels are the CUDA-core route:
-// their products run on the CUDA cores in f32. They serve every float32 call
-// and the bf16 calls at the head widths that the tensor-core kernels
-// (masked_attention_bwd_tc.cu) are not instantiated for. What the design
+// their products run on the CUDA cores in f32. They serve the calls, in
+// either type, at the head widths that the tensor-core kernels
+// (masked_attention_bwd_tc.cu in bf16, masked_attention_bwd_tc_f32.cu in
+// float32) are not instantiated for, and inputs off a 16-byte boundary, on
+// graphs of more than 32 nodes (masked_attention_bwd_small.cu takes the
+// smaller ones). What the design
 // does: one block of 4 warps per (16-row tile, head, batch) of the rows it
 // owns, a loop over 32-row tiles of the other side staged in shared memory
 // as f32 (+1 column of padding, so lane j reads row j without bank

@@ -18,7 +18,9 @@
 // (every row starts 16-byte aligned: the caller checks the base pointers);
 // L and Δ are (B, H, N) f32; the mask is the untransposed (B, N, N) int8 (or
 // bool bytes), shared across heads. Instantiated at Dh 32 and 144, the main
-// path's widths; other widths and float32 take the CUDA-core route.
+// path's widths; other widths take the CUDA-core route, and float32 its own
+// tensor-core kernels (masked_attention_bwd_tc_f32.cu, 3xTF32) on graphs of
+// more than 32 nodes.
 //
 // What bounds them on an H100: at the training shapes (B = 8, H = 8,
 // N = 908) the dQ kernel does 6·B·H·N²·Dh operations and the dK/dV kernel

@@ -1,8 +1,11 @@
 // Device helpers shared by the tensor-core attention kernels
-// (masked_attention_fwd_tc.cu, masked_attention_bwd_tc.cu): asynchronous
-// copies, ldmatrix fragment loads and the mma.sync.m16n8k16 product with bf16
-// operands and f32 accumulators. Included by each source, which is built into
-// its own library; ops/cuda_attention.py hashes this header with every source.
+// (masked_attention_fwd_tc.cu, masked_attention_bwd_tc.cu,
+// masked_attention_bwd_tc_f32.cu): asynchronous copies, ldmatrix fragment
+// loads and the mma.sync.m16n8k16 product with bf16 operands and f32
+// accumulators; for float32, the split of an operand into two TF32 halves,
+// 32-bit fragment loads and the mma.sync.m16n8k8 product with TF32 operands
+// (3xTF32). Included by each source, which is built into its own library;
+// ops/cuda_attention.py hashes this header with every source.
 
 #pragma once
 
@@ -133,6 +136,112 @@ __device__ __forceinline__ void load_b_trans(uint32_t (&b)[4], const bf16* tile,
   ldmatrix_x4_trans(b, tile + (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + col + (lane >> 4) * 8);
 }
 
+// ---------------------------------------------------------------- float32
+
+constexpr int kPadF32 = 4;  // floats of padding per staged f32 row (16 bytes)
+
+// Rows [row0, row0 + ROWS) of one head of a (B, N, H, DH) f32 tensor into
+// shared memory (row stride LD), by 16-byte cp.async from a block of THREADS
+// threads; rows past n are zero.
+template <int DH, int LD, int ROWS, int THREADS>
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* __restrict__ src, size_t base,
+                                              size_t node_stride, int row0, int n) {
+  constexpr int kChunks = DH / 4;
+  for (int idx = threadIdx.x; idx < ROWS * kChunks; idx += THREADS) {
+    const int r = idx / kChunks, c = idx % kChunks;
+    const int row = row0 + r;
+    const bool valid = row < n;
+    cp_async16(dst + r * LD + c * 4, src + base + (size_t)(valid ? row : 0) * node_stride + c * 4, valid);
+  }
+}
+
+// x → hi = tf32(x), lo = tf32(x − hi): each rounded to nearest (ties away
+// from zero) at 10 mantissa bits, the low 13 bits cleared; hi + lo carries
+// ~21 of x's 24 bits, and 0 splits into (0, 0).
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r & 0xffffe000u;
+}
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// d += a·b: a 16×8 (row), b 8×8 (col), TF32 operands, d 16×8 f32.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a·b in 3xTF32: lo·hi + hi·lo + hi·hi into one f32 accumulator (the
+// small terms first; lo·lo, ~2^-22 of the product, is left out).
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4], const uint32_t (&b_hi)[2],
+                                           const uint32_t (&b_lo)[2]) {
+  mma_tf32(d, a_lo, b_hi[0], b_hi[1]);
+  mma_tf32(d, a_hi, b_lo[0], b_lo[1]);
+  mma_tf32(d, a_hi, b_hi[0], b_hi[1]);
+}
+
+// The m16n8k8 fragments, with g = lane / 4 and t = lane % 4: A holds
+// (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B holds (k = t, n = g),
+// (k = t + 4, n = g); the accumulator holds (g, 2t), (g, 2t + 1), (g + 8, 2t),
+// (g + 8, 2t + 1). Each is loaded from shared memory by 32-bit loads (ldmatrix
+// moves 16-bit elements) and split on the way. With row strides LD ≡ 4
+// (mod 8) floats every load below falls in 32 distinct banks.
+
+// A fragment (hi, lo) of the warp's 16 rows [row0, row0 + 16) × 8 columns
+// [col, col + 8) of a staged f32 tile.
+template <int LD>
+__device__ __forceinline__ void load_a_tf32(uint32_t (&hi)[4], uint32_t (&lo)[4], const float* tile,
+                                            int row0, int col) {
+  const int lane = threadIdx.x & 31;
+  const float* p = tile + (row0 + (lane >> 2)) * LD + col + (lane & 3);
+  split_tf32(p[0], hi[0], lo[0]);
+  split_tf32(p[8 * LD], hi[1], lo[1]);
+  split_tf32(p[4], hi[2], lo[2]);
+  split_tf32(p[8 * LD + 4], hi[3], lo[3]);
+}
+
+// B fragment (hi, lo) of a tile stored [n][k]: the 8-row n-tile [row0,
+// row0 + 8) × 8 columns of k [col, col + 8).
+template <int LD>
+__device__ __forceinline__ void load_b_tf32(uint32_t (&hi)[2], uint32_t (&lo)[2], const float* tile,
+                                            int row0, int col) {
+  const int lane = threadIdx.x & 31;
+  const float* p = tile + (row0 + (lane >> 2)) * LD + col + (lane & 3);
+  split_tf32(p[0], hi[0], lo[0]);
+  split_tf32(p[4], hi[1], lo[1]);
+}
+
+// An accumulator fragment (16 rows × 8 columns) as the A fragment of the
+// next product, its columns taken as k in the order 0, 2, 4, 6, 1, 3, 5, 7:
+// each thread's (g, 2t) and (g, 2t + 1) become its (g, t) and (g, t + 4), so
+// no value leaves its thread. The B fragment of that product reads its k
+// rows in the same order (load_b_tf32_kn).
+__device__ __forceinline__ void acc_to_a_tf32(const float (&c)[4], uint32_t (&hi)[4],
+                                              uint32_t (&lo)[4]) {
+  split_tf32(c[0], hi[0], lo[0]);
+  split_tf32(c[2], hi[1], lo[1]);
+  split_tf32(c[1], hi[2], lo[2]);
+  split_tf32(c[3], hi[3], lo[3]);
+}
+
+// B fragment (hi, lo) of a tile stored [k][n] for an A from acc_to_a_tf32:
+// k rows [row0, row0 + 8) in that order × the 8 columns [col, col + 8).
+template <int LD>
+__device__ __forceinline__ void load_b_tf32_kn(uint32_t (&hi)[2], uint32_t (&lo)[2],
+                                               const float* tile, int row0, int col) {
+  const int lane = threadIdx.x & 31;
+  const float* p = tile + (row0 + 2 * (lane & 3)) * LD + col + (lane >> 2);
+  split_tf32(p[0], hi[0], lo[0]);
+  split_tf32(p[LD], hi[1], lo[1]);
+}
+
 // Dynamic shared memory above 48 KB has to be opted into once per kernel.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, int bytes) {
@@ -140,8 +249,10 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-bool bad_shape(int batch, int n, int heads, int dtype) {
-  return batch <= 0 || n <= 0 || heads <= 0 || batch > 65535 || heads > 65535 || dtype != 1;
+// A launch's shape out of the grid's range, or a type other than `want`
+// (1: bfloat16, 0: float32).
+bool bad_shape(int batch, int n, int heads, int dtype, int want = 1) {
+  return batch <= 0 || n <= 0 || heads <= 0 || batch > 65535 || heads > 65535 || dtype != want;
 }
 
 }  // namespace

@@ -23,7 +23,12 @@ dispatches by type, width, alignment and graph size:
   ``mma.sync`` with bf16 operands and f32 accumulators, for bfloat16 at the
   widths in ``TENSOR_CORE_HEAD_DIMS`` (32 and 144, the main paths'), whose
   base pointers are 16-byte aligned (as every fresh allocation is), at any
-  graph size; both include the device helpers of ``csrc/tc_common.cuh``;
+  graph size; and for float32 the backward pair alone
+  (``BACKWARD_PAIR``), ``csrc/masked_attention_bwd_tc_f32.cu``, on
+  ``mma.sync`` with TF32 operands, each product taken three times over the
+  operands' hi and lo TF32 halves (3xTF32, about f32 accuracy), at the same
+  widths and alignment on graphs of more than ``SMALL_GRAPH_N`` nodes; all
+  three include the device helpers of ``csrc/tc_common.cuh``;
 - the small-graph route (``"small_graph"``), a graph of at most
   ``SMALL_GRAPH_N`` nodes off the tensor-core route, in f32 on the CUDA
   cores, one block holding a head's whole graph: the forward
@@ -35,8 +40,9 @@ dispatches by type, width, alignment and graph size:
   route: ``csrc/masked_attention_fwd.cu`` and ``csrc/masked_attention_bwd.cu``,
   products in f32 on the CUDA cores, templated on the number of 32-column
   slots (1 to 9) and given the width at run time (32 and 144 are also
-  compiled in), for float32 (a bf16 or TF32 product would not hold its
-  gate), every other width, and bfloat16 inputs off a 16-byte boundary.
+  compiled in), for the float32 forward (one TF32 product would not hold
+  its gate; the 3xTF32 forward is ROADMAP Queue 2, K8), every other width,
+  and inputs off a 16-byte boundary.
 
 Every route is a hand-written kernel, held against the same plain versions
 (``masked_attention_bwd_small_plain`` equals the dQ and dK/dV plain versions
@@ -48,7 +54,8 @@ parallel), cached under ``diffassemble_tpu_torch/_build/`` by the hash of the
 source and the headers, and loaded with ``ctypes``.
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
-its ``launches`` attribute, and by route in ``launches_by_route``; for CPU
+its ``launches`` attribute, by route in ``launches_by_route`` and by the C
+function launched (``c_function``) in ``launches_by_function``; for CPU
 tensors it computes the kernel's plain PyTorch version (``*_plain``). There
 is no fall back from the card to the plain version, nor from one route to
 another. ``MaskedAttention`` is the autograd ``Function`` over the wrappers:
@@ -81,6 +88,7 @@ SOURCES = {
     "fwd_tc": _PKG / "csrc" / "masked_attention_fwd_tc.cu",
     "bwd_small": _PKG / "csrc" / "masked_attention_bwd_small.cu",
     "fwd_small": _PKG / "csrc" / "masked_attention_fwd_small.cu",
+    "bwd_tc_f32": _PKG / "csrc" / "masked_attention_bwd_tc_f32.cu",
 }
 HEADERS = tuple(sorted((_PKG / "csrc").glob("*.cuh")))  # included by the sources; part of each hash
 BUILD_DIR = _PKG / "_build"
@@ -92,7 +100,7 @@ REPLACES = {
     "masked_attention_bwd_small": ("ops/pallas_attention.py:94", "ops/pallas_attention.py:121"),
 }
 MAX_HEAD_DIM = 288  # the widest head the kernels take (9 slots of 32 columns)
-# the kernels with a tensor-core route (bfloat16), and its head widths
+# the kernels with a tensor-core route in bfloat16, and its head widths
 TENSOR_CORE_KERNELS = ("masked_attention_fwd", "masked_attention_bwd_dq", "masked_attention_bwd_dkv")
 ROUTES = ("tensor_cores", "cuda_cores", "small_graph")
 TENSOR_CORE_HEAD_DIMS = (32, 144)
@@ -124,6 +132,8 @@ _SIGNATURES = {  # C function → (library, argtypes)
     "masked_attention_fwd_tc_block_rows": ("fwd_tc", [_I] * 4),
     "masked_attention_bwd_small": ("bwd_small", [_P] * 10 + [_I] * 5 + [ctypes.c_float, _P]),
     "masked_attention_fwd_small": ("fwd_small", [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P]),
+    "masked_attention_bwd_dq_tc_f32": ("bwd_tc_f32", [_P] * 8 + [_I] * 5 + [ctypes.c_float, _P]),
+    "masked_attention_bwd_dkv_tc_f32": ("bwd_tc_f32", [_P] * 9 + [_I] * 5 + [ctypes.c_float, _P]),
 }
 
 
@@ -134,7 +144,7 @@ class KernelLibrary:
     libs: dict[str, ctypes.CDLL]  # by SOURCES key
     paths: dict[str, Path]
     build_seconds: float  # wall time of the parallel build; 0.0 when all were built
-    compiler_log: str  # nvcc's output, including the -Xptxas -v lines
+    compiler_log: str  # nvcc's output for every library, built now or before, with the -Xptxas -v lines
 
     def fn(self, name: str):
         return getattr(self.libs[_SIGNATURES[name][0]], name)
@@ -156,16 +166,19 @@ def _library_path(key: str) -> Path:
     return BUILD_DIR / f"{SOURCES[key].stem}-{digest}.so"
 
 
-def _compile(key: str, out: Path) -> str:
-    """One nvcc run: ``SOURCES[key]`` → ``out``; returns nvcc's output."""
+def _compile(key: str, out: Path) -> None:
+    """One nvcc run: ``SOURCES[key]`` → ``out``, its output kept beside it
+    (``.log``, written first: a library on disk has its build report)."""
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[key])]
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=NVCC_TIMEOUT_S)
     log = res.stdout + res.stderr
     if res.returncode != 0:
         raise RuntimeError(f"{SOURCES[key].name}: nvcc failed\n{log}")
+    tmp_log = out.with_suffix(f".{os.getpid()}.log")
+    tmp_log.write_text(f"== {SOURCES[key].name}\n{log}")
+    os.replace(tmp_log, out.with_suffix(".log"))
     os.replace(tmp, out)
-    return f"== {SOURCES[key].name}\n{log}"
 
 
 @functools.cache
@@ -175,13 +188,15 @@ def load_library() -> KernelLibrary:
     process: launches pay no hashing or file access."""
     paths = {key: _library_path(key) for key in SOURCES}
     todo = {key: p for key, p in paths.items() if not p.exists()}
-    seconds, log = 0.0, ""
+    seconds = 0.0
     if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         start = time.perf_counter()
         with ThreadPoolExecutor(len(todo)) as pool:
-            log = "".join(pool.map(_compile, todo, todo.values()))
+            list(pool.map(_compile, todo, todo.values()))
         seconds = time.perf_counter() - start
+    logs = (p.with_suffix(".log") for p in paths.values())
+    log = "".join(p.read_text() for p in logs if p.exists())
     libs = {key: ctypes.CDLL(str(p)) for key, p in paths.items()}
     for name, (key, argtypes) in _SIGNATURES.items():
         fn = getattr(libs[key], name)
@@ -294,49 +309,61 @@ def _check(q, k, v, mask, dout=None, lse=None, delta=None, o=None):
 
 def route(name: str, *tensors: torch.Tensor) -> str:
     """The route kernel ``name`` takes for ``tensors`` (q first):
-    ``"tensor_cores"`` for a kernel in ``TENSOR_CORE_KERNELS`` in bfloat16 at
-    a width in ``TENSOR_CORE_HEAD_DIMS`` with every base pointer 16-byte
-    aligned; else ``"small_graph"`` for the fused backward, and for the
-    forward and the backward pair (``SMALL_GRAPH_KERNELS``) on at most
-    ``SMALL_GRAPH_N`` nodes (the backward pair's is the fused kernel's);
-    else ``"cuda_cores"``."""
+    ``"tensor_cores"`` at a width in ``TENSOR_CORE_HEAD_DIMS`` with every
+    base pointer 16-byte aligned, for a kernel in ``TENSOR_CORE_KERNELS`` in
+    bfloat16 (any graph size) and for one of ``BACKWARD_PAIR`` in float32
+    (3xTF32) on more than ``SMALL_GRAPH_N`` nodes; else
+    ``"small_graph"`` for the fused backward, and for the forward and the
+    backward pair (``SMALL_GRAPH_KERNELS``) on at most ``SMALL_GRAPH_N``
+    nodes (the backward pair's is the fused kernel's); else ``"cuda_cores"``
+    (among them the float32 forward on more than ``SMALL_GRAPH_N`` nodes)."""
     q = tensors[0]
-    if (name in TENSOR_CORE_KERNELS and q.dtype == torch.bfloat16 and q.shape[-1] in TENSOR_CORE_HEAD_DIMS
-            and all(t.data_ptr() % 16 == 0 for t in tensors)):
+    if q.shape[-1] in TENSOR_CORE_HEAD_DIMS and all(t.data_ptr() % 16 == 0 for t in tensors) and (
+            (name in TENSOR_CORE_KERNELS and q.dtype == torch.bfloat16)
+            or (name in BACKWARD_PAIR and q.dtype == torch.float32 and q.shape[1] > SMALL_GRAPH_N)):
         return "tensor_cores"
     if name == "masked_attention_bwd_small" or (name in SMALL_GRAPH_KERNELS and q.shape[1] <= SMALL_GRAPH_N):
         return "small_graph"
     return "cuda_cores"
 
 
-def _launch(name: str, *tensors: torch.Tensor) -> str:
+def c_function(name: str, way: str, dtype: torch.dtype) -> str:
+    """The C function that kernel ``name`` launches on route ``way`` for
+    inputs of ``dtype``: on the tensor cores ``*_tc`` (bfloat16) or
+    ``*_tc_f32`` (float32, the backward pair), the forward on the
+    small-graph route ``masked_attention_fwd_small``, else ``name`` itself."""
+    if way == "tensor_cores":
+        return name + ("_tc" if dtype == torch.bfloat16 else "_tc_f32")
+    if way == "small_graph" and name == "masked_attention_fwd":
+        return "masked_attention_fwd_small"
+    return name
+
+
+def _launch(name: str, *tensors: torch.Tensor) -> tuple[str, str]:
     """Call kernel ``name`` on ``tensors`` (inputs then outputs, all on one
     card) with q's shape, on the current stream, by its ``route``; raise on a
-    CUDA error. Returns the route."""
+    CUDA error. Returns the route and the C function launched."""
     q = tensors[0]
     b, n, h, dh = q.shape
     way = route(name, *tensors)
     if way == "small_graph" and name in BACKWARD_PAIR:
         raise ValueError(f"{name}: the backward of a graph of at most {SMALL_GRAPH_N} nodes off the tensor cores "
                          "is masked_attention_bwd_small's")
-    if way == "tensor_cores":
-        c_name = name + "_tc"
-    elif way == "small_graph" and name == "masked_attention_fwd":
-        c_name = "masked_attention_fwd_small"
-    else:
-        c_name = name
+    c_name = c_function(name, way, q.dtype)
     rc = load_library().fn(c_name)(
         *(t.data_ptr() for t in tensors), b, n, h, dh, _DTYPES[q.dtype], 1.0 / math.sqrt(dh),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"{c_name} launch failed: CUDA error {rc}")
-    return way
+    return way, c_name
 
 
-def _count(kernel, way: str) -> None:
+def _count(kernel, launched: tuple[str, str]) -> None:
+    way, c_name = launched
     kernel.launches += 1
     kernel.launches_by_route[way] += 1
+    kernel.launches_by_function[c_name] = kernel.launches_by_function.get(c_name, 0) + 1
 
 
 def masked_attention_fwd(
@@ -410,10 +437,12 @@ KERNELS = (masked_attention_fwd, masked_attention_bwd_dq, masked_attention_bwd_d
 
 
 def reset_launch_counts() -> None:
-    """Set every wrapper's ``launches`` and ``launches_by_route`` to 0."""
+    """Set every wrapper's ``launches`` and ``launches_by_route`` to 0, and
+    empty its ``launches_by_function``."""
     for kernel in KERNELS:
         kernel.launches = 0
         kernel.launches_by_route = dict.fromkeys(ROUTES, 0)
+        kernel.launches_by_function = {}
 
 
 reset_launch_counts()

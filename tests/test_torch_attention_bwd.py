@@ -260,13 +260,16 @@ def test_check_takes_every_head_width_to_288(dh):
 
 def test_route_is_the_tensor_cores_for_bf16_at_the_main_path_widths():
     """bfloat16 at Dh 32 and 144 with 16-byte aligned inputs takes the
-    tensor-core kernels, the forward and the backward pair alike; float32,
-    other widths and misaligned inputs take the CUDA-core kernels (at N = 40:
-    a backward of at most 32 nodes off the tensor cores is the fused
-    kernel's, ``test_torch_attention_small_graph.py``)."""
+    tensor-core kernels, the forward and the backward pair alike; float32
+    there takes them for the backward pair alone (3xTF32) and the CUDA-core
+    forward (``test_route_in_float32``); other widths and misaligned inputs
+    take the CUDA-core kernels (at N = 40: a backward of at most 32 nodes off
+    the tensor cores is the fused kernel's,
+    ``test_torch_attention_small_graph.py``)."""
     for name in ("masked_attention_fwd", "masked_attention_bwd_dq", "masked_attention_bwd_dkv"):
+        f32 = "cuda_cores" if name == "masked_attention_fwd" else "tensor_cores"
         for dh, dtype, want in ((32, torch.bfloat16, "tensor_cores"), (144, torch.bfloat16, "tensor_cores"),
-                                (32, torch.float32, "cuda_cores"), (144, torch.float32, "cuda_cores"),
+                                (32, torch.float32, f32), (144, torch.float32, f32),
                                 (20, torch.bfloat16, "cuda_cores"), (104, torch.bfloat16, "cuda_cores"),
                                 (264, torch.bfloat16, "cuda_cores")):
             x = torch.zeros((1, 40, 2, dh), dtype=dtype)
@@ -277,3 +280,56 @@ def test_route_is_the_tensor_cores_for_bf16_at_the_main_path_widths():
             assert x.shape[-1] == dh and x.data_ptr() % 16 == 2
             assert ca.route(name, x, y, y) == "cuda_cores" and ca.route(name, y, y, x) == "cuda_cores", (name, dh)
     assert set(ca.REPLACES) == {*ca.TENSOR_CORE_KERNELS, "masked_attention_bwd_small"}
+
+
+@pytest.mark.parametrize("n, dh, aligned, want_pair", [
+    (908, 32, True, "tensor_cores"), (908, 144, True, "tensor_cores"), (152, 144, True, "tensor_cores"),
+    (44, 32, True, "tensor_cores"), (33, 144, True, "tensor_cores"),
+    (32, 32, True, "small_graph"), (8, 144, True, "small_graph"),
+    (908, 104, True, "cuda_cores"), (44, 20, True, "cuda_cores"), (908, 264, True, "cuda_cores"),
+    (908, 32, False, "cuda_cores"), (44, 144, False, "cuda_cores"), (20, 32, False, "small_graph"),
+])
+def test_route_in_float32(n, dh, aligned, want_pair):
+    """float32: the backward pair takes the tensor cores (3xTF32,
+    ``csrc/masked_attention_bwd_tc_f32.cu``) at Dh 32 and 144 on more than 32
+    nodes with every base pointer 16-byte aligned, the forward the CUDA
+    cores; at most 32 nodes both take the small-graph route (the 3D family's
+    launch gates); other widths and inputs off a 16-byte boundary (any one of
+    them) take the CUDA-core kernels."""
+    x = torch.zeros((1, n, 2, dh))
+    tensors = [x, x, x, x]
+    if not aligned:
+        off = torch.empty(x.numel() + 1)[1:].view(x.shape)  # 4 bytes past a 16-byte boundary
+        assert off.data_ptr() % 16 == 4
+        tensors[3] = off
+    fwd = "small_graph" if n <= ca.SMALL_GRAPH_N else "cuda_cores"
+    assert ca.route("masked_attention_fwd", *tensors[:3]) == fwd
+    for name in ca.BACKWARD_PAIR:
+        assert ca.route(name, *tensors) == want_pair, name
+    assert (ca.route(ca.BACKWARD_PAIR[0], *tensors) == "tensor_cores") == (
+        n > ca.SMALL_GRAPH_N and dh in ca.TENSOR_CORE_HEAD_DIMS and aligned)
+
+
+@pytest.mark.parametrize("name, way, dtype, want", [
+    ("masked_attention_fwd", "tensor_cores", torch.bfloat16, "masked_attention_fwd_tc"),
+    ("masked_attention_fwd", "cuda_cores", torch.float32, "masked_attention_fwd"),
+    ("masked_attention_fwd", "small_graph", torch.float32, "masked_attention_fwd_small"),
+    ("masked_attention_bwd_dq", "tensor_cores", torch.bfloat16, "masked_attention_bwd_dq_tc"),
+    ("masked_attention_bwd_dq", "tensor_cores", torch.float32, "masked_attention_bwd_dq_tc_f32"),
+    ("masked_attention_bwd_dkv", "tensor_cores", torch.float32, "masked_attention_bwd_dkv_tc_f32"),
+    ("masked_attention_bwd_dkv", "cuda_cores", torch.bfloat16, "masked_attention_bwd_dkv"),
+    ("masked_attention_bwd_small", "small_graph", torch.bfloat16, "masked_attention_bwd_small"),
+])
+def test_c_function_names_the_kernel_each_route_launches(name, way, dtype, want):
+    """``c_function`` names the C entry point a wrapper launches (and counts in
+    ``launches_by_function``) for its route and type; each is a signature of
+    the library, built from the source the kernels line names."""
+    assert ca.c_function(name, way, dtype) == want
+    assert want in ca._SIGNATURES and ca._SIGNATURES[want][0] in ca.SOURCES
+
+
+def test_reset_empties_the_counts_by_function():
+    for kern in ca.KERNELS:
+        kern.launches_by_function["x"] = 1
+    ca.reset_launch_counts()
+    assert all(kern.launches_by_function == {} and kern.launches == 0 for kern in ca.KERNELS)

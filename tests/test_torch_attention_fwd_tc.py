@@ -113,3 +113,20 @@ def test_library_hash_covers_the_shared_header(tmp_path, monkeypatch):
     second = ca._library_path("fwd_tc")
     assert first != second and first.parent == second.parent == ca.BUILD_DIR
     assert first.name.startswith("masked_attention_fwd_tc-") and first.suffix == ".so"
+
+
+def test_compile_keeps_the_build_report_beside_the_library(tmp_path, monkeypatch):
+    """nvcc's report (the -Xptxas -v lines ``chip_smoke.py``'s spill gate
+    reads) is kept beside each library, so a library an earlier process built
+    still has it in ``load_library().compiler_log``."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text('#!/bin/sh\nwhile [ $# -gt 0 ]; do [ "$1" = -o ] && out=$2; shift; done\n'
+                    'echo "ptxas info    : Used 64 registers"\n: > "$out"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(ca, "_nvcc", lambda: str(nvcc))
+    out = tmp_path / "masked_attention_fwd-0.so"
+    ca._compile("fwd", out)
+    assert out.exists()
+    assert out.with_suffix(".log").read_text() == "== masked_attention_fwd.cu\nptxas info    : Used 64 registers\n"
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["masked_attention_fwd-0.log", "masked_attention_fwd-0.so",
+                                                          "nvcc"]

@@ -103,17 +103,19 @@ def test_small_plain_is_the_pair_bit_for_bit_in_bf16():
 def test_route_sends_small_graphs_off_the_tensor_cores_to_the_fused_kernel(n):
     """N <= 32 off the tensor-core route: the fused kernel, in both types and
     for inputs off a 16-byte boundary; bf16 at Dh 32/144 keeps the tensor
-    cores at any N; above 32 nodes the CUDA cores, as before. The forward
-    takes the same route as the backward (its small-graph kernel at N <= 32
-    off the tensor cores)."""
+    cores at any N; above 32 nodes the CUDA cores, except the f32 backward
+    pair at Dh 32/144, which takes the tensor cores there (3xTF32). The
+    forward takes the same route as the backward (its small-graph kernel at
+    N <= 32 off the tensor cores), but the CUDA cores in f32 above 32 nodes."""
     small = n <= ca.SMALL_GRAPH_N
     for dh, dtype, tensor_cores in ((32, torch.bfloat16, True), (144, torch.bfloat16, True),
                                     (32, torch.float32, False), (264, torch.float32, False),
                                     (24, torch.bfloat16, False), (271, torch.bfloat16, False)):
         x = torch.zeros((1, n, 2, dh), dtype=dtype)
         want = "tensor_cores" if tensor_cores else "small_graph" if small else "cuda_cores"
+        f32_pair = dtype == torch.float32 and dh in ca.TENSOR_CORE_HEAD_DIMS and not small
         for name in ca.BACKWARD_PAIR:
-            assert ca.route(name, x, x, x) == want, (n, dh, dtype, name)
+            assert ca.route(name, x, x, x) == ("tensor_cores" if f32_pair else want), (n, dh, dtype, name)
         assert ca.route("masked_attention_bwd_small", x, x, x) == "small_graph"
         assert ca.route("masked_attention_fwd", x, x, x) == want
     off = torch.zeros((1, n, 2, 33), dtype=torch.bfloat16)[..., 1:]  # 2 bytes off a 16-byte boundary

@@ -197,9 +197,10 @@ def test_cuda_bwd_kernels_match_plain(n, dh, dtype, route, card):
     """dQ, dK and dV of the backward kernels against their plain versions
     on the same inputs; empty query rows give dQ exactly 0 and keys no query
     attends give dK = dV exactly 0; nothing is NaN. By width, bfloat16 at
-    Dh 32 and 144 takes the tensor-core kernels and everything else the
-    CUDA-core kernels; with inputs off a 16-byte boundary every call takes
-    the CUDA-core kernels. Off the tensor cores a graph of at most 32 nodes
+    Dh 32 and 144 takes the tensor-core kernels, and so does float32 there
+    on more than 32 nodes (3xTF32); everything else takes the CUDA-core
+    kernels; with inputs off a 16-byte boundary every call takes the
+    CUDA-core kernels. Off the tensor cores a graph of at most 32 nodes
     takes the fused kernel instead, one launch for all three outputs, and
     the dQ and dK/dV wrappers refuse it."""
     dt = getattr(torch, dtype)
@@ -215,7 +216,7 @@ def test_cuda_bwd_kernels_match_plain(n, dh, dtype, route, card):
         q, k, v, dout = (_misaligned(x) for x in (q, k, v, dout))
     o, lse = cuda_attention.masked_attention_fwd(q, k, v, adj)
     delta = cuda_attention.attention_delta(dout, o)
-    tensor_cores = route == "by width" and dt == torch.bfloat16 and dh in (32, 144)
+    tensor_cores = route == "by width" and dh in (32, 144) and (dt == torch.bfloat16 or not small)
     want = "tensor_cores" if tensor_cores else "small_graph" if small else "cuda_cores"
     for name in cuda_attention.BACKWARD_PAIR:
         got = cuda_attention.route(name, q, k, v, adj, dout, lse, delta)
@@ -244,6 +245,69 @@ def test_cuda_bwd_kernels_match_plain(n, dh, dtype, route, card):
     assert int(empty.sum()) >= 3 and int(unattended.sum()) >= 3
     assert bool((dq[empty] == 0).all())
     assert bool((dk[unattended] == 0).all()) and bool((dv[unattended] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [8, 4])
+@pytest.mark.parametrize("dh", [32, 144])
+@pytest.mark.parametrize("n", [44, 152, 908])
+def test_cuda_f32_tensor_core_pair_matches_plain(n, dh, heads, card):
+    """The float32 tensor-core dQ and dK/dV kernels (3xTF32,
+    ``csrc/masked_attention_bwd_tc_f32.cu``) at the 2D paths' graph sizes
+    (a 6×6 puzzle's 36 + 8 nodes, the mixed corpus's 144 + 8, the
+    flagship's 900 + 8) and head counts (8, and a tp = 2 rank's 4): each
+    launch counted on the tensor cores, within the f32 gate of its plain
+    version, with exact zeros on empty query rows and unattended keys."""
+    q, k, v, adj = (x.to(card) for x in _inputs(2, n, heads, dh, seed=7 * n + dh))
+    adj[0, :, 10:13] = False  # keys no query attends
+    dout = torch.randn(q.shape, generator=torch.Generator(device=card).manual_seed(n), device=card)
+    o, lse = cuda_attention.masked_attention_fwd(q, k, v, adj)
+    args = (q, k, v, adj, dout, lse, cuda_attention.attention_delta(dout, o))
+    pair = (cuda_attention.masked_attention_bwd_dq, cuda_attention.masked_attention_bwd_dkv)
+    assert [cuda_attention.route(kern.__name__, *args) for kern in pair] == ["tensor_cores"] * 2
+    before = [kern.launches_by_route["tensor_cores"] for kern in pair]
+    before_fn = [kern.launches_by_function.get(f"{kern.__name__}_tc_f32", 0) for kern in pair]
+    dq = cuda_attention.masked_attention_bwd_dq(*args)
+    dk, dv = cuda_attention.masked_attention_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    assert [kern.launches_by_route["tensor_cores"] for kern in pair] == [b + 1 for b in before]
+    assert [kern.launches_by_function[f"{kern.__name__}_tc_f32"] for kern in pair] == [b + 1 for b in before_fn]
+    refs = (cuda_attention.masked_attention_bwd_dq_plain(*args), *cuda_attention.masked_attention_bwd_dkv_plain(*args))
+    for got, ref in zip((dq, dk, dv), refs):
+        assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+        assert bool(((got - ref).abs() <= _bwd_tol(ref, torch.float32)).all())
+    empty, unattended = ~adj.any(-1), ~adj.any(-2)
+    assert int(empty.sum()) >= 3 and int(unattended.sum()) >= 3
+    assert bool((dq[empty] == 0).all())
+    assert bool((dk[unattended] == 0).all()) and bool((dv[unattended] == 0).all())
+
+
+@pytest.mark.cuda
+def test_cuda_f32_function_backward_at_908_nodes_launches_the_pair_on_the_tensor_cores(card):
+    """``MaskedAttention`` in float32 on the flagship's graph size (N = 908,
+    Dh 32): the forward on the CUDA cores, dQ and dK/dV on the tensor cores,
+    and the gradients those kernels give on the forward's O and L."""
+    q, k, v, adj = (x.to(card) for x in _inputs(2, 908, 8, 32, seed=11))
+    q, k, v = (x.requires_grad_(True) for x in (q, k, v))
+    dout = torch.randn(q.shape, generator=torch.Generator(device=card).manual_seed(11), device=card)
+    kernels = cuda_attention.KERNELS[:3]
+    before = [dict(kern.launches_by_route) for kern in kernels]
+    before_fn = [dict(kern.launches_by_function) for kern in kernels]
+    out = cuda_attention.MaskedAttention.apply(q, k, v, adj)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    after = [kern.launches_by_route for kern in kernels]
+    moved = [{r: a[r] - b[r] for r in a if a[r] != b[r]} for a, b in zip(after, before)]
+    assert moved == [{"cuda_cores": 1}, {"tensor_cores": 1}, {"tensor_cores": 1}]
+    moved = [{f: n - b.get(f, 0) for f, n in kern.launches_by_function.items() if n != b.get(f, 0)}
+             for kern, b in zip(kernels, before_fn)]
+    assert moved == [{"masked_attention_fwd": 1}, {"masked_attention_bwd_dq_tc_f32": 1},
+                     {"masked_attention_bwd_dkv_tc_f32": 1}]
+    o, lse = cuda_attention.masked_attention_fwd(q.detach(), k.detach(), v.detach(), adj)
+    args = (q.detach(), k.detach(), v.detach(), adj, dout, lse, cuda_attention.attention_delta(dout, o))
+    refs = (cuda_attention.masked_attention_bwd_dq_plain(*args), *cuda_attention.masked_attention_bwd_dkv_plain(*args))
+    for got, ref in zip((q.grad, k.grad, v.grad), refs):
+        assert bool(((got - ref).abs() <= _bwd_tol(ref, torch.float32)).all())
 
 
 @pytest.mark.cuda
