@@ -9,7 +9,7 @@
     python3 chip_smoke.py --profile eval3d  # one 3D held-out call of 16 objects, trained weights
     python3 chip_smoke.py --profile train3d  # one full-width 3D train step
     python3 chip_smoke.py --only tensor_parallel  # the build and phase 22 alone
-    python3 chip_smoke.py --only f32_rounding  # the f32 tensor-core pair's error against emulations
+    python3 chip_smoke.py --only f32_rounding  # the f32 tensor-core kernels' error against emulations
 
 Phases, each ending in a line with the elapsed seconds:
 
@@ -25,9 +25,9 @@ Phases, each ending in a line with the elapsed seconds:
    expander + 8 virtual nodes at B = 32, at head widths 32 and 144, in bf16 and
    f32; then the two backward kernels (dQ, and dK/dV) against theirs over the
    same masks, with exact zeros on empty query rows and unattended keys. In
-   bf16 at Dh 32 and 144 all three run on the tensor-core route; in f32 the
-   forward runs on the CUDA-core route and dQ and dK/dV on the tensor cores
-   (3xTF32, ``csrc/masked_attention_bwd_tc_f32.cu``); each line names its
+   bf16 at Dh 32 and 144 all three run on the tensor-core route, and in f32
+   too (3xTF32, ``csrc/masked_attention_fwd_tc_f32.cu`` and
+   ``csrc/masked_attention_bwd_tc_f32.cu``); each line names its
    route, and a kernel on another route than its type and width call for
    fails. Inputs 2 bytes (bf16) or 4 bytes (f32) off a 16-byte boundary run
    all three on the CUDA-core route on the B = 1
@@ -46,8 +46,9 @@ Phases, each ending in a line with the elapsed seconds:
    kernels at Dh 20, 104 and 264; in f32 at B = 8 (``time_on_masks``) the
    tensor-core dQ and dK/dV beside the CUDA-core pair on the same inputs,
    their plain versions, one f32 SDPA backward and their bound, and the
-   CUDA-core forward beside the f32 SDPA forward (every f32 bound at the
-   TF32 rate);
+   tensor-core forward beside the CUDA-core forward on the same inputs and
+   the f32 SDPA forward, the forward so at B = 32 too (every f32 bound at
+   the TF32 rate);
 5. serving, the first main path: the flagship 30×30 rotation config from
    ``weights/diffusion2d_rot30/config.json`` (JSON only) with seeded weights;
    one denoiser call with the kernel against the same call with plain
@@ -57,8 +58,8 @@ Phases, each ending in a line with the elapsed seconds:
    no backward launch each;
 6. training: a full-width f32 step's gradients with the kernels against the
    same step with plain attention (every query/key/value weight gets a
-   finite, nonzero gradient; the forward on the CUDA cores, dQ and dK/dV on
-   the tensor cores); a 6×6 f32 train step on the card against the CPU (the
+   finite, nonzero gradient; the forward, dQ and dK/dV on the tensor cores,
+   3xTF32); a 6×6 f32 train step on the card against the CPU (the
    same routes at N = 44); then the second main path, ``run_2d`` of the rotation CLI with the
    flagship's flags at batch 8 on 30×30 puzzles: a sanity eval, 3 steps
    with exactly 4 + 4 + 4 kernel launches each, all on the tensor cores, a
@@ -73,7 +74,12 @@ Phases, each ending in a line with the elapsed seconds:
    seed leaves a choice among five with equal spectral gaps, so which one
    the TPU's run used is unknown). It fails unless the TPU's piece_acc of
    0.9763 is within 0.01 of the card's over one of the five. Then, ungated,
-   the same puzzles over a fully connected graph and in calls of 8;
+   the same puzzles over a fully connected graph and in calls of 8. Then the
+   same weights in f32 (the model's default precision) over the same
+   puzzles and the expander the gate chose, in two calls of 32: each 120
+   forward launches, all ``masked_attention_fwd_tc_f32``, and a piece_acc
+   within 0.01 of the card's bf16 one there, each call timed by CUDA events
+   and the host clock, with its peak memory;
 8. recipe, the fourth main path: the flagship's device-resident recipe
    through ``cli/train_device.py`` (config.json and data.json: 30×30, 10%
    expander, canonical 0.8, hf_detail 0.25, the encoder_init
@@ -92,8 +98,7 @@ Phases, each ending in a line with the elapsed seconds:
    seeded weights at batch 16, 3 steps and a resume to 4, with evaluations,
    all on the tensor cores, and its seeded f32 loss card against CPU; then
    the three kernels against their plain versions on its masks (B = 16, N =
-   152 with padding rows and unattended keys; bf16 on the tensor cores, f32
-   with the forward on the CUDA cores and the backward pair on the tensor
+   152 with padding rows and unattended keys; bf16 and f32 on the tensor
    cores) and timed there beside their bound and
    ``scaled_dot_product_attention``, in bf16 and f32; then the forward kernel against its
    plain version on a 6×6 request's mask (B = 1, N = 44, fully connected)
@@ -254,8 +259,8 @@ Phases, each ending in a line with the elapsed seconds:
    two ranks on one device), each held to the same work in this process:
    at tp = 2 and the flagship's full width (each rank 4 of the 8 heads), a
    Trainer step at batch 8 over the 10% expander in f32 (``GRAD_TOL``, 4 +
-   4 + 4 launches a rank: the forward on the CUDA cores, dQ and dK/dV on the
-   tensor cores) and in bf16 (its loss, gradient
+   4 + 4 launches a rank, all on the tensor cores, 3xTF32) and in bf16 (its
+   loss, gradient
    norms and gradients within ``TP_BF16_TOL``, 4 + 4 + 4 on the tensor
    cores), the ranks' whole parameters equal, each update equal to the
    single-process optimizer's on the rank's gradients, the tp
@@ -341,17 +346,17 @@ FWD_SMALL = "masked_attention_fwd_small"
 FUNCTIONS = "by_function"
 # the kernels line's entries: each one's C functions (cuda_attention.c_function) by route, the first
 # one's source naming the entry: the forward, dQ and dK/dV on the tensor cores in bf16 (Dh 32 and 144)
-# and on the CUDA cores, the fused small-graph backward, the small-graph forward, and dQ and dK/dV on
-# the tensor cores in float32 (3xTF32, N > 32 at Dh 32 and 144)
+# and on the CUDA cores, the fused small-graph backward, the small-graph forward, and dQ, dK/dV and the
+# forward on the tensor cores in float32 (3xTF32, N > 32 at Dh 32 and 144)
 LINE_ENTRIES = {
     **{name: {"tensor_cores": f"{name}_tc", "cuda_cores": name}
        for name in ("masked_attention_fwd", "masked_attention_bwd_dq", "masked_attention_bwd_dkv")},
     FUSED: {"small_graph": FUSED},
     FWD_SMALL: {"small_graph": FWD_SMALL},
     **{f"{name}_tc_f32": {"tensor_cores": f"{name}_tc_f32"}
-       for name in ("masked_attention_bwd_dq", "masked_attention_bwd_dkv")},
+       for name in ("masked_attention_bwd_dq", "masked_attention_bwd_dkv", "masked_attention_fwd")},
 }
-F32_STEP_ROUTES = "the forward on the CUDA cores, dQ and dK/dV on the tensor cores"
+F32_STEP_ROUTES = "all three on the tensor cores (3xTF32)"
 # the kernels line's max_abs_err, by C function
 ERR_KEYS = tuple(fn for functions in LINE_ENTRIES.values() for fn in functions.values())
 # bench.py's held-out protocol: 64 puzzles of 30x30, sampled 32 to a call
@@ -699,9 +704,9 @@ def step_routes_3d(passes: int, layers: int, dtype: str = "bfloat16") -> dict[st
 
 def f32_step_routes_2d(launches: int = 4) -> dict[str, dict[str, int]]:
     """A float32 2D step's launches by kernel and route (N > 32 nodes at the
-    main widths): each kernel ``launches`` times, the forward on the CUDA
-    cores, dQ and dK/dV on the tensor cores (3xTF32), no fused launch."""
-    return {"masked_attention_fwd": on_routes(cuda_cores=launches),
+    main widths): each kernel ``launches`` times, all on the tensor cores
+    (3xTF32), no fused launch."""
+    return {"masked_attention_fwd": on_routes(tensor_cores=launches),
             "masked_attention_bwd_dq": on_routes(tensor_cores=launches),
             "masked_attention_bwd_dkv": on_routes(tensor_cores=launches), FUSED: on_routes()}
 
@@ -766,8 +771,8 @@ def _check_kernels(label: str, mask, dh: int, dtype, gen, max_err: dict[str, flo
     without ``backward``) against their plain versions on one mask, width,
     head count and type, on the route these call for: the tensor cores for
     bf16 at the main paths' widths (forward, dQ and dK/dV), and in f32 there
-    on more than ``SMALL_GRAPH_N`` nodes for dQ and dK/dV (3xTF32) beside
-    the CUDA-core forward; else (and for ``misaligned`` inputs, one element
+    on more than ``SMALL_GRAPH_N`` nodes (3xTF32); else (and for
+    ``misaligned`` inputs, one element
     past a 16-byte boundary) the small-graph route where N is at most
     ``SMALL_GRAPH_N`` (the small-graph forward, and the fused backward: dQ, dK
     and dV in one launch), the CUDA cores above it (the forward, dQ and
@@ -786,12 +791,11 @@ def _check_kernels(label: str, mask, dh: int, dtype, gen, max_err: dict[str, flo
         label = f"{label}, misaligned"
     aligned_main = dh in MAIN_HEAD_DIMS and not misaligned
     off_tc = "small_graph" if n <= ca.SMALL_GRAPH_N else "cuda_cores"
-    want_fwd = "tensor_cores" if aligned_main and dtype == torch.bfloat16 else off_tc
-    # the backward pair: in f32 too, on more than SMALL_GRAPH_N nodes (3xTF32)
+    # in f32 on more than SMALL_GRAPH_N nodes the tensor cores too (3xTF32)
     want = "tensor_cores" if aligned_main and (dtype == torch.bfloat16 or off_tc == "cuda_cores") else off_tc
     fwd_route = ca.route("masked_attention_fwd", q, k, v, mask)
-    if fwd_route != want_fwd:
-        raise AssertionError(f"forward route {fwd_route} at Dh={dh} {dtype}, expected {want_fwd}")
+    if fwd_route != want:
+        raise AssertionError(f"forward route {fwd_route} at Dh={dh} {dtype}, expected {want}")
     o, lse = ca.masked_attention_fwd(q, k, v, mask)
     torch.cuda.synchronize()
     o_p, lse_p = ca.masked_attention_fwd_plain(q, k, v, mask)
@@ -963,9 +967,11 @@ def timing() -> tuple[list[dict], list[dict]]:
     the main paths' widths the same kernels on the CUDA-core route in bf16
     are timed beside the tensor-core route, and the tensor-core forward at
     each query block size; at B = 8 the three kernels at the widths off the
-    main paths, and in f32 the tensor-core backward pair and the CUDA-core
-    forward (``time_on_masks``). Rows off the main paths have
-    ``main_path`` false. Returns the rows and the block-size sweep."""
+    main paths, and in f32 the three tensor-core kernels (3xTF32,
+    ``time_on_masks``), each beside the CUDA-core kernel on the same inputs;
+    in f32 at B = 32 (a held-out call's) the tensor-core forward beside the
+    CUDA-core forward (``time_forward_on_mask``). Rows off the main paths
+    have ``main_path`` false. Returns the rows and the block-size sweep."""
     import torch
 
     from diffassemble_tpu_torch.ops import cuda_attention as ca
@@ -1041,14 +1047,20 @@ def timing() -> tuple[list[dict], list[dict]]:
                 sweep += _fwd_block_rows_sweep(q, k, v, mask, o, lse)
             rows += here
             del out_t, qt, kt, vt
-    # float32 at the training shapes: the tensor-core backward pair (3xTF32) and the CUDA-core forward
+    # float32 at the training shapes (the three kernels on the tensor cores, 3xTF32) and a held-out call's
     mask = torch.ones((TRAIN_BATCH, N_NODES, N_NODES), dtype=torch.bool, device="cuda")
     f32 = time_on_masks(mask, f"fully connected, B={TRAIN_BATCH}", MAIN_HEAD_DIMS, gen, dtype="float32")
     for r in f32:
-        if r["route"] != ("cuda_cores" if r["kernel"] == "masked_attention_fwd" else "tensor_cores"):
-            raise AssertionError(f"f32 {r['kernel']} at Dh={r['dh']} takes the {r['route']} route")
         r["launches_per_step"] = dict(STEP_LAUNCHES)[r["dh"]]
-    return rows + f32, sweep
+    mask = torch.ones((EVAL_N, N_NODES, N_NODES), dtype=torch.bool, device="cuda")
+    f32_eval = time_forward_on_mask(mask, f"fully connected, B={EVAL_N} (held-out call)", HEADS, MAIN_HEAD_DIMS,
+                                    gen, dtype="float32")
+    for r in f32_eval:
+        r["launches_per_step"] = dict(STEP_LAUNCHES)[r["dh"]]
+    for r in f32 + f32_eval:
+        if r["route"] != "tensor_cores":
+            raise AssertionError(f"f32 {r['kernel']} at B={r['b']} Dh={r['dh']} takes the {r['route']} route")
+    return rows + f32 + f32_eval, sweep
 
 
 class PlainAttention:
@@ -1126,9 +1138,11 @@ def serving() -> tuple[dict[str, int], dict[str, dict[str, int]], list[float]]:
     small_cfg = dataclasses.replace(cfg, compute_dtype="float32")
     small = seeded_puzzles(6, 1, cfg.rotation, rng)
     final_cpu = Diffusion2D(small_cfg, device="cpu", seed=0).sample(small.to("cpu")).final
+    before_routes = read_routes()
     final_gpu = Diffusion2D(small_cfg, device="cuda", seed=0).sample(small.to("cuda")).final.cpu()
+    launched = f32_forward_launches(before_routes, cfg.n_layers * (cfg.steps // cfg.inference_ratio), "6x6 sample f32")
     err = (final_gpu - final_cpu).abs().max().item()
-    phase(f"6x6 sample f32, card vs CPU: max|d|={err:.3e} (tol 1e-3)")
+    phase(f"6x6 sample f32, card vs CPU: max|d|={err:.3e} (tol 1e-3); {launched}")
     if not err <= 1e-3:
         raise AssertionError("the card's sample disagrees with the CPU's")
 
@@ -1168,14 +1182,25 @@ def serving() -> tuple[dict[str, int], dict[str, dict[str, int]], list[float]]:
     return counts, routes, seconds
 
 
+def f32_forward_launches(before: dict[str, dict[str, int]], n: int, label: str) -> str:
+    """Since ``before`` (``read_routes``): ``n`` forward launches, all of them
+    ``masked_attention_fwd_tc_f32`` on the tensor cores, and no other kernel
+    launched; raises otherwise. Returns a line that says so."""
+    routes = routes_since(before)
+    by_function = {fn: c for fn, c in routes[FUNCTIONS].items() if c}
+    if routes["masked_attention_fwd"] != on_routes(tensor_cores=n) or by_function != {"masked_attention_fwd_tc_f32": n}:
+        raise AssertionError(f"{label}: launches by route {routes}, expected {n} launches of masked_attention_fwd_tc_f32")
+    return f"{n} forward launches, all masked_attention_fwd_tc_f32 on the tensor cores"
+
+
 def gradient_parity() -> None:
     """A full-width f32 step's gradients with the kernels against the same
     step with plain attention, on two 30×30 puzzles with the flagship's 10%
     expander. Tolerance: 1e-3 of each parameter's largest gradient entry plus
     1e-6 of the model's (sums in another order through four layers and the
     encoder; gradients that are 0 in exact arithmetic are rounding noise).
-    The kernels' step launches the forward on the CUDA cores and dQ and dK/dV
-    on the tensor cores (3xTF32), once a layer each."""
+    The kernels' step launches the forward, dQ and dK/dV on the tensor cores
+    (3xTF32), once a layer each."""
     import dataclasses
 
     import numpy as np
@@ -1219,7 +1244,7 @@ def gradient_parity() -> None:
         raise AssertionError("a query/key/value weight got no gradient through the kernels")
     phase(f"gradient parity f32, B=2 30x30: kernels vs plain attention, worst err/tol {worst:.3f} over "
           f"{len(plain)} parameters; all {len(qkv)} query/key/value weights finite, smallest max|g| {smallest:.3e}; "
-          f"{cfg.n_layers} forward launches on the CUDA cores, {cfg.n_layers} dQ and dK/dV on the tensor cores")
+          f"{cfg.n_layers} forward, dQ and dK/dV launches each, {F32_STEP_ROUTES}")
 
 
 def card_vs_cpu_training() -> None:
@@ -1230,9 +1255,9 @@ def card_vs_cpu_training() -> None:
     normalises them). Where an unfactored parameter's gradient is within
     rounding noise of 0, the direction of its step is set by that noise in
     either run: there the step is only held to Adafactor's clip, an RMS of at
-    most lr·max(RMS(param), 1e-3). On the card each step launches the forward
-    on the CUDA cores and dQ and dK/dV on the tensor cores (N = 44: 36
-    pieces + 8 virtual nodes)."""
+    most lr·max(RMS(param), 1e-3). On the card each step launches the
+    forward, dQ and dK/dV on the tensor cores (N = 44: 36 pieces + 8 virtual
+    nodes)."""
     import dataclasses
 
     import numpy as np
@@ -1422,11 +1447,24 @@ def accuracy() -> tuple[dict[str, int], dict[str, dict[str, int]], dict]:
     runs. The phase fails unless every forward launch of the counted run took
     the tensor cores and the TPU's piece_acc lies within PIECE_ACC_TOL of the
     card's over at least one candidate. Then, ungated, the same puzzles over a
-    fully connected graph (as ``cli/serve.py`` serves) and in calls of 8."""
+    fully connected graph (as ``cli/serve.py`` serves) and in calls of 8.
+
+    Last the same weights in float32 (``compute_dtype="float32"``, the
+    model's default precision) over the same puzzles and the candidate the
+    gate chose, in calls of 32 (N = 908): every call exactly
+    ``per_call`` (120) forward launches, all ``masked_attention_fwd_tc_f32``
+    on the tensor cores, and its piece_acc within PIECE_ACC_TOL of the bf16
+    run's over that candidate; each call timed by CUDA events and the host
+    clock, with the run's peak memory. Its launches are their own path
+    (``result["float32"]``)."""
+    import dataclasses
+
     import numpy as np
     import torch
 
+    from diffassemble_tpu_torch import convert
     from diffassemble_tpu_torch.data import expander_mask
+    from diffassemble_tpu_torch.models import Diffusion2D
     from diffassemble_tpu_torch.train.heldout import heldout_eval
 
     start = time.perf_counter()
@@ -1503,6 +1541,52 @@ def accuracy() -> tuple[dict[str, int], dict[str, dict[str, int]], dict]:
         result["ungated"][label] = {"piece_acc": m["overall__piece_acc"], "puzzle_acc": m["overall_acc"]}
         phase(f"held-out accuracy (ungated), {label}: piece_acc {m['overall__piece_acc']!r}, "
               f"puzzle_acc {m['overall_acc']!r}")
+
+    # float32: the same weights, puzzles and expander candidate, every forward on the f32 tensor-core kernel
+    del model
+    torch.cuda.empty_cache()
+    f32 = Diffusion2D(dataclasses.replace(cfg, compute_dtype="float32"), device="cuda")
+    f32.load_state_dict(convert.load_jax_npz(ASSET)[0], strict=True)
+    f32_calls, f32_sample = [], f32.sample
+
+    def f32_timed_sample(*args, **kwargs):
+        """``f32.sample`` timed by CUDA events and the host clock, its launches held to ``per_call``."""
+        before_call = read_routes()
+        host = time.perf_counter()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = f32_sample(*args, **kwargs)
+        ev[1].record()
+        torch.cuda.synchronize()
+        f32_calls.append({"puzzles": args[0].patches.shape[0], "ms": ev[0].elapsed_time(ev[1]),
+                          "host_s": time.perf_counter() - host})
+        f32_forward_launches(before_call, per_call, "f32 held-out call")
+        return out
+
+    f32.sample = f32_timed_sample
+    cand = candidates[int(nearest.split()[-1])]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before, before_routes = read_counts(), read_routes()
+    m = heldout_eval(f32, data._replace(adj=cand), rot_k, eval_n=EVAL_N)
+    f32_counts = {k: v - before[k] for k, v in read_counts().items()}
+    f32_routes = routes_since(before_routes)
+    f32_peak = torch.cuda.max_memory_allocated()
+    bf16_acc = by_graph[nearest]["piece_acc"]
+    f32_gap = abs(m["overall__piece_acc"] - bf16_acc)
+    for c in f32_calls:
+        phase(f"held-out call of {c['puzzles']} puzzles, f32: {c['ms']:.2f} ms (CUDA events), {c['host_s']:.3f} s host; "
+              f"{per_call} forward launches, all masked_attention_fwd_tc_f32 on the tensor cores")
+    phase(f"held-out accuracy, f32, {nearest}: piece_acc {m['overall__piece_acc']!r} against bf16's {bf16_acc!r} "
+          f"(gap {f32_gap:.5f}, tolerance {PIECE_ACC_TOL}), puzzle_acc {m['overall_acc']!r}; launches {f32_counts}; "
+          f"max_memory_allocated {f32_peak / 2**30:.2f} GiB")
+    if f32_counts != launches_of(fwd=n_calls * per_call) or len(f32_calls) != n_calls \
+            or m["overall_nImages"] != EVAL_TOTAL or not f32_gap <= PIECE_ACC_TOL:
+        raise AssertionError(f"f32 held-out eval: piece_acc {m['overall__piece_acc']} against bf16's {bf16_acc}, "
+                             f"launches {f32_counts} in {len(f32_calls)} calls")
+    result["float32"] = {"piece_acc": m["overall__piece_acc"], "puzzle_acc": m["overall_acc"],
+                         "bf16_piece_acc": bf16_acc, "expander": nearest, "calls": f32_calls,
+                         "max_memory_allocated": f32_peak, "launches": f32_counts, "routes": f32_routes}
     return counts, routes, result
 
 
@@ -1893,8 +1977,7 @@ def mixed_loss_card_vs_cpu(corpus: Path) -> dict[str, float]:
 
 def mixed_kernels(corpus: Path, max_err: dict[str, float]) -> list[dict]:
     """The three kernels on the mixed corpus's masks: against their plain
-    versions (bf16 on the tensor cores; f32: the backward pair on the tensor
-    cores, the forward on the CUDA cores; at Dh 32 and 144, the same
+    versions (on the tensor cores in bf16 and f32; at Dh 32 and 144, the same
     tolerances and exact zeros as every other mask), then timed in both
     types (``time_on_masks``)."""
     import torch
@@ -1921,7 +2004,8 @@ def time_on_masks(mask, label: str, widths, gen, heads: int = HEADS, dtype: str 
     backward its route takes, dQ and dK/dV or the fused kernel. A fused row,
     and a float32 dQ or dK/dV row on the tensor cores, carries the CUDA-core
     dQ + dK/dV pair on the same inputs (``cuda_core_pair_ms``), and a
-    small-graph forward row the CUDA-core forward (``cuda_core_fwd_ms``). One
+    small-graph forward row, or a float32 forward row on the tensor cores, the
+    CUDA-core forward (``cuda_core_fwd_ms``). One
     row a kernel and width, with the C function its route launches
     (``cuda_attention.c_function``); the caller adds its launches
     (``attach_launches_2d``)."""
@@ -1974,7 +2058,7 @@ def time_on_masks(mask, label: str, widths, gen, heads: int = HEADS, dtype: str 
             phase(f"timing {function:31s} B={b} N={n} H={heads} Dh={dh:3d} {short} {route:12s} ({label}): kernel "
                   f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
                   f"bound {bound:.6f} ms ({bound_by})")
-        if here[0]["route"] == "small_graph":
+        if here[0]["route"] == "small_graph" or dtype == "float32":
             _beside_cuda_core_fwd(here[0], q, k, v, mask, heads, label)
         pair = here[1]["ms"] + (0.0 if fused else here[2]["ms"])
         if fused or dtype == "float32":
@@ -1992,10 +2076,6 @@ def time_on_masks(mask, label: str, widths, gen, heads: int = HEADS, dtype: str 
               f"{pair / lib_bwd:.2f}x; {pair / bound:.1f}x the bound"
               + (f" (reads over {edges[0]} query rows with an edge and {edges[1]} attended keys of B·N = {b * n})"
                  if fused else ""))
-        if here[0]["route"] == "cuda_cores":
-            phase(f"timing forward, CUDA cores    B={b} N={n} H={heads} Dh={dh:3d} {short}: {here[0]['ms']:.4f} ms "
-                  f"against one SDPA forward {lib_fwd:.4f} ms: {here[0]['ms'] / lib_fwd:.2f}x; "
-                  f"{here[0]['ms'] / here[0]['bound_ms']:.1f}x the bound")
         rows += here
         del out_t, qt, kt, vt
     return rows
@@ -2040,13 +2120,13 @@ def cuda_core_pair_ms(q, k, v, mask, dout, o, lse) -> dict[str, float]:
 
 
 def cuda_core_fwd_ms(q, k, v, mask) -> float:
-    """The CUDA-core forward (``csrc/masked_attention_fwd.cu``) on a small
-    graph's inputs through the library's C entry point, uncounted (the
-    wrapper gives a graph of at most ``SMALL_GRAPH_N`` nodes off the tensor
-    cores to the small-graph forward): timed after its O and L are held to
-    the plain version within phase 3's tolerances (exact zeros and L on the
-    rows with no edges). Its time beside the small-graph forward's comes
-    from one run."""
+    """The CUDA-core forward (``csrc/masked_attention_fwd.cu``) through the
+    library's C entry point, uncounted, on inputs the wrappers give another
+    kernel: a small graph's (at most ``SMALL_GRAPH_N`` nodes off the tensor
+    cores: the small-graph forward) and f32 inputs at the main widths (the
+    tensor cores, 3xTF32). Timed after its O and L are held to the plain
+    version within phase 3's tolerances (exact zeros and L on the rows with
+    no edges). Its time beside the other kernel's comes from one run."""
     import torch
 
     from diffassemble_tpu_torch.ops import cuda_attention as ca
@@ -2077,16 +2157,17 @@ def cuda_core_fwd_ms(q, k, v, mask) -> float:
 
 
 def _beside_cuda_core_fwd(row: dict, q, k, v, mask, heads: int, label: str) -> None:
-    """A small-graph forward row gets the CUDA-core forward it replaced, timed
-    on the same inputs (``cuda_core_fwd_ms``), and a line that sets the two
-    beside SDPA and the bound."""
+    """A small-graph or float32 tensor-core forward row gets the CUDA-core
+    forward it replaced, timed on the same inputs (``cuda_core_fwd_ms``), and
+    a line that sets the two beside SDPA and the bound."""
     row["cuda_core_fwd_ms"] = old = cuda_core_fwd_ms(q, k, v, mask)
     b, n, dh = row["b"], row["n"], row["dh"]
-    phase(f"timing small-graph forward    B={b} N={n} H={heads} Dh={dh:3d} bf16 small_graph : "
+    reads = (f"reads over {row['edges'][0]} query rows with an edge and {row['edges'][1]} attended keys of "
+             f"B·N = {b * n}; " if "edges" in row else "")
+    phase(f"timing {row['function']:31s} B={b} N={n} H={heads} Dh={dh:3d} {row['dtype']} {row['route']}: "
           f"{row['ms']:.4f} ms against the CUDA-core forward {old:.4f} ms: {old / row['ms']:.2f}x faster; against "
           f"SDPA {row['library_ms']:.4f} ms: {row['ms'] / row['library_ms']:.2f}x; {row['ms'] / row['bound_ms']:.1f}x "
-          f"its bound (reads over {row['edges'][0]} query rows with an edge and {row['edges'][1]} attended keys "
-          f"of B·N = {b * n}; {label})")
+          f"its bound ({reads}{label})")
 
 
 def ddp_world_of_one() -> tuple[dict[str, int], dict[str, dict[str, int]]]:
@@ -2160,12 +2241,12 @@ def kernels_3d(protocol: dict, heads: int, widths: tuple[int, int], max_err: dic
     return time_forward_on_mask(mask, label, heads, widths, gen)
 
 
-def time_forward_on_mask(mask, label: str, heads: int, widths, gen) -> list[dict]:
-    """The forward kernel timed on ``mask`` at each head width in bf16,
+def time_forward_on_mask(mask, label: str, heads: int, widths, gen, dtype: str = "bfloat16") -> list[dict]:
+    """The forward kernel timed on ``mask`` at each head width in ``dtype``,
     beside its plain version, the bound over the mask's attended pairs (the
     small-graph forward's reads over its rows with an edge) and
     ``scaled_dot_product_attention`` with the same boolean mask, a
-    small-graph row also beside the CUDA-core forward it replaced
+    small-graph or float32 row also beside the CUDA-core forward it replaced
     (``cuda_core_fwd_ms``): one row a width; the caller adds its launches."""
     import torch
 
@@ -2176,8 +2257,9 @@ def time_forward_on_mask(mask, label: str, heads: int, widths, gen) -> list[dict
     edges = (int(mask.any(-1).sum()), int(mask.any(-2).sum()))
     rows = []
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    dt = getattr(torch, dtype)
     for dh in widths:
-        q, k, v = (torch.randn((b, n, heads, dh), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
+        q, k, v = (torch.randn((b, n, heads, dh), generator=gen, device="cuda").to(dt) for _ in range(3))
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         with torch.no_grad():
             library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask[:, None]))
@@ -2185,17 +2267,17 @@ def time_forward_on_mask(mask, label: str, heads: int, widths, gen) -> list[dict
         plain_ms = cuda_ms(lambda: ca.masked_attention_fwd_plain(q, k, v, mask))
         route = ca.route("masked_attention_fwd", q, k, v, mask)
         small = route == "small_graph"
-        bound, bound_by = bound_ms(FWD_SMALL if small else "masked_attention_fwd", b, n, heads, dh, 2, pairs=pairs,
-                                   edges=edges)
+        bound, bound_by = bound_ms(FWD_SMALL if small else "masked_attention_fwd", b, n, heads, dh, q.element_size(),
+                                   pairs=pairs, edges=edges)
         rows.append({"kernel": "masked_attention_fwd",
                      "function": ca.c_function("masked_attention_fwd", route, q.dtype), "b": b, "n": n, "h": heads,
-                     "dh": dh, "dtype": "bfloat16", "route": route, "main_path": True, "mask": label, "ms": ms,
+                     "dh": dh, "dtype": dtype, "route": route, "main_path": True, "mask": label, "ms": ms,
                      "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound, "bound_by": bound_by,
                      **({"edges": list(edges)} if small else {})})
-        phase(f"timing masked_attention_fwd      B={b} N={n} H={heads} Dh={dh:3d} bf16 {route:12s} ({label}): "
+        phase(f"timing masked_attention_fwd      B={b} N={n} H={heads} Dh={dh:3d} {dtype} {route:12s} ({label}): "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
               f"bound {bound:.6f} ms ({bound_by})")
-        if small:
+        if small or dt == torch.float32:
             _beside_cuda_core_fwd(rows[-1], q, k, v, mask, heads, label)
     return rows
 
@@ -3188,9 +3270,8 @@ def discrete_masks():
 
 def kernels_discrete_masks(max_err: dict[str, float]) -> list[dict]:
     """The three kernels against their plain versions on the discrete
-    protocol's masks (bf16 on the tensor cores; f32: the backward pair on the
-    tensor cores, the forward on the CUDA cores; Dh 32 and 144, exact zeros),
-    then timed there in both types (``time_on_masks``)."""
+    protocol's masks (on the tensor cores in bf16 and f32; Dh 32 and 144,
+    exact zeros), then timed there in both types (``time_on_masks``)."""
     import torch
 
     label, mask = discrete_masks()
@@ -3287,9 +3368,10 @@ def angle_sample() -> tuple[dict[str, int], dict[str, dict[str, int]], dict]:
     """The fourteenth main path: a seeded 6×6 ``AngleDiffusion2D`` sample
     (rot_ms's widths and encoder, DDIM from unit noise drawn on the CPU).
     First in f32, card against CPU within the 6×6 sample phase's 1e-3 (a
-    comparison: its launches, on the CUDA cores as f32 asks, do not count);
-    then in bf16 with the counts from 0: 120 forward launches on the tensor
-    cores, no backward, a finite (1, 36, 4) result."""
+    comparison, its launches not counted on this path: 120, each
+    ``masked_attention_fwd_tc_f32``); then in bf16 with the counts from 0:
+    120 forward launches on the tensor cores, no backward, a finite (1, 36,
+    4) result."""
     import dataclasses
 
     import numpy as np
@@ -3300,10 +3382,14 @@ def angle_sample() -> tuple[dict[str, int], dict[str, dict[str, int]], dict]:
     base = dataclasses.asdict(mixed_config())
     cfg = AngleDiffusion2DConfig(**{**base, "compute_dtype": "float32", "noise_weight": 0.0})
     small = seeded_puzzles(6, 1, True, np.random.default_rng(7))
-    finals = [AngleDiffusion2D(cfg, device=device, seed=0).sample(small.to(device)).final.cpu()
-              for device in ("cpu", "cuda")]
+    finals = [AngleDiffusion2D(cfg, device="cpu", seed=0).sample(small.to("cpu")).final]
+    before_routes = read_routes()
+    finals.append(AngleDiffusion2D(cfg, device="cuda", seed=0).sample(small.to("cuda")).final.cpu())
+    launched = f32_forward_launches(before_routes, cfg.n_layers * (cfg.steps // cfg.inference_ratio),
+                                    "angle sample f32")
     err = (finals[1] - finals[0]).abs().max().item()
-    phase(f"angle model: 6x6 sample f32, card vs CPU: max|d|={err:.3e} (tol 1e-3), final {tuple(finals[1].shape)}")
+    phase(f"angle model: 6x6 sample f32, card vs CPU: max|d|={err:.3e} (tol 1e-3), final {tuple(finals[1].shape)}; "
+          f"{launched}")
     if not (torch.isfinite(finals[1]).all() and finals[1].shape == (1, 36, 4) and err <= 1e-3):
         raise AssertionError("the angle model's sample on the card disagrees with the CPU's")
 
@@ -3344,8 +3430,8 @@ def serve_masks():
 
 def kernels_serve_masks(max_err: dict[str, float]) -> list[dict]:
     """The forward kernel against its plain version on a 6×6 request's mask
-    (``serve_masks``) at Dh 32 and 144, bf16 on the tensor cores and f32 on
-    the CUDA cores, then timed there in bf16 (``time_forward_on_mask``)."""
+    (``serve_masks``) at Dh 32 and 144 on the tensor cores, bf16 and f32,
+    then timed there in bf16 (``time_forward_on_mask``)."""
     import torch
 
     label, mask = serve_masks()
@@ -3478,23 +3564,23 @@ def _to_f32(x64, rounding: str):
     return y
 
 
-def _mma_chain(eq: str, a, ax_a: int, b, ax_b: int, model: str):
-    """Σ_k a·b over the steps ``masked_attention_bwd_tc_f32.cu`` takes: 8-wide
-    k-steps in order, each the three m16n8k8 products of the operands' TF32
-    halves (lo·hi, hi·lo, hi·hi), each product's 8 terms summed exactly (f64).
-    ``model`` says how they reach the f32 sum: ``"rn"`` or ``"rz"``, each
-    product added by the tensor cores to the running sum, rounded to nearest
-    or toward zero; ``"rz3+rn"``, the three products of a step into a zeroed
-    accumulator toward zero, then added to the running sum by an f32 add, to
-    nearest (what a kernel that keeps its sums outside the tensor cores'
-    accumulator would give)."""
+def _mma_chain(eq: str, a, ax_a: int, b, ax_b: int, model: str, acc=None):
+    """``acc`` (f32, None for 0) + Σ_k a·b over the steps the f32 tensor-core
+    kernels take: 8-wide k-steps in order, each the three m16n8k8 products of
+    the operands' TF32 halves (lo·hi, hi·lo, hi·hi), each product's 8 terms
+    summed exactly (f64). ``model`` says how they reach the f32 sum: ``"rn"``
+    or ``"rz"``, each product added by the tensor cores to the running sum,
+    rounded to nearest or toward zero; ``"rz3+rn"``, the three products of a
+    step into a zeroed accumulator toward zero, then added to the running sum
+    by an f32 add, to nearest (what a kernel that keeps its sums outside the
+    tensor cores' accumulator would give)."""
     import torch
 
     a_hi = _tf32(a)
     b_hi = _tf32(b)
     halves = [(_tf32(a - a_hi).double(), b_hi.double()), (a_hi.double(), _tf32(b - b_hi).double()),
               (a_hi.double(), b_hi.double())]
-    k, acc = a.shape[ax_a], None
+    k = a.shape[ax_a]
     each = "rz" if model == "rz3+rn" else model
     for k0 in range(0, k, 8):
         w = min(8, k - k0)
@@ -3537,19 +3623,62 @@ def _emulate_f32_pair(q, k, v, mask, dout, lse, delta, model: str):
     return dq, dk, dv
 
 
+FWD_F32_KEY_TILE = {32: 64, 144: 16}  # key_tile(DH) in csrc/masked_attention_fwd_tc_f32.cu
+
+
+def _emulate_f32_fwd(q, k, v, mask, model: str):
+    """O and L as the f32 tensor-core forward computes them, its products
+    accumulated by ``model``: ``"rn"``, ``"rz"`` or ``"rz3+rn"`` as
+    ``_mma_chain`` (S and P·V alike, O rescaled by alpha with an f32 multiply
+    and each key tile's products added to it: a kernel that kept O in the
+    tensor cores' accumulator), or ``"tile"``, the kernel's: S toward zero
+    (rz), each key tile's P·V into a zeroed accumulator toward zero, joined
+    to O by an FFMA to nearest, O ← alpha·O + tile. The online softmax over
+    the kernel's key tiles in f32, S scaled after its sum, a masked entry
+    never exponentiated."""
+    import torch
+
+    key_tile = FWD_F32_KEY_TILE[q.shape[-1]]
+    scale = torch.tensor(1.0 / math.sqrt(q.shape[-1]), dtype=torch.float32).item()
+    s = _mma_chain("bnhd,bmhd->bhnm", q, 3, k, 3, "rz" if model == "tile" else model) * scale
+    edges = mask.bool()[:, None]
+    b, h, n, _ = s.shape
+    m = torch.full((b, h, n), -1e9, device=q.device)
+    l = torch.zeros((b, h, n), device=q.device)
+    acc = None
+    for k0 in range(0, n, key_tile):
+        st, et, vt = s[..., k0:k0 + key_tile], edges[..., k0:k0 + key_tile], v[:, k0:k0 + key_tile]
+        m_new = torch.maximum(m, torch.where(et, st, -1e9).amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(et, torch.exp(st - m_new[..., None]), 0.0)
+        l = l * alpha + p.sum(-1)
+        if model == "tile":
+            pv = _mma_chain("bhnm,bmhd->bhnd", p, 3, vt, 1, "rz")
+            acc = pv if acc is None else _to_f32(alpha.double()[..., None] * acc.double() + pv.double(), "rn")
+        else:
+            acc = _mma_chain("bhnm,bmhd->bhnd", p, 3, vt, 1, model, None if acc is None else acc * alpha[..., None])
+        m = m_new
+    denom = l.clamp_min(1e-30)
+    return (acc / denom[..., None]).transpose(1, 2), m + torch.log(denom)
+
+
 def f32_rounding() -> None:
-    """Where the f32 tensor-core pair's error against its plain version comes
-    from: at B = 8, N = 908 fully connected (a train step's, the worst case:
-    every key in every sum), H = 8 and a tp rank's 4, Dh 32 and 144, the two
-    kernels' dQ, dK and dV beside emulations of their arithmetic in f64 on the
-    card (``_emulate_f32_pair``: the same TF32 halves and m16n8k8 steps in the
-    same order), whose products reach the f32 accumulator rounded to nearest
-    (rn) or toward zero (rz) at each product, or toward zero within a step and
-    to nearest across steps (rz3+rn). For each output: the worst error over
-    the f32 gate's tolerance (1e-5 relative plus 1e-5 of max|ref|, ref the
-    plain version) of the kernel and of each emulation, and the largest
-    |kernel − emulation| over the same tolerance; and the two kernels' times
-    (CUDA events, as the timing phase takes them)."""
+    """Where the f32 tensor-core kernels' error against their plain versions
+    comes from: at B = 8, N = 908 fully connected (a train step's, the worst
+    case: every key in every sum), H = 8 and a tp rank's 4, Dh 32 and 144,
+    the kernels' outputs beside emulations of their arithmetic in f64 on the
+    card (the same TF32 halves and m16n8k8 steps in the same order): the
+    forward's O (``_emulate_f32_fwd``), whose products reach the f32
+    accumulator rounded to nearest (rn) or toward zero (rz) at each product,
+    or toward zero within a step and to nearest across steps (rz3+rn), or as
+    the kernel sums them, each key tile's P·V toward zero and the tiles to
+    nearest (tile); and the pair's dQ, dK and dV (``_emulate_f32_pair``: rn,
+    rz, rz3+rn). For each output: the worst error over the f32 gate's
+    tolerance (the forward's 1e-5 relative plus 1e-5 of max|v|, the pair's
+    1e-5 relative plus 1e-5 of max|ref|, ref the plain version) of the kernel
+    and of each emulation, and the largest |kernel − emulation| over the same
+    tolerance; and the kernels' times (CUDA events, as the timing phase takes
+    them)."""
     import torch
 
     from diffassemble_tpu_torch.ops import cuda_attention as ca
@@ -3560,7 +3689,25 @@ def f32_rounding() -> None:
             mask = torch.ones((TRAIN_BATCH, N_NODES, N_NODES), dtype=torch.bool, device="cuda")
             q, k, v, dout = (torch.randn((TRAIN_BATCH, N_NODES, heads, dh), generator=gen, device="cuda")
                              for _ in range(4))
+            if ca.route("masked_attention_fwd", q, k, v, mask) != "tensor_cores":
+                raise AssertionError(f"f32 forward off the tensor cores at H={heads} Dh={dh}")
             o, lse = ca.masked_attention_fwd(q, k, v, mask)
+            o_p = ca.masked_attention_fwd_plain(q, k, v, mask)[0]
+            phase(f"f32 rounding: B={TRAIN_BATCH} N={N_NODES} H={heads} Dh={dh} kernel forward "
+                  f"{cuda_ms(lambda: ca.masked_attention_fwd(q, k, v, mask)):.4f} ms")
+            tol = 1e-5 * o_p.abs() + 1e-5 * v.abs().max()
+            emus = {}
+            for model in ("rn", "rz", "rz3+rn", "tile"):
+                emus[model], _ = _emulate_f32_fwd(q, k, v, mask, model)
+            worst = {"kernel": ((o - o_p).abs() / tol).max().item()}
+            worst.update({m: ((e - o_p).abs() / tol).max().item() for m, e in emus.items()})
+            apart = {m: ((o - e).abs() / tol).max().item() for m, e in emus.items()}
+            equal = {m: (o == e).float().mean().item() for m, e in emus.items()}
+            phase(f"f32 rounding: O H={heads} Dh={dh:3d} worst err/tol against the plain version "
+                  f"{ {m: round(x, 4) for m, x in worst.items()} }; kernel apart from each emulation, "
+                  f"max |kernel - emulation|/tol {({m: round(x, 4) for m, x in apart.items()})}, share "
+                  f"bit-equal {({m: round(x, 4) for m, x in equal.items()})}")
+            del emus, o_p, tol
             args = (q, k, v, mask, dout, lse, ca.attention_delta(dout, o))
             if {ca.route(name, *args) for name in ca.BACKWARD_PAIR} != {"tensor_cores"}:
                 raise AssertionError(f"f32 pair off the tensor cores at H={heads} Dh={dh}")
@@ -4474,9 +4621,9 @@ def _check_step_launches(label: str, recs: list[dict], routes: dict[str, dict[st
 def timing_tp(max_err: dict[str, float]) -> list[dict]:
     """The three kernels at a tp rank's shapes (H = HEADS / TP, N = 908,
     fully connected, B = 1 as a request's and 8 as a train step's, Dh 32 and
-    144): each held against its plain version in bf16 (the tensor cores) and
-    f32 (the forward on the CUDA cores, dQ and dK/dV on the tensor cores, as
-    the f32 steps launch them; ``_check_kernels``, updating ``max_err``),
+    144): each held against its plain version in bf16 and f32, on the
+    tensor cores as the steps launch them (``_check_kernels``, updating
+    ``max_err``),
     then timed in bf16: the forward at B = 1 and all three at B = 8, each on
     the tensor cores, beside their plain versions, their bound and SDPA
     (``time_forward_on_mask``, ``time_on_masks``); and in f32 at B = 8."""
@@ -4558,9 +4705,8 @@ def tensor_parallel(workdir: Path, max_err: dict[str, float]) -> tuple[dict[str,
       heads, each rank 4 of them; 8 virtual nodes, hidden 256, N = 908, the
       flagship's encoder_init): (a) one Trainer step at batch 8 over the 10%
       expander in f32 against the single-process step on the card
-      (``parallel/dryrun.py:GRAD_TOL``; 4 + 4 + 4 launches a rank, the
-      forward on the CUDA cores and dQ and dK/dV on the tensor cores, as
-      f32 takes them), then in bf16 against the bf16 step (its
+      (``parallel/dryrun.py:GRAD_TOL``; 4 + 4 + 4 launches a rank, all on
+      the tensor cores, 3xTF32), then in bf16 against the bf16 step (its
       loss, gradient norms and gradients within ``TP_BF16_TOL``; 4 + 4 + 4 on
       the tensor cores), the ranks' whole parameters equal after each and
       equal to the single-process optimizer's update on the rank's
@@ -4622,8 +4768,7 @@ def tensor_parallel(workdir: Path, max_err: dict[str, float]) -> tuple[dict[str,
           f"request {ref['request']['ms']:.2f} ms, held-out call {ref['heldout']['calls'][0]['ms']:.2f} ms, "
           f"piece_acc {ref['heldout']['piece_acc']!r}; peak {ref['float32']['max_memory_allocated'] / 2**30:.2f} / "
           f"{ref['bfloat16']['max_memory_allocated'] / 2**30:.2f} GiB)")
-    # the one-process flagship steps at batch 8: f32 with the backward pair on the tensor cores (3xTF32) and
-    # the forward on the CUDA cores, bf16 all on the tensor cores
+    # the one-process flagship steps at batch 8, all on the tensor cores (f32: 3xTF32)
     paths = {}
     one = {"float32": f32_step_routes_2d(), "bfloat16": {k: on_routes(tensor_cores=n)
                                                          for k, n in launches_of(4, 4, 4).items()}}
@@ -4715,9 +4860,8 @@ def tensor_parallel(workdir: Path, max_err: dict[str, float]) -> tuple[dict[str,
                                                 "one_process_calls": ref["heldout"]["calls"]})
 
     ranks, seconds = run_tp_ranks("dptp_steps", 2 * TP, workdir)
-    # f32 steps: the 2D step's 4 + 4 + 4 launches (N = 908), the forward on the CUDA cores and dQ and
-    # dK/dV on the tensor cores; the 3D step's 8 forward and 8 backward launches on the small-graph
-    # route (N = 8)
+    # f32 steps: the 2D step's 4 + 4 + 4 launches (N = 908), all on the tensor cores; the 3D step's 8
+    # forward and 8 backward launches on the small-graph route (N = 8)
     for family, routes in (("2d", f32_step_routes_2d()), ("3d", step_routes_3d(2, 4, "float32"))):
         recs = [r[family] for r in ranks]
         tol = GRAD_TOL["efficientnet_b0"] if family == "2d" else (DPTP_3D_GRAD_REL, *GRAD_TOL["3d"][1:])
@@ -4764,16 +4908,18 @@ def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, t
     CUDA-core pair it replaced on the same inputs; the small-graph forward's
     per 3D held-out call of the easy checkpoint (its launches at Dh 264 on
     the protocol's first call, N = 8), beside the CUDA-core forward it
-    replaced. The f32 tensor-core dQ's and dK/dV's figures are per f32 train
-    step of the flagship (B = 8, H = 8, N = 908, fully connected) beside the
-    CUDA-core pair on the same inputs. Each entry's launches are those of its
+    replaced. The f32 tensor-core forward's, dQ's and dK/dV's figures are per
+    f32 train step of the flagship (B = 8, H = 8, N = 908, fully connected)
+    beside the CUDA-core kernel on the same inputs. Each entry's launches are those of its
     C functions (``LINE_ENTRIES``), as the wrappers counted them by the
     function they launched; an entry that no main path launched fails."""
     from diffassemble_tpu_torch import REFERENCE_PACKAGE
     from diffassemble_tpu_torch.ops import cuda_attention
 
     cli3d = (eval3d_[2]["cli_launches"], eval3d_[2]["cli_routes"])
-    paths = {"serve": serve, "train": train, "heldout_eval": heldout, "recipe": recipe_, "mixed": mixed_,
+    f32_eval = (heldout[2]["float32"]["launches"], heldout[2]["float32"]["routes"])
+    paths = {"serve": serve, "train": train, "heldout_eval": heldout, "heldout_eval_f32": f32_eval,
+             "recipe": recipe_, "mixed": mixed_,
              "ddp": ddp, "eval3d_cli": cli3d, "eval3d_heldout": eval3d_, "train3d": train3d_,
              **{f"eval3d_{name}_cli": (v[2]["cli_launches"], v[2]["cli_routes"]) for name, v in e_more.items()},
              **{f"eval3d_{name}": v for name, v in e_more.items()},
@@ -4812,20 +4958,23 @@ def kernel_line(errs: dict, rows: list[dict], sweep: list[dict], serve: tuple, t
                      f"{'/'.join(str(r['dh']) for r in rs)}, B={rs[0]['b']}, H={HEADS}, N={rs[0]['n']}, bf16, "
                      f"route small_graph; cuda_core_pair_ms: the dQ + dK/dV pair it replaced, same inputs")
         else:
-            # the forward's figures are per denoiser step at the serving shapes (B = 1); the backward
-            # kernels' per train step (B = 8), the f32 ones' per f32 train step
-            b = 1 if kernel == "masked_attention_fwd" else TRAIN_BATCH
+            # the bf16 forward's figures are per denoiser step at the serving shapes (B = 1); the bf16
+            # backward kernels' per train step (B = 8), the f32 ones' per f32 train step
+            b = 1 if name == "masked_attention_fwd" else TRAIN_BATCH
             per = [(r, r["launches_per_step"]) for r in rows
                    if r["function"] == main and r["b"] == b and r["n"] == N_NODES and r["main_path"]]
             tp = [r for r in rows if r.get("tensor_parallel") and r["function"] == main and r["b"] == b]
             keys = ["ms", "plain_ms", "library_ms", "bound_ms"]
-            more = {} if b == 1 else {"library_computes": "dQ, dK and dV in one SDPA backward, the same call in "
-                                                          "both backward rows: set it against the sum of their ms"}
+            more = {} if kernel == "masked_attention_fwd" else {
+                "library_computes": "dQ, dK and dV in one SDPA backward, the same call in both backward rows: set "
+                                    "it against the sum of their ms"}
             what = f"{'denoiser step' if b == 1 else 'train step'}, {per[0][0]['dtype']}"
-            if "cuda_core_pair_ms" in per[0][0]:  # the f32 tensor-core pair: the CUDA-core kernel beside it
-                ms_key = "dq_ms" if kernel == "masked_attention_bwd_dq" else "dkv_ms"
+            if "cuda_core_pair_ms" in per[0][0] or "cuda_core_fwd_ms" in per[0][0]:
+                # an f32 tensor-core kernel: the CUDA-core kernel on the same inputs beside it
                 for r in (*(r for r, _ in per), *tp):
-                    r["cuda_core_ms"] = r["cuda_core_pair_ms"][ms_key]
+                    r["cuda_core_ms"] = (r["cuda_core_fwd_ms"] if kernel == "masked_attention_fwd" else
+                                         r["cuda_core_pair_ms"]["dq_ms" if kernel == "masked_attention_bwd_dq"
+                                                                else "dkv_ms"])
                 keys.append("cuda_core_ms")
                 more["cuda_core_ms"] = sum(r["cuda_core_ms"] * c for r, c in per)
             about = (f"one {what}: 3 launches at Dh=32 and 1 at Dh=144, B={b}, H={HEADS}, N={N_NODES}, route "
@@ -4885,7 +5034,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
     ap.add_argument("--only", choices=["tensor_parallel", "f32_rounding"],
                     help="instead of the smoke run, build the kernels and run phase 22 alone, or read the f32 "
-                         "tensor-core pair's error against emulations of its rounding (f32_rounding)")
+                         "tensor-core kernels' error against emulations of their rounding (f32_rounding)")
     ap.add_argument("--profile", nargs="?", const="serve",
                     choices=["serve", "train", "eval", "train-device", "eval3d", "train3d"],
                     help="instead of the smoke run, profile one serving request (default), one train step, "
@@ -4956,7 +5105,9 @@ def main() -> None:
     def cli(result):
         return result["cli_launches"], result["cli_routes"]
 
-    paths = {"serve": serve[:2], "train": train[:2], "held-out eval": heldout[:2], "recipe": rec[:2],
+    f32_eval = heldout[2]["float32"]
+    paths = {"serve": serve[:2], "train": train[:2], "held-out eval": heldout[:2],
+             "held-out eval f32": (f32_eval["launches"], f32_eval["routes"]), "recipe": rec[:2],
              "mixed": mix[:2], "ddp": ddp[:2], "3D run_3d --evaluate": cli(e3d[2]),
              "3D held-out": e3d[:2], "3D train": t3d[:2],
              **{f"3D {name} run_3d --evaluate": cli(v[2]) for name, v in e_more.items()},
@@ -4965,7 +5116,7 @@ def main() -> None:
              **{name: v[:2] for name, v in more_2d.items()}, **{name: v[:2] for name, v in rest.items()},
              **{name: v[:2] for name, v in tp_paths.items()}}
     # these launch the forward kernel alone
-    sampling_only = {"serve", "held-out eval", "3D run_3d --evaluate", "3D held-out", "rot_ms_heldout",
+    sampling_only = {"serve", "held-out eval", "held-out eval f32", "3D run_3d --evaluate", "3D held-out", "rot_ms_heldout",
                      "discrete_heldout", "serve_norm_stats", "angle_sample", "evaluate_rot30",
                      "evaluate_rot30_recipe_images", "evaluate_rot_ms", "evaluate_rot_ms_protocol_sizes",
                      "export_meshes_3d", "tp_request", "tp_heldout",

@@ -361,16 +361,6 @@ masked_attention_bwd_dkv_tc_f32_kernel(const float* __restrict__ q, const float*
   }
 }
 
-// Above 48 KB of dynamic shared memory, and the carveout that lets two
-// 115 KB blocks share an SM.
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, int bytes) {
-  const cudaError_t err = allow_smem(kernel, bytes);
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                              cudaSharedmemCarveoutMaxShared);
-}
-
 template <int DH>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* mask,
                       const void* dout, const void* lse, const void* delta, void* dq, int batch,

@@ -15,8 +15,8 @@
 // row starts 16-byte aligned: the caller checks the base pointers); the mask
 // is (B, N, N) int8 (or bool bytes), shared across heads; L is (B, H, N) f32.
 // Instantiated at Dh 32 and 144, the main paths' widths (the kernel is a
-// template on the width, any multiple of 16); float32 and other widths take
-// the CUDA-core route.
+// template on the width, any multiple of 16); float32 takes
+// masked_attention_fwd_tc_f32.cu there, other widths the CUDA-core route.
 //
 // What bounds it on an H100: at the main paths' shapes (B = 1 or 8, H = 8,
 // N = 908) it does 4·B·H·N²·Dh operations against 2 bytes·4·B·N·H·Dh + B·N²
@@ -68,31 +68,6 @@ template <int DH, int WARPS>
 constexpr int smem_bytes() {
   return (16 * WARPS + 2 * 2 * key_tile(DH)) * (DH + kPad) * 2 +
          2 * 16 * WARPS * (key_tile(DH) + kMaskPad);
-}
-
-// The (query rows [q0, q0 + BM) × keys [k0, k0 + BN)) block of one graph's
-// mask into shared memory (row stride BN + kMaskPad): by 4-byte cp.async when
-// every mask row starts 4-byte aligned, else by byte loads; entries past n
-// are 0.
-template <int BM, int BN, int THREADS>
-__device__ __forceinline__ void load_mask(int8_t* dst, const int8_t* __restrict__ mask_b, int q0,
-                                          int k0, int n) {
-  constexpr int kLd = BN + kMaskPad;
-  if ((n & 3) == 0) {
-    constexpr int kWords = BN / 4;
-    for (int idx = threadIdx.x; idx < BM * kWords; idx += THREADS) {
-      const int r = idx / kWords, c = 4 * (idx % kWords);
-      const int row = q0 + r, key = k0 + c;
-      const bool valid = row < n && key < n;  // a word is wholly in or out: n % 4 == 0
-      cp_async4(dst + r * kLd + c, mask_b + (valid ? (size_t)row * n + key : 0), valid);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < BM * BN; idx += THREADS) {
-      const int r = idx / BN, c = idx % BN;
-      const int row = q0 + r, key = k0 + c;
-      dst[r * kLd + c] = (row < n && key < n) ? mask_b[(size_t)row * n + key] : (int8_t)0;
-    }
-  }
 }
 
 template <int DH, int WARPS>

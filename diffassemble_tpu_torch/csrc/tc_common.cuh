@@ -1,11 +1,13 @@
 // Device helpers shared by the tensor-core attention kernels
 // (masked_attention_fwd_tc.cu, masked_attention_bwd_tc.cu,
-// masked_attention_bwd_tc_f32.cu): asynchronous copies, ldmatrix fragment
-// loads and the mma.sync.m16n8k16 product with bf16 operands and f32
-// accumulators; for float32, the split of an operand into two TF32 halves,
-// 32-bit fragment loads and the mma.sync.m16n8k8 product with TF32 operands
-// (3xTF32). Included by each source, which is built into its own library;
-// ops/cuda_attention.py hashes this header with every source.
+// masked_attention_fwd_tc_f32.cu, masked_attention_bwd_tc_f32.cu):
+// asynchronous copies, the staging of a mask block, ldmatrix fragment loads
+// and the mma.sync.m16n8k16 product with bf16 operands and f32 accumulators;
+// for float32, the split of an operand into two TF32 halves, 32-bit fragment
+// loads and the mma.sync.m16n8k8 product with TF32 operands (3xTF32); the
+// shared-memory opt-in of a launch. Included by each source, which is built
+// into its own library; ops/cuda_attention.py hashes this header with every
+// source.
 
 #pragma once
 
@@ -42,6 +44,31 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The (query rows [q0, q0 + BM) × keys [k0, k0 + BN)) block of one graph's
+// mask into shared memory (row stride BN + kMaskPad): by 4-byte cp.async when
+// every mask row starts 4-byte aligned, else by byte loads; entries past n
+// are 0.
+template <int BM, int BN, int THREADS>
+__device__ __forceinline__ void load_mask(int8_t* dst, const int8_t* __restrict__ mask_b, int q0,
+                                          int k0, int n) {
+  constexpr int kLd = BN + kMaskPad;
+  if ((n & 3) == 0) {
+    constexpr int kWords = BN / 4;
+    for (int idx = threadIdx.x; idx < BM * kWords; idx += THREADS) {
+      const int r = idx / kWords, c = 4 * (idx % kWords);
+      const int row = q0 + r, key = k0 + c;
+      const bool valid = row < n && key < n;  // a word is wholly in or out: n % 4 == 0
+      cp_async4(dst + r * kLd + c, mask_b + (valid ? (size_t)row * n + key : 0), valid);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < BM * BN; idx += THREADS) {
+      const int r = idx / BN, c = idx % BN;
+      const int row = q0 + r, key = k0 + c;
+      dst[r * kLd + c] = (row < n && key < n) ? mask_b[(size_t)row * n + key] : (int8_t)0;
+    }
+  }
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
@@ -247,6 +274,15 @@ template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, int bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// That opt-in, and the carveout that lets two blocks of over 100 KB share an SM.
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, int bytes) {
+  const cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
 }
 
 // A launch's shape out of the grid's range, or a type other than `want`

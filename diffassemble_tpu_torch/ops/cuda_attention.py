@@ -23,12 +23,12 @@ dispatches by type, width, alignment and graph size:
   ``mma.sync`` with bf16 operands and f32 accumulators, for bfloat16 at the
   widths in ``TENSOR_CORE_HEAD_DIMS`` (32 and 144, the main paths'), whose
   base pointers are 16-byte aligned (as every fresh allocation is), at any
-  graph size; and for float32 the backward pair alone
-  (``BACKWARD_PAIR``), ``csrc/masked_attention_bwd_tc_f32.cu``, on
+  graph size; and for float32 ``csrc/masked_attention_fwd_tc_f32.cu`` (the
+  forward) and ``csrc/masked_attention_bwd_tc_f32.cu`` (dQ and dK/dV), on
   ``mma.sync`` with TF32 operands, each product taken three times over the
   operands' hi and lo TF32 halves (3xTF32, about f32 accuracy), at the same
   widths and alignment on graphs of more than ``SMALL_GRAPH_N`` nodes; all
-  three include the device helpers of ``csrc/tc_common.cuh``;
+  four include the device helpers of ``csrc/tc_common.cuh``;
 - the small-graph route (``"small_graph"``), a graph of at most
   ``SMALL_GRAPH_N`` nodes off the tensor-core route, in f32 on the CUDA
   cores, one block holding a head's whole graph: the forward
@@ -40,9 +40,7 @@ dispatches by type, width, alignment and graph size:
   route: ``csrc/masked_attention_fwd.cu`` and ``csrc/masked_attention_bwd.cu``,
   products in f32 on the CUDA cores, templated on the number of 32-column
   slots (1 to 9) and given the width at run time (32 and 144 are also
-  compiled in), for the float32 forward (one TF32 product would not hold
-  its gate; the 3xTF32 forward is ROADMAP Queue 2, K8), every other width,
-  and inputs off a 16-byte boundary.
+  compiled in), for every other width and inputs off a 16-byte boundary.
 
 Every route is a hand-written kernel, held against the same plain versions
 (``masked_attention_bwd_small_plain`` equals the dQ and dK/dV plain versions
@@ -89,6 +87,7 @@ SOURCES = {
     "bwd_small": _PKG / "csrc" / "masked_attention_bwd_small.cu",
     "fwd_small": _PKG / "csrc" / "masked_attention_fwd_small.cu",
     "bwd_tc_f32": _PKG / "csrc" / "masked_attention_bwd_tc_f32.cu",
+    "fwd_tc_f32": _PKG / "csrc" / "masked_attention_fwd_tc_f32.cu",
 }
 HEADERS = tuple(sorted((_PKG / "csrc").glob("*.cuh")))  # included by the sources; part of each hash
 BUILD_DIR = _PKG / "_build"
@@ -100,7 +99,8 @@ REPLACES = {
     "masked_attention_bwd_small": ("ops/pallas_attention.py:94", "ops/pallas_attention.py:121"),
 }
 MAX_HEAD_DIM = 288  # the widest head the kernels take (9 slots of 32 columns)
-# the kernels with a tensor-core route in bfloat16, and its head widths
+# the kernels with a tensor-core route (bfloat16 at any graph size, float32 on
+# more than SMALL_GRAPH_N nodes), and its head widths
 TENSOR_CORE_KERNELS = ("masked_attention_fwd", "masked_attention_bwd_dq", "masked_attention_bwd_dkv")
 ROUTES = ("tensor_cores", "cuda_cores", "small_graph")
 TENSOR_CORE_HEAD_DIMS = (32, 144)
@@ -134,6 +134,7 @@ _SIGNATURES = {  # C function → (library, argtypes)
     "masked_attention_fwd_small": ("fwd_small", [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P]),
     "masked_attention_bwd_dq_tc_f32": ("bwd_tc_f32", [_P] * 8 + [_I] * 5 + [ctypes.c_float, _P]),
     "masked_attention_bwd_dkv_tc_f32": ("bwd_tc_f32", [_P] * 9 + [_I] * 5 + [ctypes.c_float, _P]),
+    "masked_attention_fwd_tc_f32": ("fwd_tc_f32", [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P]),
 }
 
 
@@ -309,18 +310,17 @@ def _check(q, k, v, mask, dout=None, lse=None, delta=None, o=None):
 
 def route(name: str, *tensors: torch.Tensor) -> str:
     """The route kernel ``name`` takes for ``tensors`` (q first):
-    ``"tensor_cores"`` at a width in ``TENSOR_CORE_HEAD_DIMS`` with every
-    base pointer 16-byte aligned, for a kernel in ``TENSOR_CORE_KERNELS`` in
-    bfloat16 (any graph size) and for one of ``BACKWARD_PAIR`` in float32
-    (3xTF32) on more than ``SMALL_GRAPH_N`` nodes; else
-    ``"small_graph"`` for the fused backward, and for the forward and the
-    backward pair (``SMALL_GRAPH_KERNELS``) on at most ``SMALL_GRAPH_N``
-    nodes (the backward pair's is the fused kernel's); else ``"cuda_cores"``
-    (among them the float32 forward on more than ``SMALL_GRAPH_N`` nodes)."""
+    ``"tensor_cores"`` for a kernel in ``TENSOR_CORE_KERNELS`` at a width in
+    ``TENSOR_CORE_HEAD_DIMS`` with every base pointer 16-byte aligned, in
+    bfloat16 (any graph size) and in float32 (3xTF32) on more than
+    ``SMALL_GRAPH_N`` nodes; else ``"small_graph"`` for the fused backward,
+    and for the forward and the backward pair (``SMALL_GRAPH_KERNELS``) on
+    at most ``SMALL_GRAPH_N`` nodes (the backward pair's is the fused
+    kernel's); else ``"cuda_cores"``."""
     q = tensors[0]
-    if q.shape[-1] in TENSOR_CORE_HEAD_DIMS and all(t.data_ptr() % 16 == 0 for t in tensors) and (
-            (name in TENSOR_CORE_KERNELS and q.dtype == torch.bfloat16)
-            or (name in BACKWARD_PAIR and q.dtype == torch.float32 and q.shape[1] > SMALL_GRAPH_N)):
+    if name in TENSOR_CORE_KERNELS and q.shape[-1] in TENSOR_CORE_HEAD_DIMS and (
+            q.dtype == torch.bfloat16 or (q.dtype == torch.float32 and q.shape[1] > SMALL_GRAPH_N)) \
+            and all(t.data_ptr() % 16 == 0 for t in tensors):
         return "tensor_cores"
     if name == "masked_attention_bwd_small" or (name in SMALL_GRAPH_KERNELS and q.shape[1] <= SMALL_GRAPH_N):
         return "small_graph"
@@ -330,7 +330,7 @@ def route(name: str, *tensors: torch.Tensor) -> str:
 def c_function(name: str, way: str, dtype: torch.dtype) -> str:
     """The C function that kernel ``name`` launches on route ``way`` for
     inputs of ``dtype``: on the tensor cores ``*_tc`` (bfloat16) or
-    ``*_tc_f32`` (float32, the backward pair), the forward on the
+    ``*_tc_f32`` (float32), the forward on the
     small-graph route ``masked_attention_fwd_small``, else ``name`` itself."""
     if way == "tensor_cores":
         return name + ("_tc" if dtype == torch.bfloat16 else "_tc_f32")

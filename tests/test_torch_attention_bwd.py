@@ -261,15 +261,14 @@ def test_check_takes_every_head_width_to_288(dh):
 def test_route_is_the_tensor_cores_for_bf16_at_the_main_path_widths():
     """bfloat16 at Dh 32 and 144 with 16-byte aligned inputs takes the
     tensor-core kernels, the forward and the backward pair alike; float32
-    there takes them for the backward pair alone (3xTF32) and the CUDA-core
-    forward (``test_route_in_float32``); other widths and misaligned inputs
-    take the CUDA-core kernels (at N = 40: a backward of at most 32 nodes off
-    the tensor cores is the fused kernel's,
+    there takes them too on more than 32 nodes (3xTF32,
+    ``test_route_in_float32``); other widths and misaligned inputs take the
+    CUDA-core kernels (at N = 40: a backward of at most 32 nodes off the
+    tensor cores is the fused kernel's,
     ``test_torch_attention_small_graph.py``)."""
     for name in ("masked_attention_fwd", "masked_attention_bwd_dq", "masked_attention_bwd_dkv"):
-        f32 = "cuda_cores" if name == "masked_attention_fwd" else "tensor_cores"
         for dh, dtype, want in ((32, torch.bfloat16, "tensor_cores"), (144, torch.bfloat16, "tensor_cores"),
-                                (32, torch.float32, f32), (144, torch.float32, f32),
+                                (32, torch.float32, "tensor_cores"), (144, torch.float32, "tensor_cores"),
                                 (20, torch.bfloat16, "cuda_cores"), (104, torch.bfloat16, "cuda_cores"),
                                 (264, torch.bfloat16, "cuda_cores")):
             x = torch.zeros((1, 40, 2, dh), dtype=dtype)
@@ -290,20 +289,26 @@ def test_route_is_the_tensor_cores_for_bf16_at_the_main_path_widths():
     (908, 32, False, "cuda_cores"), (44, 144, False, "cuda_cores"), (20, 32, False, "small_graph"),
 ])
 def test_route_in_float32(n, dh, aligned, want_pair):
-    """float32: the backward pair takes the tensor cores (3xTF32,
+    """float32: the forward and the backward pair take the tensor cores
+    (3xTF32, ``csrc/masked_attention_fwd_tc_f32.cu`` and
     ``csrc/masked_attention_bwd_tc_f32.cu``) at Dh 32 and 144 on more than 32
-    nodes with every base pointer 16-byte aligned, the forward the CUDA
-    cores; at most 32 nodes both take the small-graph route (the 3D family's
-    launch gates); other widths and inputs off a 16-byte boundary (any one of
-    them) take the CUDA-core kernels."""
+    nodes with every base pointer 16-byte aligned; at most 32 nodes both take
+    the small-graph route (the 3D family's launch gates); other widths and
+    inputs off a 16-byte boundary (any one of them) take the CUDA-core
+    kernels. Only ``tensors[3]`` is off a 16-byte boundary here: the
+    forward's expectation follows from its own three pointers, and off that
+    boundary it takes the CUDA cores as the pair does."""
     x = torch.zeros((1, n, 2, dh))
     tensors = [x, x, x, x]
     if not aligned:
         off = torch.empty(x.numel() + 1)[1:].view(x.shape)  # 4 bytes past a 16-byte boundary
         assert off.data_ptr() % 16 == 4
         tensors[3] = off
-    fwd = "small_graph" if n <= ca.SMALL_GRAPH_N else "cuda_cores"
+    small = n <= ca.SMALL_GRAPH_N
+    fwd = "small_graph" if small else "tensor_cores" if dh in ca.TENSOR_CORE_HEAD_DIMS else "cuda_cores"
     assert ca.route("masked_attention_fwd", *tensors[:3]) == fwd
+    assert ca.route("masked_attention_fwd", *tensors[1:]) == (fwd if aligned else
+                                                               "small_graph" if small else "cuda_cores")
     for name in ca.BACKWARD_PAIR:
         assert ca.route(name, *tensors) == want_pair, name
     assert (ca.route(ca.BACKWARD_PAIR[0], *tensors) == "tensor_cores") == (
@@ -313,6 +318,7 @@ def test_route_in_float32(n, dh, aligned, want_pair):
 @pytest.mark.parametrize("name, way, dtype, want", [
     ("masked_attention_fwd", "tensor_cores", torch.bfloat16, "masked_attention_fwd_tc"),
     ("masked_attention_fwd", "cuda_cores", torch.float32, "masked_attention_fwd"),
+    ("masked_attention_fwd", "tensor_cores", torch.float32, "masked_attention_fwd_tc_f32"),
     ("masked_attention_fwd", "small_graph", torch.float32, "masked_attention_fwd_small"),
     ("masked_attention_bwd_dq", "tensor_cores", torch.bfloat16, "masked_attention_bwd_dq_tc"),
     ("masked_attention_bwd_dq", "tensor_cores", torch.float32, "masked_attention_bwd_dq_tc_f32"),

@@ -81,11 +81,11 @@ def test_fwd_rows_with_no_edges_are_exact(n, dh, dtype):
 def test_fwd_route_sends_small_graphs_off_the_tensor_cores_to_the_small_kernel(n):
     """N <= 32 off the tensor-core route: the small-graph forward, in both
     types and for inputs 2 bytes off a 16-byte boundary; bf16 at Dh 32/144,
-    aligned, keeps the tensor cores at any N; above 32 nodes the CUDA-core
-    forward."""
+    aligned, keeps the tensor cores at any N, and f32 there takes them above
+    32 nodes (3xTF32); else above 32 nodes the CUDA-core forward."""
     small = n <= ca.SMALL_GRAPH_N
     for dh, dtype, tensor_cores in ((32, torch.bfloat16, True), (144, torch.bfloat16, True),
-                                    (32, torch.float32, False), (144, torch.float32, False),
+                                    (32, torch.float32, not small), (144, torch.float32, not small),
                                     (264, torch.float32, False), (24, torch.bfloat16, False),
                                     (271, torch.bfloat16, False)):
         x = torch.zeros((1, n, 2, dh), dtype=dtype)

@@ -87,23 +87,26 @@ def test_tensor_core_forward_rounding_holds_the_bf16_gate(dh):
 
 def test_every_source_and_its_entry_points_are_bound():
     """Each source exists, every C function's library is a source, and each
-    kernel with a tensor-core route has its ``_tc`` entry point in the
-    tensor-core library of its own source."""
+    kernel with a tensor-core route has its ``_tc`` (bf16) and ``_tc_f32``
+    (f32, 3xTF32) entry points in the tensor-core library of their own
+    source."""
     assert all(p.is_file() for p in ca.SOURCES.values())
     assert {lib for lib, _ in ca._SIGNATURES.values()} == set(ca.SOURCES)
     for name in ca.TENSOR_CORE_KERNELS:
-        assert name in ca._SIGNATURES and ca._SIGNATURES[name + "_tc"][0].endswith("_tc")
-        assert ca._SIGNATURES[name + "_tc"][1] == ca._SIGNATURES[name][1]  # the same C signature
+        for suffix in ("_tc", "_tc_f32"):
+            assert name in ca._SIGNATURES and ca._SIGNATURES[name + suffix][0].endswith(suffix)
+            assert ca._SIGNATURES[name + suffix][1] == ca._SIGNATURES[name][1]  # the same C signature
     assert ca._SIGNATURES["masked_attention_fwd_tc"][0] == "fwd_tc"
+    assert ca._SIGNATURES["masked_attention_fwd_tc_f32"][0] == "fwd_tc_f32"
 
 
 def test_library_hash_covers_the_shared_header(tmp_path, monkeypatch):
-    """Both tensor-core sources include the shared header, and each
+    """Every tensor-core source includes the shared header, and each
     library's name hashes it with the source: an edit to the header builds
     anew instead of loading a stale library."""
     header = ca._PKG / "csrc" / "tc_common.cuh"
     assert header in ca.HEADERS
-    for key in ("fwd_tc", "bwd_tc"):
+    for key in ("fwd_tc", "bwd_tc", "fwd_tc_f32", "bwd_tc_f32"):
         assert '#include "tc_common.cuh"' in ca.SOURCES[key].read_text()
     fake = tmp_path / "tc_common.cuh"
     fake.write_text("// one\n")

@@ -106,7 +106,8 @@ def test_route_sends_small_graphs_off_the_tensor_cores_to_the_fused_kernel(n):
     cores at any N; above 32 nodes the CUDA cores, except the f32 backward
     pair at Dh 32/144, which takes the tensor cores there (3xTF32). The
     forward takes the same route as the backward (its small-graph kernel at
-    N <= 32 off the tensor cores), but the CUDA cores in f32 above 32 nodes."""
+    N <= 32 off the tensor cores), the tensor cores in f32 at Dh 32/144 above
+    32 nodes too."""
     small = n <= ca.SMALL_GRAPH_N
     for dh, dtype, tensor_cores in ((32, torch.bfloat16, True), (144, torch.bfloat16, True),
                                     (32, torch.float32, False), (264, torch.float32, False),
@@ -117,7 +118,7 @@ def test_route_sends_small_graphs_off_the_tensor_cores_to_the_fused_kernel(n):
         for name in ca.BACKWARD_PAIR:
             assert ca.route(name, x, x, x) == ("tensor_cores" if f32_pair else want), (n, dh, dtype, name)
         assert ca.route("masked_attention_bwd_small", x, x, x) == "small_graph"
-        assert ca.route("masked_attention_fwd", x, x, x) == want
+        assert ca.route("masked_attention_fwd", x, x, x) == ("tensor_cores" if f32_pair else want)
     off = torch.zeros((1, n, 2, 33), dtype=torch.bfloat16)[..., 1:]  # 2 bytes off a 16-byte boundary
     assert off.data_ptr() % 16 == 2
     for name in ca.BACKWARD_PAIR:

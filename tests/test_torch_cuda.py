@@ -79,16 +79,16 @@ def _misaligned(x):
 def test_cuda_kernel_matches_plain(n, dh, dtype, route, card):
     """O within 1e-5 relative (f32) or one bf16 ulp plus the plain version's
     rounding of probabilities to bf16 (bf16); L within 1e-5; empty rows
-    exactly 0 with the plain version's L. By width, bfloat16 at Dh 32 and
-    144 takes the tensor-core forward and everything else the CUDA-core
-    forward; with inputs off a 16-byte boundary every call takes the
-    CUDA-core forward."""
+    exactly 0 with the plain version's L. By width, Dh 32 and 144 take the
+    tensor-core forward (bf16, and f32 on these graphs of more than 32
+    nodes: 3xTF32) and everything else the CUDA-core forward; with inputs off
+    a 16-byte boundary every call takes the CUDA-core forward."""
     dt = getattr(torch, dtype)
     q, k, v, adj = (x.to(card) for x in _inputs(2, n, 8, dh, seed=n + dh))
     q, k, v = (x.to(dt) for x in (q, k, v))
     if route == "cuda_cores":
         q, k, v = (_misaligned(x) for x in (q, k, v))
-    tensor_cores = route == "by width" and dt == torch.bfloat16 and dh in (32, 144)
+    tensor_cores = route == "by width" and dh in (32, 144)
     want = "tensor_cores" if tensor_cores else "cuda_cores"
     assert cuda_attention.route("masked_attention_fwd", q, k, v, adj) == want
     before = cuda_attention.masked_attention_fwd.launches
@@ -283,10 +283,43 @@ def test_cuda_f32_tensor_core_pair_matches_plain(n, dh, heads, card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("heads", [8, 4])
+@pytest.mark.parametrize("dh", [32, 144])
+@pytest.mark.parametrize("n", [44, 152, 908])
+def test_cuda_f32_tensor_core_forward_matches_plain(n, dh, heads, card):
+    """The float32 tensor-core forward (3xTF32,
+    ``csrc/masked_attention_fwd_tc_f32.cu``) at the 2D paths' graph sizes
+    and head counts: each launch counted on the tensor cores as
+    ``masked_attention_fwd_tc_f32``; O within 1e-5 relative plus 1e-5 of
+    max|v| of its plain version, L within 1e-5 of 1 + |L|, empty rows
+    exactly 0 with the plain version's L bit for bit, and keys no query
+    attends left out."""
+    q, k, v, adj = (x.to(card) for x in _inputs(2, n, heads, dh, seed=5 * n + dh))
+    adj[0, :, 10:13] = False  # keys no query attends
+    kern = cuda_attention.masked_attention_fwd
+    assert cuda_attention.route(kern.__name__, q, k, v, adj) == "tensor_cores"
+    before = kern.launches_by_route["tensor_cores"]
+    before_fn = kern.launches_by_function.get("masked_attention_fwd_tc_f32", 0)
+    o, lse = kern(q, k, v, adj)
+    torch.cuda.synchronize()
+    assert kern.launches_by_route["tensor_cores"] == before + 1
+    assert kern.launches_by_function["masked_attention_fwd_tc_f32"] == before_fn + 1
+    o_p, l_p = cuda_attention.masked_attention_fwd_plain(q, k, v, adj)
+    assert o.dtype == torch.float32 and bool(torch.isfinite(o).all()) and bool(torch.isfinite(lse).all())
+    assert bool(((o - o_p).abs() <= 1e-5 * o_p.abs() + 1e-5 * v.abs().max()).all())
+    empty = ~adj.any(-1)
+    assert int(empty.sum()) >= 3 and int((~adj.any(-2)).sum()) >= 3 and bool((o[empty] == 0).all())
+    nonempty = ~empty[:, None, :].expand_as(lse)
+    assert bool(((lse - l_p).abs()[nonempty] <= 1e-5 * (1 + l_p.abs()[nonempty])).all())
+    assert torch.equal(lse[~nonempty], l_p[~nonempty])
+
+
+@pytest.mark.cuda
 def test_cuda_f32_function_backward_at_908_nodes_launches_the_pair_on_the_tensor_cores(card):
     """``MaskedAttention`` in float32 on the flagship's graph size (N = 908,
-    Dh 32): the forward on the CUDA cores, dQ and dK/dV on the tensor cores,
-    and the gradients those kernels give on the forward's O and L."""
+    Dh 32): one forward launch, ``masked_attention_fwd_tc_f32``, and dQ and
+    dK/dV, all on the tensor cores, and the gradients those kernels give on
+    the forward's O and L."""
     q, k, v, adj = (x.to(card) for x in _inputs(2, 908, 8, 32, seed=11))
     q, k, v = (x.requires_grad_(True) for x in (q, k, v))
     dout = torch.randn(q.shape, generator=torch.Generator(device=card).manual_seed(11), device=card)
@@ -298,10 +331,10 @@ def test_cuda_f32_function_backward_at_908_nodes_launches_the_pair_on_the_tensor
     torch.cuda.synchronize()
     after = [kern.launches_by_route for kern in kernels]
     moved = [{r: a[r] - b[r] for r in a if a[r] != b[r]} for a, b in zip(after, before)]
-    assert moved == [{"cuda_cores": 1}, {"tensor_cores": 1}, {"tensor_cores": 1}]
+    assert moved == [{"tensor_cores": 1}, {"tensor_cores": 1}, {"tensor_cores": 1}]
     moved = [{f: n - b.get(f, 0) for f, n in kern.launches_by_function.items() if n != b.get(f, 0)}
              for kern, b in zip(kernels, before_fn)]
-    assert moved == [{"masked_attention_fwd": 1}, {"masked_attention_bwd_dq_tc_f32": 1},
+    assert moved == [{"masked_attention_fwd_tc_f32": 1}, {"masked_attention_bwd_dq_tc_f32": 1},
                      {"masked_attention_bwd_dkv_tc_f32": 1}]
     o, lse = cuda_attention.masked_attention_fwd(q.detach(), k.detach(), v.detach(), adj)
     args = (q.detach(), k.detach(), v.detach(), adj, dout, lse, cuda_attention.attention_delta(dout, o))
